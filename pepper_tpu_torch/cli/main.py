@@ -69,7 +69,15 @@ def _add_inference_args(parser):
     parser.add_argument("--compute_dtype", default="bfloat16",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--quantized", action="store_true", default=False,
-                        help="int8 serving; not ported yet (raises).")
+                        help="Serve int8-quantized weights.")
+    parser.add_argument("--no_quantized", dest="quantized",
+                        action="store_false")
+    parser.add_argument("--quantize_mode", default="static",
+                        choices=["static", "static_rec", "dynamic"],
+                        help="int8 serving mode: static (exact 1/127 "
+                             "activation scales, fused int8 kernels), "
+                             "static_rec (also int8 recurrent matmuls) or "
+                             "dynamic (per-batch absmax quantization).")
     parser.add_argument("--device_pileup", action="store_true",
                         default=False, help="Not ported yet (raises).")
     parser.add_argument("--num_devices", type=int, default=-1,

@@ -1,7 +1,8 @@
 """Batched inference over candidate windows on one torch device.
 
-Windows stream in-process into padded batches through the transducer: the
-int8 window images are uploaded as int8 from pinned host memory and cast to
+Windows stream in-process into padded batches through the transducer, in
+float or in one of the int8 serving modes of models/quantize.py: the int8
+window images are uploaded as int8 from pinned host memory and cast to
 the compute dtype on the device; `dispatch` enqueues a batch and returns at
 once, `resolve` waits for it, so the streaming pipeline overlaps batch k's
 device work with host window generation for batch k+1.
@@ -13,6 +14,8 @@ import numpy as np
 import torch
 
 from ..decode.candidate_finder import CandidatePrediction
+from ..models import quantize
+from ..models.transducer import map_params, params_from_jax
 from ..options import ImageOptions
 
 
@@ -34,14 +37,12 @@ class InferenceRunner:
                  window: int = ImageOptions.CANDIDATE_WINDOW_SIZE + 1,
                  features: int = ImageOptions.IMAGE_HEIGHT,
                  quantized: bool = False, model_type: str = "lstm",
-                 device=None):
-        from ..models.registry import make_family
-        from ..models.transducer import map_params, params_from_jax
-
-        if quantized:
-            raise NotImplementedError(
-                "--quantized (static int8 serving, models/quantize.py) is "
-                "not ported yet: ROADMAP.md queue A, item 5")
+                 quantize_mode: str = "static", device=None):
+        if quantize_mode not in quantize.QUANTIZE_MODES:
+            raise ValueError(f"unknown quantize_mode {quantize_mode!r}")
+        if quantized and model_type != "lstm":
+            raise ValueError("quantized serving is only supported for "
+                             "the lstm family")
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.window = window
@@ -49,19 +50,42 @@ class InferenceRunner:
         self.compute_dtype = (torch.bfloat16 if compute_dtype == "bfloat16"
                               else torch.float32)
         self.model_type = model_type
+        self.quantized = quantized
+        self.quantize_mode = quantize_mode
         # one device; a multi-device runner must keep every bucket divisible
         # by this count (see _bucket)
         self.num_devices = 1
-        self._family_infer = make_family(
-            model_type, image_features=features, window=window).infer
-        # device-resident once, already in the compute dtype, so a dispatch
-        # moves only the windows
-        self.params = map_params(
-            lambda p: p.to(self.compute_dtype),
-            params_from_jax(params, self.device))
+        # every tree is made device-resident once, its dtypes set once, so
+        # a dispatch moves only the windows
+        if not quantized:
+            from ..models.registry import make_family
+
+            self._family_infer = make_family(
+                model_type, image_features=features, window=window).infer
+            self.params = map_params(
+                lambda p: p.to(self.compute_dtype),
+                params_from_jax(params, self.device))
+        elif quantize_mode == "dynamic":
+            q, scales = quantize.quantize_params(params)
+            self.params = params_from_jax(q, self.device)
+            self._scales = params_from_jax(scales, self.device)
+        else:
+            self.params = quantize.prepare_static(
+                quantize.quantize_params_static(
+                    params, rec_int8=quantize_mode == "static_rec"),
+                self.compute_dtype, self.device)
 
     def _forward(self, padded: torch.Tensor) -> torch.Tensor:
-        return self._family_infer(self.params, padded, self.compute_dtype)
+        if not self.quantized:
+            return self._family_infer(self.params, padded,
+                                      self.compute_dtype)
+        if self.quantize_mode == "dynamic":
+            # the recurrences run in bfloat16 whatever compute_dtype says,
+            # as in the JAX package's runner
+            return quantize.transducer_infer_quantized(
+                self.params, self._scales, padded)
+        return quantize.transducer_infer_static(self.params, padded,
+                                                self.compute_dtype)
 
     def _upload_dtype(self, images: np.ndarray):
         """int8 window images ship to the device as int8 (a quarter of the

@@ -61,9 +61,11 @@ def init_transducer_params(generator: torch.Generator,
 
 def params_from_jax(tree, device) -> dict:
     """The JAX package's parameter tree (numpy arrays, the .npz keys) as
-    the port's nested dict of tensors on `device`, dtypes unchanged."""
+    the port's nested dict of tensors on `device`, dtypes unchanged; None
+    leaves (the int8 modes' unquantized scales) stay None."""
     return {
         name: (params_from_jax(value, device) if isinstance(value, dict)
+               else None if value is None
                else torch.as_tensor(value).to(device).contiguous())
         for name, value in tree.items()
     }

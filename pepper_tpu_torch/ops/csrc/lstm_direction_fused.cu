@@ -22,7 +22,9 @@
 // as f32 laid out [feature][row] so one 16-byte broadcast read feeds four
 // rows.  The weights are read from global memory every step: W_hh alone is
 // 512 KB in bf16 at H=256, more than one SM's shared memory, and the whole
-// weight set stays resident in the 50 MB L2.
+// weight set stays resident in the 50 MB L2.  The body is
+// lstm::direction_body in lstm_cell.cuh, which bilstm_dual_fused.cu runs
+// for both directions in one launch.
 //
 // Bound.  2*T*B*(F+H)*4H operations against x in + h out bytes: at the
 // serving shapes the work is far above the card's ridge point, so it is
@@ -33,76 +35,12 @@
 // Binding: a plain C launcher (no PyTorch headers) loaded with ctypes; it
 // launches on the caller's stream and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <stdint.h>
+#include "lstm_cell.cuh"
 
 namespace {
 
-constexpr int kRows = 16;          // BT: batch rows per block
-constexpr int kMaxHidden = 256;    // threads per block = H
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);  // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-// acc[r][q] += sum_k s[k][r] * w[k][q*H + j] over K features.
-template <typename T>
-__device__ __forceinline__ void accumulate(float (&acc)[kRows][4],
-                                           const float* __restrict__ s,
-                                           const T* __restrict__ w, int K,
-                                           int H, int j) {
-  const int G = 4 * H;
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    const T* wk = w + static_cast<size_t>(k) * G + j;
-    const float wq[4] = {to_f32(wk[0]), to_f32(wk[H]), to_f32(wk[2 * H]),
-                         to_f32(wk[3 * H])};
-    const float4* sk = reinterpret_cast<const float4*>(s + k * kRows);
-#pragma unroll
-    for (int v = 0; v < kRows / 4; ++v) {
-      const float4 x = sk[v];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        acc[4 * v + 0][q] += x.x * wq[q];
-        acc[4 * v + 1][q] += x.y * wq[q];
-        acc[4 * v + 2][q] += x.z * wq[q];
-        acc[4 * v + 3][q] += x.w * wq[q];
-      }
-    }
-  }
-}
-
-// Stage rows [b0, b0+kRows) of x[t] (F_part features) into s[k][r], with
-// zeros for rows past the batch.
-template <typename T>
-__device__ __forceinline__ void stage(float* __restrict__ s,
-                                      const T* __restrict__ x, int F_part,
-                                      int t, int B, int b0) {
-  const size_t base = static_cast<size_t>(t) * B;
-  for (int idx = threadIdx.x; idx < kRows * F_part; idx += blockDim.x) {
-    const int r = idx / F_part;
-    const int k = idx - r * F_part;
-    const int row = b0 + r;
-    s[k * kRows + r] =
-        row < B ? to_f32(x[(base + row) * F_part + k]) : 0.0f;
-  }
-}
+using lstm::kMaxHidden;
+using lstm::kRows;
 
 template <typename T>
 __global__ void __launch_bounds__(kMaxHidden)
@@ -115,53 +53,8 @@ __global__ void __launch_bounds__(kMaxHidden)
                                 T* __restrict__ out, int steps, int B, int H,
                                 int reverse) {
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                          // [F0 + F1][kRows]
-  float* hs = smem + (F0 + F1) * kRows;      // [H][kRows]
-  const int j = threadIdx.x;
-  const int b0 = blockIdx.x * kRows;
-
-  const float b_q[4] = {to_f32(bias[j]), to_f32(bias[H + j]),
-                        to_f32(bias[2 * H + j]), to_f32(bias[3 * H + j])};
-  float c[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    c[r] = 0.0f;
-    hs[j * kRows + r] = 0.0f;
-  }
-
-  for (int step = 0; step < steps; ++step) {
-    const int t = reverse ? steps - 1 - step : step;
-    stage(xs, x0, F0, t, B, b0);
-    if (F1 > 0) stage(xs + F0 * kRows, x1, F1, t, B, b0);
-    __syncthreads();  // x staged; last step's h visible
-
-    float acc[kRows][4];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r][q] = b_q[q];
-    }
-    accumulate(acc, xs, w0, F0, H, j);
-    if (F1 > 0) accumulate(acc, xs + F0 * kRows, w1, F1, H, j);
-    accumulate(acc, hs, w_hh, H, H, j);
-    __syncthreads();  // every thread is done reading xs and hs
-
-    const size_t base = static_cast<size_t>(t) * B;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float ig = sigmoid(acc[r][0]);
-      const float fg = sigmoid(acc[r][1]);
-      const float gg = tanhf(acc[r][2]);
-      const float og = sigmoid(acc[r][3]);
-      c[r] = fg * c[r] + ig * gg;
-      const float h = og * tanhf(c[r]);
-      const T h_out = from_f32<T>(h);
-      // the recurrent product reads h rounded to the weight dtype
-      hs[j * kRows + r] = to_f32(h_out);
-      const int row = b0 + r;
-      if (row < B) out[(base + row) * H + j] = h_out;
-    }
-  }
+  lstm::direction_body(smem, x0, x1, w0, w1, F0, F1, bias, w_hh, out, steps,
+                       B, H, reverse, static_cast<int>(blockIdx.x) * kRows);
 }
 
 template <typename T>
@@ -213,7 +106,5 @@ int lstm_direction_fused_launch(int dtype, const void* x0, const void* x1,
 const char* lstm_direction_fused_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
-
-int lstm_direction_fused_max_hidden(void) { return kMaxHidden; }
 
 }  // extern "C"

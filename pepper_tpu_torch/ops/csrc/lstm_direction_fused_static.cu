@@ -1,0 +1,335 @@
+// One LSTM direction with static int8 streams, for Hopper (sm_90a).
+// Replaces the TPU kernel
+// pepper_tpu/ops/lstm_kernel.py::lstm_direction_fused_static (body
+// _make_fused_kernel_static), the kernel of the static int8 serving modes.
+// Per step, with t running T-1..0 when `reverse`:
+//
+//   gates = b                                                   (f32)
+//   float x:  gates += sum_i x_i[t] @ W_ih_i                    (f32 sums)
+//   int8 x:   gates += f32(sum_i x_i[t] @ W_ih_i) * acc_scale   (int32 sums)
+//   float W_hh: gates += bf(h) @ W_hh                           (f32 sums)
+//   int8 W_hh:  gates += f32(round(h*127) @ W_hh) * rec_scale   (int32 sums)
+//   i, f, g, o = sigmoid, sigmoid, tanh, sigmoid ; c = f*c + i*g ;
+//   h = o * tanh(c)                                             (f32 state)
+//   out[t] = round(h*127) as int8, or h in float32 / bfloat16
+//
+// bf(h) is h rounded to W_hh's dtype.  Float x parts and W_ih share one
+// dtype (float32 or bfloat16), and a float W_hh has that dtype too; int8 x
+// (codes of tanh-bounded streams, scale exactly 1/127) takes a float32 or
+// bfloat16 W_hh, or an int8 one.  round() is round-half-to-even
+// (__float2int_rn), as jnp.round and torch.round are: the int8 recurrence
+// feeds its own codes back, so a different tie rule would drift.  The int32
+// sums of both parts are taken before the single rescale, and the rescales
+// use __fmul_rn/__fadd_rn, so no multiply-add is contracted: those steps
+// round exactly as the plain version's separate multiply and add.
+//
+// Design.  The layout of lstm_cell.cuh: a block owns kRows batch rows for
+// all T steps, thread j owns hidden unit j and its four gate columns, c
+// stays in registers.  Float streams take the float path of lstm_cell.cuh.
+// The int8 products run on __dp4a, four k at a time: the int8 x rows are
+// staged in shared memory as 32-bit words of four consecutive features
+// ([k/4][row]), the h codes likewise, and the wrapper hands int8 weights
+// over packed into k-quads ([k/4][4H] words, byte i = row 4*(k/4)+i), so
+// thread j reads one word per gate column and k-quad, coalesced across the
+// warp.
+//
+// Bound.  At B=4096, T=33, H=256 the work is far above the card's ridge
+// point, so operations bound it: the static decoder does 141.7 GOP of int8
+// and 70.9 GFLOP of bf16 products (0.143 ms on the tensor cores).  This
+// first version runs them on the CUDA cores (dp4a and f32 FMA), so it is
+// far above that bound; int8 mma/wgmma is later work.
+//
+// Binding: a plain C launcher (no PyTorch headers) loaded with ctypes; it
+// launches on the caller's stream and returns cudaGetLastError().
+
+#include "lstm_cell.cuh"
+
+#include <type_traits>
+
+namespace {
+
+using lstm::kMaxHidden;
+using lstm::kRows;
+
+// Stage rows [b0, b0+kRows) of the int8 x[t] (F_part features, a multiple
+// of 4) into s[k/4][r] as words of four features; zeros past the batch.
+__device__ __forceinline__ void stage_quads(int* __restrict__ s,
+                                            const int8_t* __restrict__ x,
+                                            int F_part, int t, int B,
+                                            int b0) {
+  const int FQ = F_part / 4;
+  const int* xq = reinterpret_cast<const int*>(x);
+  const size_t base = static_cast<size_t>(t) * B;
+  for (int idx = threadIdx.x; idx < kRows * FQ; idx += blockDim.x) {
+    const int r = idx / FQ;
+    const int kq = idx - r * FQ;
+    const int row = b0 + r;
+    s[kq * kRows + r] = row < B ? xq[(base + row) * FQ + kq] : 0;
+  }
+}
+
+// acc[r][q] += sum over k-quads of dp4a(s[kq][r], w[kq][q*H + j]).
+__device__ __forceinline__ void accumulate_quads(int (&acc)[kRows][4],
+                                                 const int* __restrict__ s,
+                                                 const int* __restrict__ w,
+                                                 int KQ, int H, int j) {
+  const int G = 4 * H;
+#pragma unroll 2
+  for (int kq = 0; kq < KQ; ++kq) {
+    const int* wk = w + static_cast<size_t>(kq) * G + j;
+    const int wq[4] = {wk[0], wk[H], wk[2 * H], wk[3 * H]};
+    const int4* sk = reinterpret_cast<const int4*>(s + kq * kRows);
+#pragma unroll
+    for (int v = 0; v < kRows / 4; ++v) {
+      const int4 x = sk[v];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[4 * v + 0][q] = __dp4a(x.x, wq[q], acc[4 * v + 0][q]);
+        acc[4 * v + 1][q] = __dp4a(x.y, wq[q], acc[4 * v + 1][q]);
+        acc[4 * v + 2][q] = __dp4a(x.z, wq[q], acc[4 * v + 2][q]);
+        acc[4 * v + 3][q] = __dp4a(x.w, wq[q], acc[4 * v + 3][q]);
+      }
+    }
+  }
+}
+
+// gates[r][q] = gates[r][q] + f32(acc[r][q]) * scale[q], rounded as two
+// separate operations.
+__device__ __forceinline__ void add_rescaled(float (&gates)[kRows][4],
+                                             const int (&acc)[kRows][4],
+                                             const float (&scale)[4]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      gates[r][q] = __fadd_rn(
+          gates[r][q], __fmul_rn(static_cast<float>(acc[r][q]), scale[q]));
+    }
+  }
+}
+
+__device__ __forceinline__ int8_t code(float h) {
+  return static_cast<int8_t>(__float2int_rn(__fmul_rn(h, 127.0f)));
+}
+
+constexpr int kOutF32 = 0;
+constexpr int kOutBf16 = 1;
+constexpr int kOutInt8 = 2;
+
+// TX: the dtype of x (float, __nv_bfloat16 or int8_t); TW: that of W_hh.
+// w0/w1 are TX for float x and k-quad words for int8 x; w_hh is TW for a
+// float W_hh and k-quad words for an int8 one.
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(kMaxHidden)
+    lstm_static_kernel(const TX* __restrict__ x0, const TX* __restrict__ x1,
+                       const void* __restrict__ w0,
+                       const void* __restrict__ w1, int F0, int F1,
+                       const float* __restrict__ acc_scale,
+                       const float* __restrict__ rec_scale,
+                       const float* __restrict__ bias,
+                       const void* __restrict__ w_hh, void* __restrict__ out,
+                       int out_kind, int steps, int B, int H, int reverse) {
+  constexpr bool kIntX = std::is_same<TX, int8_t>::value;
+  constexpr bool kIntRec = std::is_same<TW, int8_t>::value;
+  extern __shared__ __align__(16) float smem[];
+  // x rows: floats [F][kRows], or words [F/4][kRows] for int8 x
+  const int x_words = (kIntX ? (F0 + F1) / 4 : F0 + F1) * kRows;
+  float* xs = smem;
+  int* xq = reinterpret_cast<int*>(smem);
+  // h: floats [H][kRows], or code words [H/4][kRows] for an int8 W_hh
+  float* hs = smem + x_words;
+  int* hq = reinterpret_cast<int*>(hs);
+  int8_t* hq_bytes = reinterpret_cast<int8_t*>(hs);
+  const int j = threadIdx.x;
+  const int b0 = static_cast<int>(blockIdx.x) * kRows;
+
+  const float b_q[4] = {bias[j], bias[H + j], bias[2 * H + j],
+                        bias[3 * H + j]};
+  float a_q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float r_q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (kIntX) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a_q[q] = acc_scale[q * H + j];
+  }
+  if (kIntRec) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) r_q[q] = rec_scale[q * H + j];
+  }
+
+  float c[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) c[r] = 0.0f;
+  if (kIntRec) {
+    for (int idx = j; idx < (H / 4) * kRows; idx += blockDim.x) hq[idx] = 0;
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) hs[j * kRows + r] = 0.0f;
+  }
+
+  for (int step = 0; step < steps; ++step) {
+    const int t = reverse ? steps - 1 - step : step;
+    if constexpr (kIntX) {
+      stage_quads(xq, reinterpret_cast<const int8_t*>(x0), F0, t, B, b0);
+      if (F1 > 0) {
+        stage_quads(xq + (F0 / 4) * kRows,
+                    reinterpret_cast<const int8_t*>(x1), F1, t, B, b0);
+      }
+    } else {
+      lstm::stage(xs, x0, F0, t, B, b0);
+      if (F1 > 0) lstm::stage(xs + F0 * kRows, x1, F1, t, B, b0);
+    }
+    __syncthreads();  // x staged; last step's h visible
+
+    float gates[kRows][4];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) gates[r][q] = b_q[q];
+    }
+    if constexpr (kIntX) {
+      int acc[kRows][4];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = 0;
+      }
+      accumulate_quads(acc, xq, static_cast<const int*>(w0), F0 / 4, H, j);
+      if (F1 > 0) {
+        accumulate_quads(acc, xq + (F0 / 4) * kRows,
+                         static_cast<const int*>(w1), F1 / 4, H, j);
+      }
+      add_rescaled(gates, acc, a_q);
+    } else {
+      lstm::accumulate(gates, xs, static_cast<const TX*>(w0), F0, H, j);
+      if (F1 > 0) {
+        lstm::accumulate(gates, xs + F0 * kRows, static_cast<const TX*>(w1),
+                         F1, H, j);
+      }
+    }
+    if constexpr (kIntRec) {
+      int acc[kRows][4];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = 0;
+      }
+      accumulate_quads(acc, hq, static_cast<const int*>(w_hh), H / 4, H, j);
+      add_rescaled(gates, acc, r_q);
+    } else {
+      lstm::accumulate(gates, hs, static_cast<const TW*>(w_hh), H, H, j);
+    }
+    __syncthreads();  // every thread is done reading the staged x and h
+
+    const size_t base = static_cast<size_t>(t) * B;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float ig = lstm::sigmoid(gates[r][0]);
+      const float fg = lstm::sigmoid(gates[r][1]);
+      const float gg = tanhf(gates[r][2]);
+      const float og = lstm::sigmoid(gates[r][3]);
+      c[r] = fg * c[r] + ig * gg;
+      const float h = og * tanhf(c[r]);
+      if constexpr (kIntRec) {
+        // unit j is byte j%4 of word [j/4][r]
+        hq_bytes[((j >> 2) * kRows + r) * 4 + (j & 3)] = code(h);
+      } else {
+        hs[j * kRows + r] = lstm::to_f32(lstm::from_f32<TW>(h));
+      }
+      const int row = b0 + r;
+      if (row < B) {
+        const size_t o = (base + row) * H + j;
+        if (out_kind == kOutInt8) {
+          static_cast<int8_t*>(out)[o] = code(h);
+        } else if (out_kind == kOutBf16) {
+          static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(h);
+        } else {
+          static_cast<float*>(out)[o] = h;
+        }
+      }
+    }
+  }
+}
+
+template <typename TX, typename TW>
+int launch(const void* x0, const void* x1, const void* w0, const void* w1,
+           int F0, int F1, const float* acc_scale, const float* rec_scale,
+           const float* bias, const void* w_hh, void* out, int out_kind,
+           int steps, int B, int H, int reverse, cudaStream_t stream) {
+  constexpr bool kIntX = std::is_same<TX, int8_t>::value;
+  constexpr bool kIntRec = std::is_same<TW, int8_t>::value;
+  const size_t x_bytes =
+      static_cast<size_t>(F0 + F1) * kRows * (kIntX ? 1 : sizeof(float));
+  const size_t h_bytes =
+      static_cast<size_t>(H) * kRows * (kIntRec ? 1 : sizeof(float));
+  const size_t smem = x_bytes + h_bytes;
+  auto kernel = lstm_static_kernel<TX, TW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((B + kRows - 1) / kRows);
+  kernel<<<grid, H, smem, stream>>>(
+      static_cast<const TX*>(x0), static_cast<const TX*>(x1), w0, w1, F0, F1,
+      acc_scale, rec_scale, bias, w_hh, out, out_kind, steps, B, H, reverse);
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kF32 = 0;
+constexpr int kBf16 = 1;
+constexpr int kInt8 = 2;
+
+}  // namespace
+
+extern "C" {
+
+// x_dtype, whh_dtype: 0 = float32, 1 = bfloat16, 2 = int8 (w0/w1 resp.
+// w_hh then in k-quad words); out_kind: 0 = float32, 1 = bfloat16,
+// 2 = int8 codes.  acc_scale is read for int8 x, rec_scale for an int8
+// W_hh; bias is float32.  x1/w1 may be null with F1 == 0.  Returns a
+// cudaError_t value (0 on success).
+int lstm_direction_fused_static_launch(
+    int x_dtype, int whh_dtype, int out_kind, const void* x0, const void* x1,
+    const void* w0, const void* w1, int F0, int F1, const float* acc_scale,
+    const float* rec_scale, const float* bias, const void* w_hh, void* out,
+    int steps, int B, int H, int reverse, void* stream) {
+  const bool int_x = x_dtype == kInt8;
+  if (H <= 0 || H > kMaxHidden || H % 32 != 0 || F0 <= 0 || F1 < 0 ||
+      steps <= 0 || B <= 0 || out_kind < kOutF32 || out_kind > kOutInt8 ||
+      (int_x && (F0 % 4 != 0 || F1 % 4 != 0 || acc_scale == nullptr)) ||
+      (whh_dtype == kInt8 && rec_scale == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PEPPER_STATIC_LAUNCH(TX, TW)                                       \
+  launch<TX, TW>(x0, x1, w0, w1, F0, F1, acc_scale, rec_scale, bias, w_hh, \
+                 out, out_kind, steps, B, H, reverse, s)
+  if (x_dtype == kF32 && whh_dtype == kF32) {
+    return PEPPER_STATIC_LAUNCH(float, float);
+  }
+  if (x_dtype == kF32 && whh_dtype == kInt8) {
+    return PEPPER_STATIC_LAUNCH(float, int8_t);
+  }
+  if (x_dtype == kBf16 && whh_dtype == kBf16) {
+    return PEPPER_STATIC_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  }
+  if (x_dtype == kBf16 && whh_dtype == kInt8) {
+    return PEPPER_STATIC_LAUNCH(__nv_bfloat16, int8_t);
+  }
+  if (x_dtype == kInt8 && whh_dtype == kF32) {
+    return PEPPER_STATIC_LAUNCH(int8_t, float);
+  }
+  if (x_dtype == kInt8 && whh_dtype == kBf16) {
+    return PEPPER_STATIC_LAUNCH(int8_t, __nv_bfloat16);
+  }
+  if (x_dtype == kInt8 && whh_dtype == kInt8) {
+    return PEPPER_STATIC_LAUNCH(int8_t, int8_t);
+  }
+#undef PEPPER_STATIC_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+const char* lstm_direction_fused_static_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

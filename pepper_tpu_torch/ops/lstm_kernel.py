@@ -1,19 +1,30 @@
-"""The fused LSTM direction: a hand-written CUDA kernel for Hopper and its
-plain PyTorch twin.
+"""The port's LSTM kernels: hand-written CUDA kernels for Hopper and their
+plain PyTorch twins.
 
-`lstm_direction_fused` replaces the TPU kernel of the same name
-(pepper_tpu/ops/lstm_kernel.py::lstm_direction_fused).  On a CUDA tensor it
-launches the kernel in csrc/lstm_direction_fused.cu (built with nvcc for
-sm_90a at first use, bound through ctypes); on a CPU tensor it runs
-`lstm_direction_fused_reference`, which does the same math as a Python loop
-over T.  There is no fallback from one to the other: a failed build or
-launch raises.
+Each wrapper is the counterpart of the TPU kernel of the same name in
+pepper_tpu/ops/lstm_kernel.py (`lstm_recurrence` of
+lstm_recurrence_pallas):
 
-Both compute, per step, gates = f32(b) + sum_i x_i[t] @ W_ih_i +
-bf(h) @ W_hh with f32 accumulation and f32 h/c state, where bf(h) is h
+  lstm_direction_fused         one direction, the input projection fused in
+  bilstm_dual_fused            both directions of it in one launch
+  lstm_direction_fused_static  one direction with static int8 streams (the
+                               static int8 serving modes)
+  lstm_recurrence              the recurrence over a precomputed xw (the
+                               dynamic int8 serving mode)
+
+On a CUDA tensor a wrapper launches its kernel, built from csrc/<name>.cu
+with nvcc for sm_90a at first use and bound through ctypes, and adds one to
+its `launches`; on a CPU tensor it runs its `*_reference` twin, which does
+the same math in plain PyTorch.  There is no fallback from one to the
+other: a failed build or launch raises.
+
+The float kernels compute, per step, gates = f32(b) + sum_i x_i[t] @ W_ih_i
++ bf(h) @ W_hh with f32 accumulation and f32 h/c state, where bf(h) is h
 rounded to the weight dtype; h is emitted in the input dtype.  The bias is
 upcast from whatever dtype the caller holds it in (transducer_infer casts
-every param to the compute dtype first, as the JAX package does).
+every param to the compute dtype first, as the JAX package does).  The
+static kernel's int8 products are exact int32 sums with one float32
+rescale, and its int8 codes are round(h*127), round-half-to-even.
 """
 
 from __future__ import annotations
@@ -26,69 +37,186 @@ import subprocess
 import torch
 
 from ..build import BUILD_DIR, ensure_built, source_digest
+from .int8_matmul import int8_matmul
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-KERNEL_SOURCE = os.path.join(_CSRC, "lstm_direction_fused.cu")
-_LIB_NAME = "liblstm_direction_fused.so"
-_PTXAS_LOG = "lstm_direction_fused.ptxas.txt"
+_HEADER = os.path.join(_CSRC, "lstm_cell.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+MAX_HIDDEN = 256    # lstm::kMaxHidden in csrc/lstm_cell.cuh
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each library's <name>_launch(...) -> cudaError_t
+_LAUNCH_ARGS = {
+    "lstm_direction_fused": [_I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I,
+                             _I, _I, _P],
+    "bilstm_dual_fused": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                          _P, _P, _I, _I, _I, _P],
+    "lstm_direction_fused_static": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _P,
+                                    _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lstm_recurrence": [_I, _P, _P, _P, _I, _I, _I, _P],
+}
+KERNELS = tuple(_LAUNCH_ARGS)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_FLOATS = (torch.float32, torch.bfloat16)
+_libs: dict = {}
 
 
 def find_nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError(
-            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernel "
-            "for lstm_direction_fused cannot be built")
+            "nvcc not found (PATH or /usr/local/cuda/bin): the port's CUDA "
+            "kernels cannot be built")
     return nvcc
 
 
-def build_kernel(build_dir: str = BUILD_DIR) -> str:
-    """Compile csrc/lstm_direction_fused.cu into build_dir (once per
-    source/flags digest, under the build lock).  Returns the library path;
-    ptxas's register and shared-memory report is kept beside it."""
-    stamp = source_digest([KERNEL_SOURCE], " ".join(NVCC_FLAGS))
+def build_kernel(build_dir: str = BUILD_DIR,
+                 name: str = "lstm_direction_fused") -> str:
+    """Compile csrc/<name>.cu (with the shared lstm_cell.cuh) into
+    build_dir, once per source/flags digest, under the build lock.  Returns
+    the library path; ptxas's register and shared-memory report is kept
+    beside it."""
+    if name not in _LAUNCH_ARGS:
+        raise ValueError(f"unknown kernel {name!r}; expected one of {KERNELS}")
+    source = os.path.join(_CSRC, f"{name}.cu")
+    lib_name, log_name = f"lib{name}.so", f"{name}.ptxas.txt"
+    stamp = source_digest([source, _HEADER], " ".join(NVCC_FLAGS))
 
     def build(tmp):
         result = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", os.path.join(tmp, _LIB_NAME),
-             KERNEL_SOURCE], capture_output=True, text=True)
+            [find_nvcc(), *NVCC_FLAGS, "-o", os.path.join(tmp, lib_name),
+             source], capture_output=True, text=True)
         if result.returncode != 0:
-            raise RuntimeError("nvcc failed for lstm_direction_fused.cu:\n"
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n"
                                + result.stdout + result.stderr)
-        with open(os.path.join(tmp, _PTXAS_LOG), "w") as f:
+        with open(os.path.join(tmp, log_name), "w") as f:
             f.write(result.stdout + result.stderr)
 
-    lib_path, _ = ensure_built("lstm_direction_fused", [_LIB_NAME, _PTXAS_LOG],
-                               stamp, build, build_dir)
+    lib_path, _ = ensure_built(name, [lib_name, log_name], stamp, build,
+                               build_dir)
     return lib_path
 
 
-def ptxas_report(build_dir: str = BUILD_DIR) -> str:
-    with open(os.path.join(build_dir, _PTXAS_LOG)) as f:
+def ptxas_report(build_dir: str = BUILD_DIR,
+                 name: str = "lstm_direction_fused") -> str:
+    with open(os.path.join(build_dir, f"{name}.ptxas.txt")) as f:
         return f.read()
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_kernel())
-        c = ctypes
-        lib.lstm_direction_fused_launch.restype = c.c_int
-        lib.lstm_direction_fused_launch.argtypes = [
-            c.c_int, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_int,
-            c.c_int, c.c_void_p, c.c_void_p, c.c_void_p, c.c_int, c.c_int,
-            c.c_int, c.c_int, c.c_void_p]
-        lib.lstm_direction_fused_error_string.restype = c.c_char_p
-        lib.lstm_direction_fused_error_string.argtypes = [c.c_int]
-        lib.lstm_direction_fused_max_hidden.restype = c.c_int
-        lib.lstm_direction_fused_max_hidden.argtypes = []
-        _lib = lib
-    return _lib
+def _kernel_lib(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build_kernel(name=name))
+        launch = getattr(lib, f"{name}_launch")
+        launch.restype = ctypes.c_int
+        launch.argtypes = _LAUNCH_ARGS[name]
+        error_string = getattr(lib, f"{name}_error_string")
+        error_string.restype = ctypes.c_char_p
+        error_string.argtypes = [ctypes.c_int]
+        _libs[name] = lib
+    return lib
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Run <name>_launch(*args, stream) on the current stream of `device`;
+    raise if the launcher reports an error."""
+    lib = _kernel_lib(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"{name}_launch")(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + getattr(lib, f"{name}_error_string")(err)
+                           .decode())
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _require_cuda(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{name} runs on cuda or cpu tensors, not "
+                           f"{t.device}")
+
+
+def _check_hidden(H: int) -> None:
+    if H % 32 != 0 or not 0 < H <= MAX_HIDDEN:
+        raise ValueError(f"the kernels take H a multiple of 32 up to "
+                         f"{MAX_HIDDEN}, got {H}")
+
+
+def _check_contiguous(tensors, device, name) -> None:
+    for t in tensors:
+        if t.device != device:
+            raise TypeError(f"{name}: tensors on {t.device} and {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+
+
+def _check_parts(x_parts, w_ih_parts, H) -> None:
+    """1-2 time-major parts (T, B, F_i) and their (F_i, 4H) weights."""
+    if not 1 <= len(x_parts) <= 2 or len(w_ih_parts) != len(x_parts):
+        raise ValueError("the kernel takes one or two feature parts, "
+                         f"got {len(x_parts)} x and {len(w_ih_parts)} w_ih")
+    T, B = x_parts[0].shape[:2]
+    for x, w in zip(x_parts, w_ih_parts):
+        if x.dim() != 3 or x.shape[:2] != (T, B):
+            raise ValueError(f"x part {tuple(x.shape)} is not "
+                             f"(T={T}, B={B}, F)")
+        if w.shape != (x.shape[2], 4 * H):
+            raise ValueError(f"w_ih part {tuple(w.shape)} does not fit "
+                             f"x part {tuple(x.shape)} and H={H}")
+
+
+def _split_rows(w, x_parts):
+    """The row slices of w (sum F_i, 4H) that meet each feature part."""
+    out, off = [], 0
+    for x in x_parts:
+        out.append(w[off:off + x.shape[2]])
+        off += x.shape[2]
+    return tuple(out)
+
+
+def _codes(h: torch.Tensor) -> torch.Tensor:
+    """round(h*127) as int8 (round-half-to-even; |h| < 1 keeps it within
+    [-127, 127])."""
+    return torch.round(h * 127.0).to(torch.int8)
+
+
+def _pack_quads(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 -> (K/4, N, 4) int8: the 32-bit words of four
+    consecutive k that the kernel's dp4a products read, byte i of word
+    [k/4][n] being w[4*(k/4) + i][n]."""
+    K, N = w.shape
+    return w.reshape(K // 4, 4, N).transpose(1, 2).contiguous()
+
+
+def _recurrence_twin(xw, recurrent, emit, out, reverse=False):
+    """The loop every twin shares: xw (T, B, 4H) float32 gate inputs,
+    recurrent(h) the (B, 4H) float32 recurrent term of the f32 state h,
+    out[t] = emit(h)."""
+    T, B, _ = xw.shape
+    h = torch.zeros((B, out.shape[2]), dtype=torch.float32, device=xw.device)
+    c = torch.zeros_like(h)
+    for step in range(T):
+        t = T - 1 - step if reverse else step
+        gates = xw[t] + recurrent(h)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        out[t] = emit(h)
+    return out
+
+
+def _float_recurrent(w_hh):
+    w32 = w_hh.float()
+    return lambda h: h.to(w_hh.dtype).float() @ w32
+
+
+# ---------------------------------------------------------------------------
+# lstm_direction_fused and bilstm_dual_fused
 
 
 def lstm_direction_fused_reference(x_parts, w_ih_parts, b, w_hh,
@@ -97,52 +225,32 @@ def lstm_direction_fused_reference(x_parts, w_ih_parts, b, w_hh,
     The input projection of all steps is one f32 product up front; the
     loop over T carries f32 h and c."""
     T, B, _ = x_parts[0].shape
-    H = w_hh.shape[0]
     dtype = x_parts[0].dtype
     xw = b.float()
     for x, w in zip(x_parts, w_ih_parts):
         xw = xw + x.float() @ w.float()          # (T, B, 4H)
-    w_hh32 = w_hh.float()
-    h = torch.zeros((B, H), dtype=torch.float32, device=xw.device)
-    c = torch.zeros_like(h)
-    out = torch.empty((T, B, H), dtype=dtype, device=xw.device)
-    for step in range(T):
-        t = T - 1 - step if reverse else step
-        gates = xw[t] + h.to(w_hh.dtype).float() @ w_hh32
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        out[t] = h.to(dtype)
-    return out
+    out = torch.empty((T, B, w_hh.shape[0]), dtype=dtype, device=xw.device)
+    return _recurrence_twin(xw, _float_recurrent(w_hh),
+                            lambda h: h.to(dtype), out, reverse)
 
 
 def _check_kernel_args(x_parts, w_ih_parts, b, w_hh):
-    if not 1 <= len(x_parts) <= 2 or len(w_ih_parts) != len(x_parts):
-        raise ValueError("the kernel takes one or two feature parts, "
-                         f"got {len(x_parts)} x and {len(w_ih_parts)} w_ih")
     x0 = x_parts[0]
-    dtype, device = x0.dtype, x0.device
-    if dtype not in _DTYPE_CODE:
+    dtype = x0.dtype
+    if dtype not in _FLOATS:
         raise TypeError(f"lstm_direction_fused takes float32 or bfloat16, "
                         f"got {dtype}")
-    T, B, _ = x0.shape
     H = w_hh.shape[0]
     if w_hh.shape != (H, 4 * H) or b.shape != (4 * H,):
         raise ValueError(f"w_hh {tuple(w_hh.shape)} / b {tuple(b.shape)} "
                          f"do not fit H={H}")
-    for x, w in zip(x_parts, w_ih_parts):
-        if x.dim() != 3 or x.shape[:2] != (T, B):
-            raise ValueError(f"x part {tuple(x.shape)} is not (T={T}, B={B}, F)")
-        if w.shape != (x.shape[2], 4 * H):
-            raise ValueError(f"w_ih part {tuple(w.shape)} does not fit "
-                             f"x part {tuple(x.shape)} and H={H}")
+    _check_parts(x_parts, w_ih_parts, H)
     for t in (*x_parts, *w_ih_parts, b, w_hh):
-        if t.dtype != dtype or t.device != device:
-            raise TypeError("x, w_ih, b and w_hh must share one dtype and "
-                            f"device; got {t.dtype} on {t.device} beside "
-                            f"{dtype} on {device}")
-        if not t.is_contiguous():
-            raise ValueError("lstm_direction_fused takes contiguous tensors")
+        if t.dtype != dtype:
+            raise TypeError("x, w_ih, b and w_hh must share one dtype; got "
+                            f"{t.dtype} beside {dtype}")
+    _check_contiguous((*x_parts, *w_ih_parts, b, w_hh), x0.device,
+                      "lstm_direction_fused")
 
 
 def lstm_direction_fused(x_parts, w_ih_parts, b, w_hh, reverse=False):
@@ -157,33 +265,20 @@ def lstm_direction_fused(x_parts, w_ih_parts, b, w_hh, reverse=False):
     if x0.device.type == "cpu":
         return lstm_direction_fused_reference(x_parts, w_ih_parts, b, w_hh,
                                               reverse=reverse)
-    if x0.device.type != "cuda":
-        raise RuntimeError(f"lstm_direction_fused runs on cuda or cpu "
-                           f"tensors, not {x0.device}")
+    _require_cuda(x0, "lstm_direction_fused")
     _check_kernel_args(x_parts, w_ih_parts, b, w_hh)
     T, B, F0 = x0.shape
     H = w_hh.shape[0]
-    lib = _kernel_lib()
-    if H % 32 != 0 or H > lib.lstm_direction_fused_max_hidden():
-        raise ValueError(f"the kernel takes H a multiple of 32 up to "
-                         f"{lib.lstm_direction_fused_max_hidden()}, got {H}")
+    _check_hidden(H)
     out = torch.empty((T, B, H), dtype=x0.dtype, device=x0.device)
     if T == 0 or B == 0:
         return out
-    x1 = x_parts[1] if len(x_parts) > 1 else None
-    w1 = w_ih_parts[1] if len(x_parts) > 1 else None
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lstm_direction_fused_launch(
-            _DTYPE_CODE[x0.dtype], x0.data_ptr(),
-            None if x1 is None else x1.data_ptr(), w_ih_parts[0].data_ptr(),
-            None if w1 is None else w1.data_ptr(), F0,
-            0 if x1 is None else x1.shape[2], b.data_ptr(), w_hh.data_ptr(),
-            out.data_ptr(), T, B, H, int(bool(reverse)), stream)
-    if err != 0:
-        raise RuntimeError(
-            "lstm_direction_fused launch failed: "
-            + lib.lstm_direction_fused_error_string(err).decode())
+    x1, w1 = (x_parts[1], w_ih_parts[1]) if len(x_parts) > 1 else (None,
+                                                                    None)
+    _launch("lstm_direction_fused", x0.device, _DTYPE_CODE[x0.dtype],
+            _ptr(x0), _ptr(x1), _ptr(w_ih_parts[0]), _ptr(w1), F0,
+            0 if x1 is None else x1.shape[2], _ptr(b), _ptr(w_hh), _ptr(out),
+            T, B, H, int(bool(reverse)))
     lstm_direction_fused.launches += 1
     return out
 
@@ -191,23 +286,258 @@ def lstm_direction_fused(x_parts, w_ih_parts, b, w_hh, reverse=False):
 lstm_direction_fused.launches = 0
 
 
-def bilstm_fused(x_parts, params):
+def bilstm_dual_fused_reference(x_parts, wf_parts, wb_parts, b_f, b_b,
+                                w_hh_f, w_hh_b):
+    """Plain twin: the two directions as two lstm_direction_fused twins."""
+    return (lstm_direction_fused_reference(x_parts, wf_parts, b_f, w_hh_f),
+            lstm_direction_fused_reference(x_parts, wb_parts, b_b, w_hh_b,
+                                           reverse=True))
+
+
+def bilstm_dual_fused(x_parts, wf_parts, wb_parts, b_f, b_b, w_hh_f,
+                      w_hh_b):
+    """Both directions of lstm_direction_fused in one launch.  x_parts:
+    tuple of (T, B, F_i) time-major arrays; wf_parts/wb_parts: the forward
+    and backward (F_i, 4H) weight slices.  Returns (fwd, bwd), each
+    (T, B, H) in natural order."""
+    x0 = x_parts[0]
+    if x0.device.type == "cpu":
+        return bilstm_dual_fused_reference(x_parts, wf_parts, wb_parts, b_f,
+                                           b_b, w_hh_f, w_hh_b)
+    _require_cuda(x0, "bilstm_dual_fused")
+    _check_kernel_args(x_parts, wf_parts, b_f, w_hh_f)
+    _check_kernel_args(x_parts, wb_parts, b_b, w_hh_b)
+    T, B, F0 = x0.shape
+    H = w_hh_f.shape[0]
+    if w_hh_b.shape != w_hh_f.shape:
+        raise ValueError(f"w_hh_f {tuple(w_hh_f.shape)} and w_hh_b "
+                         f"{tuple(w_hh_b.shape)} differ")
+    _check_hidden(H)
+    out_f = torch.empty((T, B, H), dtype=x0.dtype, device=x0.device)
+    out_b = torch.empty_like(out_f)
+    if T == 0 or B == 0:
+        return out_f, out_b
+    two = len(x_parts) > 1
+    _launch("bilstm_dual_fused", x0.device, _DTYPE_CODE[x0.dtype], _ptr(x0),
+            _ptr(x_parts[1] if two else None), _ptr(wf_parts[0]),
+            _ptr(wf_parts[1] if two else None), _ptr(wb_parts[0]),
+            _ptr(wb_parts[1] if two else None), F0,
+            x_parts[1].shape[2] if two else 0, _ptr(b_f), _ptr(b_b),
+            _ptr(w_hh_f), _ptr(w_hh_b), _ptr(out_f), _ptr(out_b), T, B, H)
+    bilstm_dual_fused.launches += 1
+    return out_f, out_b
+
+
+bilstm_dual_fused.launches = 0
+
+
+def bilstm_fused(x_parts, params, dual=None):
     """Bidirectional LSTM over time-major feature parts (inference only).
 
     x_parts: tuple of (T, B, F_i) arrays, concatenated feature-wise.
     Returns (fwd, bwd), each (T, B, H) in natural order; the transducer
-    head consumes the time-major streams directly."""
-    splits = []
-    off = 0
-    for xp in x_parts:
-        splits.append((off, off + xp.shape[2]))
-        off += xp.shape[2]
+    head consumes the time-major streams directly.  dual=True runs both
+    directions in one bilstm_dual_fused launch; dual=None reads
+    PEPPER_LSTM_DUAL=1, as the JAX package does."""
+    if dual is None:
+        dual = os.environ.get("PEPPER_LSTM_DUAL", "0") == "1"
+    wf = _split_rows(params["w_ih_f"], x_parts)
+    wb = _split_rows(params["w_ih_b"], x_parts)
+    if dual:
+        return bilstm_dual_fused(x_parts, wf, wb, params["b_f"],
+                                 params["b_b"], params["w_hh_f"],
+                                 params["w_hh_b"])
+    return (lstm_direction_fused(x_parts, wf, params["b_f"],
+                                 params["w_hh_f"]),
+            lstm_direction_fused(x_parts, wb, params["b_b"],
+                                 params["w_hh_b"], reverse=True))
 
-    def direction(w_ih, w_hh, b, reverse):
-        w_parts = tuple(w_ih[s:e] for s, e in splits)
-        return lstm_direction_fused(x_parts, w_parts, b, w_hh,
-                                    reverse=reverse)
 
-    fwd = direction(params["w_ih_f"], params["w_hh_f"], params["b_f"], False)
-    bwd = direction(params["w_ih_b"], params["w_hh_b"], params["b_b"], True)
-    return fwd, bwd
+# ---------------------------------------------------------------------------
+# lstm_direction_fused_static
+
+
+def lstm_direction_fused_static_reference(x_parts, w_ih_parts, b, w_hh,
+                                          acc_scale=None, rec_scale=None,
+                                          reverse=False, out_int8=False,
+                                          out_dtype=torch.bfloat16):
+    """Plain PyTorch twin of the static kernel, same arguments.  Float x:
+    one f32 input projection up front.  int8 x: the int32 products of all
+    parts summed, then one rescale by acc_scale.  An int8 W_hh (rec_scale
+    given) is fed round(h*127) every step and rescaled by rec_scale."""
+    T, B, _ = x_parts[0].shape
+    H = w_hh.shape[0]
+    xw = b.float().reshape(-1)
+    if x_parts[0].dtype == torch.int8:
+        acc = None
+        for x, w in zip(x_parts, w_ih_parts):
+            part = int8_matmul(x.reshape(T * B, -1), w)
+            acc = part if acc is None else acc + part
+        xw = xw + acc.reshape(T, B, -1).float() * acc_scale.float().reshape(-1)
+    else:
+        for x, w in zip(x_parts, w_ih_parts):
+            xw = xw + x.float() @ w.float()
+    if rec_scale is None:
+        recurrent = _float_recurrent(w_hh)
+    else:
+        r_scale = rec_scale.float().reshape(-1)
+
+        def recurrent(h):
+            return int8_matmul(_codes(h), w_hh).float() * r_scale
+    out = torch.empty((T, B, H), device=xw.device,
+                      dtype=torch.int8 if out_int8 else out_dtype)
+    emit = _codes if out_int8 else (lambda h: h.to(out_dtype))
+    return _recurrence_twin(xw, recurrent, emit, out, reverse)
+
+
+def _check_static_args(x_parts, w_ih_parts, b, w_hh, acc_scale, rec_scale):
+    x0 = x_parts[0]
+    x_dtype = x0.dtype
+    if x_dtype not in _DTYPE_CODE:
+        raise TypeError(f"lstm_direction_fused_static takes float32, "
+                        f"bfloat16 or int8 x, got {x_dtype}")
+    H = w_hh.shape[0]
+    if w_hh.shape != (H, 4 * H) or b.numel() != 4 * H:
+        raise ValueError(f"w_hh {tuple(w_hh.shape)} / b {tuple(b.shape)} "
+                         f"do not fit H={H}")
+    _check_parts(x_parts, w_ih_parts, H)
+    scales = []
+    for t in (*x_parts, *w_ih_parts):
+        if t.dtype != x_dtype:
+            raise TypeError(f"x parts and w_ih parts must share one dtype; "
+                            f"got {t.dtype} beside {x_dtype}")
+    if x_dtype == torch.int8:
+        if acc_scale is None or acc_scale.numel() != 4 * H:
+            raise ValueError("int8 x takes an acc_scale of 4H values")
+        if any(x.shape[2] % 4 for x in x_parts):
+            raise ValueError("int8 x parts take a multiple of 4 features")
+        if any(x.data_ptr() % 4 for x in x_parts):
+            raise ValueError("int8 x parts must be 4-byte aligned")
+        scales.append(acc_scale)
+    elif acc_scale is not None:
+        raise ValueError("acc_scale is for int8 x only")
+    if rec_scale is not None:
+        if w_hh.dtype != torch.int8 or rec_scale.numel() != 4 * H:
+            raise TypeError("rec_scale takes an int8 w_hh and 4H scales")
+        scales.append(rec_scale)
+    elif w_hh.dtype not in _FLOATS or (x_dtype != torch.int8
+                                       and w_hh.dtype != x_dtype):
+        raise TypeError(f"a {w_hh.dtype} w_hh needs rec_scale, or the float "
+                        f"dtype of x ({x_dtype})")
+    _check_contiguous((*x_parts, *w_ih_parts, b, w_hh, *scales), x0.device,
+                      "lstm_direction_fused_static")
+
+
+def lstm_direction_fused_static(x_parts, w_ih_parts, b, w_hh, acc_scale=None,
+                                rec_scale=None, reverse=False, out_int8=False,
+                                out_dtype=torch.bfloat16):
+    """One LSTM direction with static-int8 streams.
+
+    x_parts: tuple of (T, B, F_i) arrays, all int8 codes (scale 1/127) or
+    all float.  For int8 x, w_ih_parts are int8 per-output-column
+    quantized weights and acc_scale is the (4H,) combined rescale
+    (w_scale/127) applied once to the summed int32 accumulator; for float
+    x they share its dtype.  b: (4H,), used in float32.  w_hh: (H, 4H) in
+    the float dtype of x (or float32/bfloat16 beside int8 x), or int8 with
+    rec_scale (4H,).  out_int8=True emits round(h*127) int8; else out_dtype
+    floats.  Returns (T, B, H) in natural order."""
+    x0 = x_parts[0]
+    if x0.device.type == "cpu":
+        return lstm_direction_fused_static_reference(
+            x_parts, w_ih_parts, b, w_hh, acc_scale=acc_scale,
+            rec_scale=rec_scale, reverse=reverse, out_int8=out_int8,
+            out_dtype=out_dtype)
+    _require_cuda(x0, "lstm_direction_fused_static")
+    _check_static_args(x_parts, w_ih_parts, b, w_hh, acc_scale, rec_scale)
+    T, B, F0 = x0.shape
+    H = w_hh.shape[0]
+    _check_hidden(H)
+    out_kind = torch.int8 if out_int8 else out_dtype
+    if out_kind not in _DTYPE_CODE:
+        raise TypeError(f"out_dtype float32 or bfloat16, not {out_dtype}")
+    out = torch.empty((T, B, H), dtype=out_kind, device=x0.device)
+    if T == 0 or B == 0:
+        return out
+    x_int8 = x0.dtype == torch.int8
+    w_parts = (tuple(_pack_quads(w) for w in w_ih_parts) if x_int8
+               else w_ih_parts)
+    w_rec = _pack_quads(w_hh) if rec_scale is not None else w_hh
+
+    def f32(t):
+        return None if t is None else t.reshape(-1).float().contiguous()
+
+    acc, rec, bias = f32(acc_scale), f32(rec_scale), f32(b)
+    two = len(x_parts) > 1
+    _launch("lstm_direction_fused_static", x0.device, _DTYPE_CODE[x0.dtype],
+            _DTYPE_CODE[w_hh.dtype], _DTYPE_CODE[out_kind], _ptr(x0),
+            _ptr(x_parts[1] if two else None), _ptr(w_parts[0]),
+            _ptr(w_parts[1] if two else None), F0,
+            x_parts[1].shape[2] if two else 0, _ptr(acc), _ptr(rec),
+            _ptr(bias), _ptr(w_rec), _ptr(out), T, B, H, int(bool(reverse)))
+    lstm_direction_fused_static.launches += 1
+    return out
+
+
+lstm_direction_fused_static.launches = 0
+
+
+def bilstm_fused_static(x_parts, params, acc_scale=None, rec_scale=None,
+                        out_int8=False, out_dtype=torch.bfloat16):
+    """Bidirectional wrapper over lstm_direction_fused_static.  params uses
+    the w_ih_f/w_hh_f/b_f naming; int8 x takes int8 w_ih_* and the pair
+    acc_scale = (acc_scale_f, acc_scale_b); rec_scale = (rec_f, rec_b) with
+    int8 w_hh_*."""
+    scale_f, scale_b = acc_scale if acc_scale is not None else (None, None)
+    rscale_f, rscale_b = rec_scale if rec_scale is not None else (None, None)
+    return tuple(
+        lstm_direction_fused_static(
+            x_parts, _split_rows(params[f"w_ih_{sfx}"], x_parts),
+            params[f"b_{sfx}"], params[f"w_hh_{sfx}"], acc_scale=scale,
+            rec_scale=rscale, reverse=reverse, out_int8=out_int8,
+            out_dtype=out_dtype)
+        for sfx, scale, rscale, reverse in (("f", scale_f, rscale_f, False),
+                                            ("b", scale_b, rscale_b, True)))
+
+
+# ---------------------------------------------------------------------------
+# lstm_recurrence
+
+
+def lstm_recurrence_reference(xw, w_hh):
+    """Plain twin of the recurrence kernel: f32 state, h rounded to xw's
+    dtype before the recurrent product, output in xw's dtype."""
+    T, B, _ = xw.shape
+    dtype = xw.dtype
+    out = torch.empty((T, B, w_hh.shape[0]), dtype=dtype, device=xw.device)
+    return _recurrence_twin(xw.float(), _float_recurrent(w_hh),
+                            lambda h: h.to(dtype), out)
+
+
+def lstm_recurrence(xw, w_hh):
+    """LSTM recurrence over precomputed input projections, forward only
+    (the caller flips for the backward direction).  xw: (T, B, 4H)
+    float32 or bfloat16; w_hh: (H, 4H) in xw's dtype.  Returns (T, B, H)
+    in xw's dtype."""
+    if xw.device.type == "cpu":
+        return lstm_recurrence_reference(xw, w_hh)
+    _require_cuda(xw, "lstm_recurrence")
+    if xw.dtype not in _FLOATS or w_hh.dtype != xw.dtype:
+        raise TypeError(f"lstm_recurrence takes float32 or bfloat16 xw and "
+                        f"w_hh of one dtype, got {xw.dtype} and {w_hh.dtype}")
+    H = w_hh.shape[0]
+    if xw.dim() != 3 or xw.shape[2] != 4 * H or w_hh.shape != (H, 4 * H):
+        raise ValueError(f"xw {tuple(xw.shape)} / w_hh {tuple(w_hh.shape)} "
+                         f"are not (T, B, 4H) / (H, 4H)")
+    _check_contiguous((xw, w_hh), xw.device, "lstm_recurrence")
+    _check_hidden(H)
+    T, B, _ = xw.shape
+    out = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
+    if T == 0 or B == 0:
+        return out
+    _launch("lstm_recurrence", xw.device, _DTYPE_CODE[xw.dtype], _ptr(xw),
+            _ptr(w_hh), _ptr(out), T, B, H)
+    lstm_recurrence.launches += 1
+    return out
+
+
+lstm_recurrence.launches = 0

@@ -101,8 +101,8 @@ def _make_predict_fn(options, params, device):
     runner = InferenceRunner(
         params, batch_size=options.batch_size,
         compute_dtype=getattr(options, "compute_dtype", "float32"),
-        quantized=options.quantized, model_type=options.model_type,
-        device=device)
+        quantized=options.quantized, quantize_mode=options.quantize_mode,
+        model_type=options.model_type, device=device)
     return runner.predict
 
 

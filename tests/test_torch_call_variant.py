@@ -166,7 +166,6 @@ def test_cli_call_variant_matches_library(sim, jax_model_run):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"quantized": True}, "item 5"),
     ({"model_type": "no_cnn"}, "item 6"),
     ({"num_devices": 2}, "item 7"),
     ({"use_hp_info": True}, "item 9"),
@@ -188,13 +187,12 @@ def test_num_devices_all_resolves_to_one(sim):
 
 @pytest.mark.parametrize("argv,error", [
     (["--sharded"], NotImplementedError),
-    (["--quantized"], NotImplementedError),
     (["--use_hp_info"], NotImplementedError),
     (["--device_pileup"], NotImplementedError),
     (["--num_devices", "2"], NotImplementedError),
     # options of unported modes are not accepted at all (argparse exits)
-    (["--quantize_mode", "dynamic"], SystemExit),
     (["--device_region_batch", "8"], SystemExit),
+    (["--quantized", "--quantize_mode", "int4"], SystemExit),
 ])
 def test_cli_unported_flags_raise(sim, argv, error):
     model = str(sim["tmp"] / "model_flags.npz")
@@ -203,6 +201,56 @@ def test_cli_unported_flags_raise(sim, argv, error):
         cli.main(["call_variant", "-b", sim["bam"], "-f", sim["fasta"],
                   "-m", model, "-o", str(sim["tmp"] / "flags"),
                   "--device", "cpu", *argv])
+
+
+def _cli_call(sim, out, *argv):
+    model = str(sim["tmp"] / "model_quantized.npz")
+    save_params(model, sim["params"], {"model_type": "lstm"})
+    return cli.main(["call_variant", "-b", sim["bam"], "-f", sim["fasta"],
+                     "-m", model, "-o", str(out), "-s", "SAMPLE",
+                     "-r", CONTIG, "--ont_r9_guppy5_sup", "--device", "cpu",
+                     *argv])
+
+
+@pytest.mark.parametrize("argv,mode", [
+    (["--quantized"], "static"),
+    (["--quantized", "--quantize_mode", "static_rec"], "static_rec")],
+    ids=["static", "static_rec"])
+def test_cli_quantized_calls_match_jax(sim, argv, mode):
+    """int8 serving in float32: the JAX package's CPU fallback is its
+    kernels' math there, so the call sets must be equal."""
+    theirs = sim["tmp"] / f"jax_{mode}"
+    jcv.call_variant(_options(JaxOptions, jax_set_parameters, sim, theirs,
+                              quantized=True, quantize_mode=mode,
+                              compute_dtype="float32"),
+                     params=sim["params"])
+    ours = sim["tmp"] / f"torch_{mode}"
+    assert _cli_call(sim, ours, *argv, "--compute_dtype", "float32") == 0
+    assert _records(ours, "PEPPER_VARIANT_FULL")
+    _assert_same_calls(ours, theirs)
+
+
+def test_cli_quantize_mode_dynamic_runs(sim):
+    out = sim["tmp"] / "torch_dynamic"
+    assert _cli_call(sim, out, "--quantized", "--quantize_mode",
+                     "dynamic") == 0
+    for name in VCFS:
+        assert (out / f"{name}.vcf.gz").exists(), name
+    assert _records(out, "PEPPER_VARIANT_FULL")
+
+
+def test_cli_quantize_flags():
+    parser = cli.build_parser()
+    base = ["call_variant", "-b", "r.bam", "-f", "r.fa"]
+    args = parser.parse_args(base)
+    assert (args.quantized, args.quantize_mode) == (False, "static")
+    args = parser.parse_args(base + ["--quantized", "--quantize_mode",
+                                     "dynamic"])
+    assert (args.quantized, args.quantize_mode) == (True, "dynamic")
+    assert not parser.parse_args(base + ["--quantized",
+                                         "--no_quantized"]).quantized
+    options = cli.options_from_args(args)
+    assert (options.quantized, options.quantize_mode) == (True, "dynamic")
 
 
 def test_pkl_checkpoints_raise(tmp_path):

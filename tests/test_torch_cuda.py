@@ -1,14 +1,17 @@
-"""The port on the card: the CUDA kernel against its twin, and the
-transducer and runner on cuda against their CPU path.  Every test needs a
-CUDA device and nvcc and skips without them.  This file imports no JAX, so
-it also runs where JAX is absent:
+"""The port on the card: the CUDA kernels against their twins, and the
+transducer (float and int8) and runner on cuda against their CPU path.
+Every test needs a CUDA device and nvcc and skips without them.  This file
+imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda \\
         tests/test_torch_cuda.py
 
 Tolerances: kernel vs twin float32 1e-5 and bfloat16 2e-2 (summation order;
-a bf16 rounding of h may fall on either side); probabilities float32 2e-4
-and bfloat16 1e-2, the transducer bars of tests/test_torch_transducer.py.
+a bf16 rounding of h may fall on either side); int8 codes within 1 of the
+twin's and at least 99.9% equal (99.5% when the recurrence is int8 too and
+feeds its own codes back); probabilities float32 2e-4 and bfloat16 1e-2,
+the transducer bars of tests/test_torch_transducer.py, and 5e-3 / 1e-2 for
+the static / static_rec and dynamic int8 modes.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import torch
 from pepper_tpu_torch.infer.runner import InferenceRunner
 from pepper_tpu_torch.models import transducer
 from pepper_tpu_torch.ops import lstm_kernel
+from pepper_tpu_torch.ops.int8_matmul import int8_matmul
 from pepper_tpu_torch.ops.pileup_ref import CandidateWindow
 
 pytestmark = pytest.mark.cuda
@@ -136,3 +140,179 @@ def test_runner_on_card(device):
     np.testing.assert_array_equal(gpu.predict_images(images),
                                   gpu.predict_images(images.astype(
                                       np.float32)))
+
+
+# ---------------------------------------------------------------- int8 serving
+
+CODE_BARS = {False: 0.999, True: 0.995}    # equal share, by rec_int8
+
+
+def _quantize_cols(w):
+    """Per-output-column int8 codes and their (N,) scales."""
+    scale = w.abs().amax(dim=0).clamp_min(1e-8) / 127.0
+    return torch.round(w / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def static_inputs(device, dtype, x_int8, rec_int8, B, T=33, seed=0):
+    """One direction of the static kernel at H=256: the decoder's shape
+    (int8 codes, 2 x 256 features, int8 W_ih and acc_scale) or the
+    encoder's (F=26 window values in dtype).  W_hh is int8 with rec_scale,
+    or dtype."""
+    gen = torch.Generator().manual_seed(seed)
+    s = 1.0 / H ** 0.5
+
+    def u(*size, scale=s):
+        return (torch.rand(size, generator=gen) * 2 - 1) * scale
+
+    if x_int8:
+        xs = tuple(torch.randint(-127, 128, (T, B, H), generator=gen,
+                                 dtype=torch.int8) for _ in range(2))
+        w_q, w_scale = _quantize_cols(u(2 * H, 4 * H))
+        ws, acc_scale = (w_q[:H], w_q[H:]), w_scale / 127.0
+    else:
+        xs = (torch.randint(-125, 126, (T, B, 26), generator=gen).to(dtype),)
+        ws, acc_scale = (u(26, 4 * H).to(dtype),), None
+    if rec_int8:
+        w_hh, r_scale = _quantize_cols(u(H, 4 * H))
+        rec_scale = r_scale / 127.0
+    else:
+        w_hh, rec_scale = u(H, 4 * H).to(dtype), None
+
+    def move(t):
+        return None if t is None else t.to(device).contiguous()
+
+    return ([move(x) for x in xs], [move(w) for w in ws], move(u(4 * H)),
+            move(w_hh), move(acc_scale), move(rec_scale))
+
+
+def assert_codes_close(out, ref, rec_int8):
+    """Codes within 1 everywhere; the equal share, a rate, is held to its
+    bar on samples of at least 300k codes (B >= 37 at H=256, T=33): one h
+    that rounds the other way in bf16 flips a few codes of its row."""
+    diff = (out.int() - ref.int()).abs()
+    assert diff.max().item() <= 1
+    if diff.numel() >= 300_000:
+        assert (diff == 0).float().mean().item() >= CODE_BARS[rec_int8]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_int8", [False, True], ids=["float_x", "int8_x"])
+@pytest.mark.parametrize("rec_int8", [False, True],
+                         ids=["float_rec", "int8_rec"])
+@pytest.mark.parametrize("B", [1, 37, 300])
+def test_static_kernel_matches_twin(device, dtype, x_int8, rec_int8, B):
+    xs, ws, b, w_hh, acc_scale, rec_scale = static_inputs(
+        device, dtype, x_int8, rec_int8, B)
+    kernel = lstm_kernel.lstm_direction_fused_static
+    twin = lstm_kernel.lstm_direction_fused_static_reference
+    for reverse in (False, True):
+        kw = dict(acc_scale=acc_scale, rec_scale=rec_scale, reverse=reverse)
+        before = kernel.launches
+        out = kernel(xs, ws, b, w_hh, out_int8=True, **kw)
+        assert kernel.launches == before + 1
+        ref = twin(xs, ws, b, w_hh, out_int8=True, **kw)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.int8 and out.shape == (33, B, H)
+        assert_codes_close(out, ref, rec_int8)
+        # the float epilogue
+        out = kernel(xs, ws, b, w_hh, out_dtype=dtype, **kw)
+        ref = twin(xs, ws, b, w_hh, out_dtype=dtype, **kw)
+        assert out.dtype == dtype
+        # an int8 recurrence feeds its codes back, and a code that rounds
+        # the other way moves h by about 1e-4: the bf16 bar then
+        atol = 2e-2 if rec_int8 else BARS[dtype]
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("case", ["no_acc_scale", "mixed_whh", "unaligned"])
+def test_static_kernel_refuses_what_it_cannot_take(device, case):
+    xs, ws, b, w_hh, acc_scale, _ = static_inputs(device, torch.float32,
+                                                  True, False, 4)
+    if case == "no_acc_scale":
+        acc_scale = None
+    elif case == "mixed_whh":
+        w_hh = w_hh.half()
+    else:
+        xs = [torch.empty(xs[0].numel() + 1, dtype=torch.int8,
+                          device=device)[1:].view(xs[0].shape), xs[1]]
+    before = lstm_kernel.lstm_direction_fused_static.launches
+    with pytest.raises((TypeError, ValueError)):
+        lstm_kernel.lstm_direction_fused_static(xs, ws, b, w_hh,
+                                                acc_scale=acc_scale)
+    assert lstm_kernel.lstm_direction_fused_static.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 37, 512])
+def test_recurrence_kernel_matches_twin(device, dtype, B):
+    gen = torch.Generator().manual_seed(B)
+    xw = ((torch.rand(33, B, 4 * H, generator=gen) * 2 - 1)).to(device, dtype)
+    w_hh = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) / 16).to(device,
+                                                                    dtype)
+    before = lstm_kernel.lstm_recurrence.launches
+    out = lstm_kernel.lstm_recurrence(xw, w_hh)
+    assert lstm_kernel.lstm_recurrence.launches == before + 1
+    ref = lstm_kernel.lstm_recurrence_reference(xw, w_hh)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (33, B, H)
+    torch.testing.assert_close(out.float(), ref.float(), atol=BARS[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("parts", [(26,), (H, H)], ids=["encoder", "decoder"])
+@pytest.mark.parametrize("B", [1, 37, 300])
+def test_dual_kernel_matches_twin(device, dtype, parts, B):
+    xs, wf, b_f, w_hh_f = _inputs(device, dtype, parts, B, seed=1)
+    _, wb, b_b, w_hh_b = _inputs(device, dtype, parts, B, seed=2)
+    args = (xs, wf, wb, b_f, b_b, w_hh_f, w_hh_b)
+    before = lstm_kernel.bilstm_dual_fused.launches
+    fwd, bwd = lstm_kernel.bilstm_dual_fused(*args)
+    assert lstm_kernel.bilstm_dual_fused.launches == before + 1
+    ref_f, ref_b = lstm_kernel.bilstm_dual_fused_reference(*args)
+    single = lstm_kernel.lstm_direction_fused(xs, wb, b_b, w_hh_b,
+                                              reverse=True)
+    torch.cuda.synchronize()
+    for out, ref in ((fwd, ref_f), (bwd, ref_b)):
+        assert out.dtype == dtype and out.shape == (33, B, H)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=BARS[dtype], rtol=0)
+    # the same device code as the single-direction kernel
+    torch.testing.assert_close(bwd, single, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 26, 3), (37, 512, 1024),
+                                   (64, 16896, 512)])
+def test_int8_matmul_on_card_is_exact(device, M, K, N):
+    gen = torch.Generator().manual_seed(M)
+    a = torch.randint(-127, 128, (M, K), generator=gen, dtype=torch.int8)
+    b = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8)
+    out = int8_matmul(a.to(device), b.to(device))
+    assert out.dtype == torch.int32 and out.shape == (M, N)
+    assert torch.equal(out.cpu(), int8_matmul(a, b))
+
+
+@pytest.mark.parametrize("mode,dtype,atol,launches", [
+    ("static", torch.float32, 2e-4, 4),
+    ("static", torch.bfloat16, 5e-3, 4),
+    ("static_rec", torch.bfloat16, 1e-2, 4),
+    ("dynamic", torch.bfloat16, 1e-2, 4)])
+def test_quantized_runner_on_card_matches_cpu(device, mode, dtype, atol,
+                                              launches):
+    counter = (lstm_kernel.lstm_recurrence if mode == "dynamic"
+               else lstm_kernel.lstm_direction_fused_static)
+    rng = np.random.default_rng(3)
+    images = rng.integers(-125, 126, (300, 33, 26)).astype(np.int8)
+    params = _params()
+    kw = dict(batch_size=4096, quantized=True, quantize_mode=mode,
+              compute_dtype="float32" if dtype == torch.float32
+              else "bfloat16")
+    gpu = InferenceRunner(params, **kw)
+    cpu = InferenceRunner(params, device="cpu", **kw)
+    before = counter.launches
+    probs = gpu.predict_images(images)
+    assert counter.launches == before + launches
+    np.testing.assert_allclose(probs, cpu.predict_images(images), atol=atol)
+    np.testing.assert_array_equal(
+        probs, gpu.predict_images(images.astype(np.float32)))

@@ -103,9 +103,67 @@ def test_params_live_on_the_device_in_the_compute_dtype():
     assert w.dtype == torch.bfloat16 and w.device.type == "cpu"
 
 
+@pytest.mark.parametrize("mode,atol", [("static", 2e-4),
+                                      ("static_rec", 2e-4),
+                                      ("dynamic", 1e-2)])
+def test_quantized_modes_match_jax_runner(mode, atol):
+    """float32 compute; the dynamic mode's recurrence is bfloat16 in both,
+    with f32 state in the port (the TPU kernel's) and bf16 state in the
+    JAX package's CPU fallback, hence its wider bar."""
+    params = _params()
+    kw = dict(batch_size=16, quantized=True, quantize_mode=mode)
+    ours = InferenceRunner(params, device="cpu", **kw)
+    assert (ours.quantized, ours.quantize_mode) == (True, mode)
+    ours = ours.predict(_windows(21))
+    theirs = JaxRunner(params, **kw).predict(_windows(21, cls=JaxWindow))
+    assert len(ours) == len(theirs) == 21
+    for a, b in zip(ours, theirs):
+        assert (a.position, a.candidates) == (b.position, b.candidates)
+        assert a.prediction_base.dtype == np.float32
+        np.testing.assert_allclose(a.prediction_base, b.prediction_base,
+                                   atol=atol)
+        assert a.prediction_base.argmax() == b.prediction_base.argmax()
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["static", "static_rec", "dynamic"])
+def test_quantized_int8_upload_bit_identical_to_float32(mode,
+                                                        compute_dtype):
+    runner = InferenceRunner(_params(), batch_size=8, quantized=True,
+                             quantize_mode=mode, compute_dtype=compute_dtype,
+                             device="cpu")
+    images8 = np.stack([w.image for w in _windows(13)])
+    assert runner._upload_dtype(images8) == np.int8
+    np.testing.assert_array_equal(
+        runner.predict_images(images8),
+        runner.predict_images(images8.astype(np.float32)))
+
+
+def test_quantized_rejects_an_unknown_mode():
+    with pytest.raises(ValueError, match="quantize_mode"):
+        InferenceRunner(_params(), quantized=True, quantize_mode="int4",
+                        device="cpu")
+
+
+def test_quantized_rejects_other_families_before_the_registry():
+    """quantized + a non-lstm family is a ValueError, raised before the
+    registry (which would say the family is not ported) is asked."""
+    with pytest.raises(ValueError, match="quantized"):
+        InferenceRunner(_params(), quantized=True, model_type="no_cnn",
+                        device="cpu")
+
+
+def test_static_tree_lives_on_the_device_in_the_kernel_dtypes():
+    runner = InferenceRunner(_params(), compute_dtype="bfloat16",
+                             quantized=True, quantize_mode="static_rec",
+                             device="cpu")
+    enc, dec = runner.params["encoder"], runner.params["decoder"]
+    assert enc["w_ih_f"].dtype == torch.bfloat16
+    assert enc["w_hh_f"].dtype == dec["w_hh_b"].dtype == torch.int8
+    assert dec["as_hh_f"].dtype == enc["b_b"].dtype == torch.float32
+
+
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="queue A, item 5"):
-        InferenceRunner(_params(), quantized=True, device="cpu")
     with pytest.raises(NotImplementedError, match="queue A, item 6"):
         InferenceRunner(_params(), model_type="transformer", device="cpu")
 
