@@ -5,7 +5,7 @@
 
 Phases, each printing one JSON line:
   1 device     the card's name and `nvidia-smi` name/power limit
-  2 build      the native host libraries and the seven sm_90a CUDA kernels,
+  2 build      the native host libraries and the eight sm_90a CUDA kernels,
                built from the checkout's sources in parallel (one nvcc per
                kernel), with ptxas's register and spill lines
   3 kernel     lstm_direction_fused against its plain twin on the card, at
@@ -24,7 +24,9 @@ Phases, each printing one JSON line:
                99.5% (static_rec) equal; per-launch times beside the bound
   6 kernel_recurrence
                lstm_recurrence against its twin, xw (33, B, 1024) in
-               bfloat16 (atol 2e-2) and float32 (atol 1e-5), B=4096 and 37
+               bfloat16 (atol 2e-2) and float32 (atol 1e-5), B=4096 and 37;
+               the time of cuDNN's torch.nn.LSTM with W_ih = I on xw,
+               checked against the twin in float32
   7 kernel_dual
                bilstm_dual_fused against its twin (two twins of phase 3's
                kernel), as phase 3, with the time of cuDNN's bidirectional
@@ -41,9 +43,13 @@ Phases, each printing one JSON line:
                PEPPER_LSTM_DUAL=1; --quantized static, static_rec and
                dynamic on cuda must each give the set of a cpu run of the
                same mode, up to the order of the ALT alleles within a
-               site (near-tied candidates; the count is printed).  Every
-               kernel's launch count is set to 0 before each cuda run and
-               read after it.
+               site (near-tied candidates; the count is printed);
+               --device_pileup on cuda in float32 must give the set of a
+               cpu --device_pileup run and of the cuda host flow, in
+               bfloat16 the cpu --device_pileup bfloat16 set up to the ALT
+               order (counted).  Every kernel's launch count is set to 0
+               before each cuda run and read after it; --device_pileup
+               runs the images flow, which launches no histogram.
  10 kernel_gru the three GRU kernels of polish against their twins at the
                consensus model's width (encoder F=10, decoder 2x128, H=128,
                T=100; encoder inputs 0..40), B=128, 4096 and 37, both
@@ -70,6 +76,31 @@ Phases, each printing one JSON line:
                kernel, a multiple of 76 times (19 windows x 4 directions);
                a --dry run must move the draft toward the truth (fewer of
                the truth's 21-mers missing)
+ 13 kernel_histogram
+               pileup_histogram against its twin on the card, exact integer
+               equality: one region of phase 9's scene (its real events from
+               the Python walker), the event flow's 8-region dispatch (the
+               scene's 6 regions and its first 2 again), that dispatch's
+               events 4 times over (~20 M, the depth of ~120x), a skewed
+               dispatch with one tile at 10x the mean tile (padded/event
+               bytes printed), and accumulate_cuda against accumulate_torch
+               on tests/test_pileup_kernel.py's cases and on no events (no
+               launch); per launch the kernel, the twin (also the library
+               call: one index_add_, here on the unbinned events), the
+               bound, the host binning and the pinned host-to-device copy
+ 14 device_flows
+               on phase 9's scene, bfloat16 and float32: (a)
+               classify_regions_images at --device_region_batch 32 against
+               the host windows through transducer_infer, launching no
+               histogram; (b) classify_regions_events over the 8-region
+               dispatch against the same flow on the twins and against (a),
+               one histogram and 4 lstm_direction_fused launches a
+               dispatch; (c) the summarizer's Python walker with
+               accumulate_cuda as its RegionalSummary matrix backend:
+               windows equal to the in-place walker's and the native
+               pass's, byte for byte, one launch a region; windows/s of
+               each flow's device half and the events per window (phases
+               13 and 14 run right after phase 9, on its scene)
 
 Then the kernel summary line, the nvidia-smi line and, last, the result
 line.  Any failed check raises, and the script exits non-zero without the
@@ -300,13 +331,23 @@ def phase_kernel(device, card):
 # ---------------------------------------------------------------- phase 4
 
 
+def kernel_modules():
+    from pepper_tpu_torch.ops import gru_kernel, lstm_kernel, pileup_kernel
+
+    return (lstm_kernel, gru_kernel, pileup_kernel)
+
+
+def kernel_wrappers():
+    """Every kernel wrapper by name: each counts its launches."""
+    return {name: getattr(module, name) for module in kernel_modules()
+            for name in module.KERNELS}
+
+
 @contextlib.contextmanager
 def twin_path():
     """Run every kernel wrapper as its plain twin, for comparison only."""
-    from pepper_tpu_torch.ops import gru_kernel, lstm_kernel
-
     with contextlib.ExitStack() as stack:
-        for module in (lstm_kernel, gru_kernel):
+        for module in kernel_modules():
             for name in module.KERNELS:
                 stack.enter_context(mock.patch.object(
                     module, name, getattr(module, f"{name}_reference")))
@@ -542,11 +583,26 @@ def phase_kernel_recurrence(device, card):
             worst = max(worst, err)
         max_err[dtype_name] = worst
 
+    # torch.nn.LSTM(4H, H) with W_ih = I and zero biases computes the
+    # recurrence over xw, at the cost of an extra (T*B, 4H) x (4H, 4H)
+    # product: checked once against the twin in float32 (no TF32)
+    xw, w_hh = inputs(B_SERVE, torch.float32)
+    eye = torch.eye(4 * H, device=device)
+    lstm = cudnn_lstm([((eye,), torch.zeros(4 * H, device=device), w_hh)],
+                      torch.float32, device)
+    with torch.no_grad():
+        lib_diff = (lstm(xw)[0] - twin(xw, w_hh)).abs().max().item()
+    check(lib_diff <= KERNEL_BARS["float32"],
+          f"identity-W_ih torch.nn.LSTM: {lib_diff}")
     xw, w_hh = inputs(B_SERVE, torch.bfloat16)
+    lstm = cudnn_lstm([((eye,), torch.zeros(4 * H, device=device), w_hh)],
+                      torch.bfloat16, device)
     nbytes = 2 * (xw.numel() + w_hh.numel() + T * B_SERVE * H)
     flops = 2 * T * B_SERVE * H * 4 * H
     timing = {"kernel_ms": cuda_ms(lambda: kernel(xw, w_hh)),
               "plain_ms": cuda_ms(lambda: twin(xw, w_hh), iters=5),
+              "cudnn_ms": cudnn_ms(lstm, xw),
+              "cudnn_max_abs_diff_f32": lib_diff,
               "bound_ms": bound_ms(flops, nbytes, PEAK_BF16_FLOPS),
               "bound_by": ("bytes" if nbytes / PEAK_BYTES
                            > flops / PEAK_BF16_FLOPS else "operations"),
@@ -842,26 +898,39 @@ CALL_RUNS = (
      "lstm_recurrence", 4, "cpu_dynamic"),
     ("cpu_dynamic", "cpu", "bfloat16",
      ("--quantized", "--quantize_mode", "dynamic"), False, None, 0, None),
+    ("cuda_pileup_bfloat16", "cuda", "bfloat16", ("--device_pileup",), False,
+     "lstm_direction_fused", 4, "cpu_pileup_bfloat16"),
+    ("cpu_pileup_bfloat16", "cpu", "bfloat16", ("--device_pileup",), False,
+     None, 0, None),
+    ("cuda_pileup_float32", "cuda", "float32", ("--device_pileup",), False,
+     "lstm_direction_fused", 4, "cpu_pileup_float32"),
+    ("cpu_pileup_float32", "cpu", "float32", ("--device_pileup",), False,
+     None, 0, None),
 )
 
 
-def phase_call(device, workdir, threads=4):
-    """call_variant through the CLI in every run of CALL_RUNS; returns each
-    cuda run's launches by kernel, read around that run alone."""
+def call_params():
+    """The seeded full-width transducer of phases 9 and 14."""
+    import torch
+    from pepper_tpu_torch.models.transducer import init_transducer_params
+
+    return init_transducer_params(torch.Generator().manual_seed(11))
+
+
+def phase_call(device, workdir, scene, threads=4):
+    """call_variant through the CLI on `scene` (write_scene's) in every run
+    of CALL_RUNS; returns each cuda run's launches by kernel, read around
+    that run alone."""
     import torch
     from pepper_tpu_torch.cli import main as cli
     from pepper_tpu_torch.models.checkpoint import save_params
-    from pepper_tpu_torch.models.transducer import init_transducer_params
-    from pepper_tpu_torch.ops import lstm_kernel
 
-    bam, fasta, n_variants = write_scene(workdir)
+    bam, fasta, n_variants = scene
     model = os.path.join(workdir, "model.npz")
-    params = init_transducer_params(torch.Generator().manual_seed(11))
     save_params(model, {name: {k: v.numpy() for k, v in group.items()}
-                        for name, group in params.items()},
+                        for name, group in call_params().items()},
                 {"model_type": "lstm"})
-    wrappers = {name: getattr(lstm_kernel, name)
-                for name in lstm_kernel.KERNELS}
+    wrappers = kernel_wrappers()
     runs, launches = {}, {}
     for name, dev, dtype, extra, dual, _, _, _ in CALL_RUNS:
         out = os.path.join(workdir, name)
@@ -882,15 +951,18 @@ def phase_call(device, workdir, threads=4):
         runs[name] = {"seconds": round(seconds, 3), "calls": call_set(out)}
     check(len(runs["cpu_float32"]["calls"]) > 0, "no calls on the CPU")
     alt_order_only = {}
-    for name, dev, _, extra, _, kernel, per_batch, reference in CALL_RUNS:
+    for name, dev, dtype, extra, _, kernel, per_batch, reference in CALL_RUNS:
         counts = launches[name]
         if dev == "cpu":
             check(not any(counts.values()), f"{name} launched {counts}")
             continue
         calls, expected = runs[name]["calls"], runs[reference]["calls"]
-        if "--quantized" in extra:
+        if "--quantized" in extra or (dtype == "bfloat16"
+                                      and "--device_pileup" in extra):
             # int8 codes on the card and the CPU differ at the 1e-4 share,
-            # so near-tied candidates of one site may list in either order
+            # and bfloat16 windows batched by region round apart from the
+            # twins' at a few ulps, so near-tied candidates of one site may
+            # list in either order
             alt_order_only[name] = len(calls - expected)
             calls, expected = canonical_calls(calls), canonical_calls(
                 expected)
@@ -901,6 +973,11 @@ def phase_call(device, workdir, threads=4):
               f"{kernel} launched {n} times in {name}")
         others = {k: v for k, v in counts.items() if k != kernel and v}
         check(not others, f"{name} also launched {others}")
+    # the device-pileup flow calls what the host window flow calls
+    host, fused = runs["cuda_float32"]["calls"], runs["cuda_pileup_float32"][
+        "calls"]
+    check(fused == host, "cuda --device_pileup float32 calls differ from "
+          f"the cuda host flow's: {sorted(fused ^ host)[:10]}")
     emit({"phase": "call", "variants_simulated": n_variants,
           "calls": {k: len(v["calls"]) for k, v in runs.items()},
           "alt_order_only_differences": alt_order_only,
@@ -1475,6 +1552,352 @@ def phase_polish(device, workdir, scene, threads=4):
     return launches
 
 
+# ---------------------------------------------------------------- phases 13-14
+
+
+def scene_regions(device, bam, fasta, region_size=10000):
+    """Phase 9's scene cut as call_variant cuts it, per region: the
+    --device_pileup package (native int8 image and descriptors), the host
+    windows, and the event stream of the summarizer's Python walker,
+    recorded from a walk whose matrix backend is accumulate_cuda (check
+    (c) of phase 14: its windows must equal the in-place walker's, and the
+    native pass's, byte for byte)."""
+    from pepper_tpu_torch.io.bam import BamReader
+    from pepper_tpu_torch.io.fasta import FastaReader
+    from pepper_tpu_torch.ops import pileup_kernel
+    from pepper_tpu_torch.ops.pileup_ref import (RegionalSummary,
+                                                 encode_reference_values)
+    from pepper_tpu_torch.options import PepperOptions
+    from pepper_tpu_torch.pipeline import summarizer
+    from pepper_tpu_torch.pipeline.regions import (build_intervals,
+                                                   get_chromosome_list)
+    from pepper_tpu_torch.presets import set_parameters
+
+    options = set_parameters(PepperOptions(
+        bam=bam, fasta=fasta, ont_r9_guppy5_sup=True,
+        sub_command="call_variant"))
+    handlers = (BamReader(bam), FastaReader(fasta))
+    chr_list, _ = get_chromosome_list(None, handlers[1], handlers[0], None)
+    intervals, _ = build_intervals(chr_list, handlers[1], region_size, False)
+
+    def summarize(interval, device_pileup, backend=None, walker=False):
+        """create_region_summary's result, through the Python walker with
+        `backend` as its matrix backend when `walker`; and the summary."""
+        made = []
+
+        class Summary(RegionalSummary):
+            def __init__(self, *args, **kwargs):
+                if walker:
+                    kwargs.update(use_native=False, matrix_backend=backend)
+                super().__init__(*args, **kwargs)
+                made.append(self)
+
+        options.device_pileup = device_pileup
+        with mock.patch.object(summarizer, "RegionalSummary", Summary):
+            out = summarizer.create_region_summary(options, *handlers,
+                                                   *interval)
+        return out, made[0]
+
+    regions, walk_s = [], 0.0
+    pileup_kernel.pileup_histogram.launches = 0
+    for interval in intervals:
+        recorded = {}
+
+        def record(rows, cols, deltas, shape):
+            recorded["events"] = (rows, cols, deltas)
+            return pileup_kernel.accumulate_cuda(rows, cols, deltas, shape,
+                                                 device=device)
+
+        (package,), _ = summarize(interval, True)
+        host_windows, _ = summarize(interval, False)
+        t0 = time.time()
+        windows, summary = summarize(interval, False, record, walker=True)
+        walk_s += time.time() - t0
+        golden, _ = summarize(interval, False, walker=True)
+        start = interval[1]
+        check(len(windows) == len(golden) == len(host_windows)
+              == len(package.windows) > 0,
+              f"region {start}: {len(windows)} windows through "
+              f"accumulate_cuda, {len(golden)} in place, {len(host_windows)} "
+              "native")
+        for w, g, n in zip(windows, golden, host_windows):
+            check((w.position, w.candidates) == (g.position, g.candidates)
+                  == (n.position, n.candidates)
+                  and w.image.tobytes() == g.image.tobytes()
+                  == n.image.tobytes(),
+                  f"region {start}: window {g.position} {g.candidates} "
+                  "differs between the walkers")
+        n_ref = summary.ref_end - summary.ref_start + 1
+        channel = encode_reference_values(summary.reference_sequence[:n_ref])
+        if summary.total_observed_insert_bases:
+            channel = np.repeat(channel,
+                                1 + summary.max_observed_insert[:n_ref])
+        check(summary.region_rows == package.region_rows,
+              f"region {start}: {summary.region_rows} rows")
+        regions.append({"package": package, "host_windows": host_windows,
+                        "events": recorded["events"], "ref": channel})
+    walker = {"regions": len(regions),
+              "launches": pileup_kernel.pileup_histogram.launches,
+              "windows_equal": sum(len(r["host_windows"]) for r in regions),
+              "walk_s": round(walk_s, 3),
+              "events": sum(len(r["events"][0]) for r in regions)}
+    check(walker["launches"] == len(regions),
+          f"accumulate_cuda launched {walker['launches']} times on "
+          f"{len(regions)} regions")
+    return regions, walker
+
+
+def dispatch_regions(regions, n=8):
+    """The event flow's dispatch: n regions, the scene's in order and then
+    its first ones again."""
+    return [regions[i % len(regions)] for i in range(n)]
+
+
+def histogram_case(device, events, n_rows):
+    """Binned slabs of (rows, cols, deltas) on the card, the binning's host
+    seconds, and the pinned host-to-device copy's milliseconds."""
+    import torch
+    from pepper_tpu_torch.ops import pileup_kernel as pk
+
+    rows, cols, deltas = events
+    t0 = time.perf_counter()
+    rel, bc, bd, n_tiles, capacity = pk._bin_events(
+        rows.astype(np.int32), cols, deltas, n_rows)
+    bin_s = time.perf_counter() - t0
+    pinned = [torch.from_numpy(a).pin_memory() for a in (rel, bc, bd)]
+    h2d_ms = cuda_ms(lambda: [p.to(device, non_blocking=True)
+                              for p in pinned], iters=3, warmup=1)
+    slabs = [p.to(device) for p in pinned]
+    return slabs, n_tiles, capacity // pk.CHUNK_E, bin_s, h2d_ms
+
+
+def phase_kernel_histogram(device, card, regions):
+    """pileup_histogram against its twin, exactly, at the shapes of its two
+    paths and two harder ones; per-launch times."""
+    import torch
+    from pepper_tpu_torch.ops import device_windows as dw
+    from pepper_tpu_torch.ops import pileup_kernel as pk
+
+    # the small cases of tests/test_pileup_kernel.py and no events
+    small = {}
+    for n_events, n_rows in ((10, 40), (5000, 300), (50000, 4096), (3, 1),
+                             (0, 10)):
+        rng = np.random.RandomState(n_events)
+        ev = (rng.randint(0, n_rows, n_events).astype(np.int32),
+              rng.randint(0, 26, n_events).astype(np.int32),
+              rng.choice([-1, 1], n_events).astype(np.int32))
+        shape = (n_rows + 1, 26)
+        pk.pileup_histogram.launches = 0
+        out = pk.accumulate_cuda(*ev, shape, device=device)
+        launched = pk.pileup_histogram.launches
+        ref = pk.accumulate_torch(*ev, shape, device=device)
+        check(launched == (n_events > 0),
+              f"accumulate_cuda launched {launched} times on {n_events} "
+              "events")
+        check(out.dtype == np.int64 and out.shape == shape
+              and np.array_equal(out, ref)
+              and np.array_equal(out, pk.accumulate_numpy(*ev, shape)),
+              f"accumulate_cuda differs on {n_events} events")
+        small[f"{n_events}x{n_rows}"] = int(np.abs(out - ref).max()
+                                           if n_events else 0)
+
+    # the shapes of the two paths: one region (the matrix backend), and the
+    # event flow's 8-region dispatch in its strided layout
+    one = regions[0]
+    batch = dispatch_regions(regions)
+    sizes = [r["package"].region_rows for r in batch]
+    stride, offsets = dw.pack_regions(sizes)
+    total_rows = len(batch) * stride
+    dispatch = tuple(np.concatenate(parts) for parts in zip(*[
+        (np.asarray(r["events"][0], np.int64) + offsets[i],
+         r["events"][1], r["events"][2]) for i, r in enumerate(batch)]))
+    # one tile of region 0 holding 10x the mean tile's events
+    tile_of = dispatch[0] // pk.TILE_R
+    mean = len(tile_of) / (total_rows / pk.TILE_R)
+    hot = int((offsets[0] + 5000) // pk.TILE_R)
+    in_hot = np.flatnonzero(tile_of == hot)
+    extra = np.resize(in_hot, int(10 * mean) - len(in_hot))
+    skewed = tuple(np.concatenate([a, a[extra]]) for a in dispatch)
+    cases = {
+        "region": (one["events"], one["package"].region_rows),
+        "dispatch": (dispatch, total_rows),
+        "dispatch_x4": (tuple(np.tile(a, 4) for a in dispatch), total_rows),
+        "skewed": (skewed, total_rows),
+    }
+    result = {}
+    for name, (events, n_rows) in cases.items():
+        slabs, n_tiles, n_chunks, bin_s, h2d_ms = histogram_case(
+            device, events, n_rows)
+        out = pk.pileup_histogram(*slabs, n_tiles, n_chunks)
+        ref = pk.pileup_histogram_reference(*slabs, n_tiles, n_chunks)
+        torch.cuda.synchronize()
+        err = (out.long() - ref.long()).abs().max().item()
+        check(out.dtype == torch.int32 and err == 0,
+              f"pileup_histogram {name}: differs from its twin by {err}")
+        n_events = len(events[0])
+        flat = torch.from_numpy(events[0].astype(np.int64) * pk.COL_PAD
+                                + events[1]).to(device)
+        deltas = torch.from_numpy(events[2].astype(np.int32)).to(device)
+        numel = n_tiles * pk.TILE_R * pk.COL_PAD
+
+        def library():
+            return torch.zeros(numel, dtype=torch.int32,
+                               device=device).index_add_(0, flat, deltas)
+
+        lib_err = (library().reshape(-1, pk.COL_PAD) - out).abs().max().item()
+        check(lib_err == 0, f"index_add_ {name}: differs by {lib_err}")
+        # bytes it must move: each event read once (12 B) and the image's
+        # 26 feature columns written once (4 B)
+        nbytes = 12 * n_events + 4 * n_rows * 26
+        slot_bytes = 12 * n_tiles * n_chunks * pk.CHUNK_E
+        result[name] = {
+            "events": n_events, "rows": n_rows, "tiles": n_tiles,
+            "chunks_per_tile": n_chunks, "max_abs_err": err,
+            "padded_bytes_per_event_byte": slot_bytes / (12 * n_events),
+            "kernel_ms": cuda_ms(lambda: pk.pileup_histogram(
+                *slabs, n_tiles, n_chunks)),
+            "plain_ms": cuda_ms(lambda: pk.pileup_histogram_reference(
+                *slabs, n_tiles, n_chunks), iters=5),
+            "library_ms": cuda_ms(library),
+            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_mbytes": nbytes / 1e6,
+            "bin_host_s": bin_s, "h2d_ms": h2d_ms,
+            "h2d_mbytes": slot_bytes / 1e6}
+        del slabs, flat, deltas, out, ref
+    emit({"phase": "kernel_histogram", "kernel_names": ["pileup_histogram"],
+          "card": card, "small_max_abs_err": small, **result})
+    return result
+
+
+def phase_device_flows(device, card, regions, walker):
+    """The two fused flows on the scene's regions, kernels against the
+    twin path, in bfloat16 and float32; (c), the matrix-backend walk, ran
+    in scene_regions."""
+    import torch
+    from pepper_tpu_torch.models.transducer import (map_params,
+                                                    params_from_jax,
+                                                    transducer_infer)
+    from pepper_tpu_torch.ops import device_windows as dw
+    from pepper_tpu_torch.ops import lstm_kernel, pileup_kernel
+    from pepper_tpu_torch.ops.pileup_kernel import upload
+
+    params = call_params()
+    packages = [r["package"] for r in regions]
+    images = [p.image for p in packages]
+    descriptors = [p.descriptors for p in packages]
+    sizes = [p.region_rows for p in packages]
+    host_windows = np.stack([w.image for r in regions
+                             for w in r["host_windows"]])
+    batch = dispatch_regions(regions)
+    ev_args = ([r["events"] for r in batch], [r["ref"] for r in batch],
+               [r["package"].descriptors for r in batch],
+               [r["package"].region_rows for r in batch])
+    k_images, k_events = len(host_windows), sum(
+        len(d.base_index) for d in ev_args[2])
+    n_events = sum(len(e[0]) for e in ev_args[0])
+    counters = (pileup_kernel.pileup_histogram,
+                lstm_kernel.lstm_direction_fused)
+
+    def counted(fn):
+        for c in counters:
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {c.__name__: c.launches for c in counters}
+
+    result, launches = {}, {}
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        bar = TRANSDUCER_BARS[dtype_name]
+        cast = map_params(lambda p: p.to(dtype),
+                          params_from_jax(params, device))
+
+        def images_flow():
+            return dw.classify_regions_images(
+                cast, images, descriptors, sizes, compute_dtype=dtype,
+                device=device)
+
+        def events_flow():
+            return dw.classify_regions_events(cast, *ev_args,
+                                              compute_dtype=dtype,
+                                              device=device)
+
+        probs_a, count_a = counted(images_flow)
+        host = transducer_infer(cast, torch.from_numpy(host_windows).to(
+            device), dtype)
+        probs_b, count_b = counted(events_flow)
+        with twin_path():
+            twin_b = events_flow()
+        torch.cuda.synchronize()
+        check(count_a == {"pileup_histogram": 0, "lstm_direction_fused": 4},
+              f"images flow {dtype_name} launched {count_a}")
+        check(count_b == {"pileup_histogram": 1, "lstm_direction_fused": 4},
+              f"events flow {dtype_name} launched {count_b}")
+        check(probs_a.shape == (k_images, 3) and probs_b.shape == (k_events, 3)
+              and bool(torch.isfinite(probs_b).all()),
+              f"flow outputs {tuple(probs_a.shape)} {tuple(probs_b.shape)}")
+        errs = {"images_vs_host_windows": (probs_a - host).abs().max().item(),
+                "events_vs_twin_path": (probs_b - twin_b).abs().max().item(),
+                "events_vs_images": (probs_b[:k_images] - probs_a).abs()
+                .max().item()}
+        for key, err in errs.items():
+            check(err <= bar, f"{dtype_name} {key}: {err} > {bar}")
+        launches[dtype_name] = {"images": count_a, "events": count_b}
+
+        # the device halves alone, inputs already on the card
+        stride, offsets = dw.pack_regions(sizes)
+        stacked = np.zeros((len(images) * stride, 26), np.int8)
+        for r, image in enumerate(images):
+            stacked[offsets[r]:offsets[r] + image.shape[0]] = image
+        merged_a, _ = dw._merge_descriptors(descriptors, offsets,
+                                            device=device)
+        stacked_d = upload(stacked, device)
+        t0 = time.perf_counter()
+        packed = dw.pack_events(ev_args[0], ev_args[1], ev_args[3])
+        pack_s = time.perf_counter() - t0
+        rel, cols, deltas, ref_col, mask = (upload(a, device)
+                                            for a in packed[:5])
+        n_tiles, n_chunks, total_rows, ev_offsets = packed[5:]
+        merged_b, _ = dw._merge_descriptors(ev_args[2], ev_offsets,
+                                            device=device)
+        images_ms = cuda_ms(lambda: dw._fused_images_classify(
+            cast, stacked_d, merged_a, dtype), iters=5)
+        events_ms = cuda_ms(lambda: dw._fused_events_classify(
+            cast, rel, cols, deltas, ref_col, mask, merged_b, n_tiles,
+            n_chunks, total_rows, dtype), iters=5)
+        t0 = time.perf_counter()
+        events_flow().cpu()
+        wall_events = time.perf_counter() - t0
+        result[dtype_name] = {
+            **errs,
+            "images": {"regions": len(images), "windows": k_images,
+                       "windows_padded": len(merged_a["base_index"]),
+                       "device_ms": images_ms,
+                       "windows_per_s": k_images / images_ms * 1e3},
+            "events": {"regions": len(batch), "windows": k_events,
+                       "events": n_events,
+                       "events_per_window": n_events / k_events,
+                       "tiles": n_tiles, "chunks_per_tile": n_chunks,
+                       "device_ms": events_ms,
+                       "windows_per_s": k_events / events_ms * 1e3,
+                       "host_pack_s": pack_s,
+                       "call_wall_s": wall_events}}
+    emit({"phase": "device_flows", "card": card,
+          "matrix_backend_walk": walker, "launches": launches, **result})
+    return launches
+
+
+def histogram_row(case):
+    """The kernels line's fields of one phase-13 case."""
+    return {"name": "pileup_histogram", "route": "cuda",
+            "source": "pepper_tpu_torch/ops/csrc/pileup_histogram.cu",
+            "max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": "bytes", "library_ms": case["library_ms"],
+            "library_note": "one index_add_ of the unbinned events into a "
+                            "zeroed int32 image; the plain twin is the same "
+                            "index_add_ on the binned slabs"}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1510,7 +1933,13 @@ def main() -> int:
     dual_err, dual_launch = phase_kernel_dual(device, smi)
     phase_transducer_quantized(device, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        launches = phase_call(device, workdir)
+        scene = write_scene(workdir)
+        launches = phase_call(device, workdir, scene)
+        # phases 13 and 14 run on phase 9's scene
+        regions, walker = scene_regions(device, *scene[:2])
+        hist = phase_kernel_histogram(device, smi, regions)
+        flow_launches = phase_device_flows(device, smi, regions, walker)
+        del regions
     gru_err, gru_code_diff, gru_launch = phase_kernel_gru(device, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         scene = write_polish_scene(workdir)
@@ -1533,7 +1962,7 @@ def main() -> int:
         ("kernel_ms", "plain_ms", "bound_ms"))
         for mode in ("static", "static_rec")}
     rec_batch = {key: 4 * rec_launch[key]
-                 for key in ("kernel_ms", "plain_ms", "bound_ms")}
+                 for key in ("kernel_ms", "plain_ms", "bound_ms", "cudnn_ms")}
     # a GRU kernel's work on one consensus batch of B_POLISH chunks, with
     # the kernels line's names: each window runs the encoder and the
     # decoder launch twice (the recurrence: four launches of one shape)
@@ -1590,10 +2019,12 @@ def main() -> int:
         "max_abs_err_f32": rec_err["float32"],
         "ms": rec_batch["kernel_ms"], "plain_ms": rec_batch["plain_ms"],
         "bound_ms": rec_batch["bound_ms"],
-        "bound_by": rec_launch["bound_by"], "library_ms": None,
-        "library_note": "torch.nn.LSTM (cuDNN) takes x and W_ih, not "
-                        "precomputed projections; no PyTorch call runs the "
-                        "recurrence alone",
+        "bound_by": rec_launch["bound_by"],
+        "library_ms": rec_batch["cudnn_ms"],
+        "library_note": "torch.nn.LSTM(1024, 256) (cuDNN) with W_ih = I and "
+                        "zero biases on xw: the same function plus an extra "
+                        "(T*B, 1024) x (1024, 1024) input product, so an "
+                        "upper bound on the library's time",
         "work": f"one batch of {B_SERVE} windows in the dynamic mode: four "
                 "bfloat16 recurrences (4 launches)",
     }, {
@@ -1655,6 +2086,22 @@ def main() -> int:
         "work": f"one consensus batch of {B_POLISH} chunks, float32, "
                 "PEPPER_GRU_FUSED=0 PEPPER_GRU_KERNEL=1: "
                 f"{LAUNCHES_PER_BATCH} recurrences over (100, 128, 384) xw",
+    }, {
+        **histogram_row(hist["region"]),
+        "replaces": "pepper_tpu/ops/pileup_kernel.py:117",
+        "launches": walker["launches"],
+        "work": "one region of phase 9's scene through accumulate_cuda as "
+                f"a RegionalSummary matrix backend: {hist['region']['events']}"
+                f" events, {hist['region']['rows']} rows (one launch a "
+                "region)",
+    }, {
+        **histogram_row(hist["dispatch"]),
+        "replaces": "pepper_tpu/ops/device_windows.py:192",
+        "launches": flow_launches["bfloat16"]["events"]["pileup_histogram"],
+        "work": "the histogram of one classify_regions_events dispatch of 8 "
+                f"regions: {hist['dispatch']['events']} events, "
+                f"{hist['dispatch']['rows']} rows (one launch a dispatch; "
+                "its classifier is row 1's kernel)",
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -79,7 +79,12 @@ def _add_inference_args(parser):
                              "static_rec (also int8 recurrent matmuls) or "
                              "dynamic (per-batch absmax quantization).")
     parser.add_argument("--device_pileup", action="store_true",
-                        default=False, help="Not ported yet (raises).")
+                        default=False,
+                        help="Fused device-window flow: gather + inject + "
+                             "classify candidate windows from the region "
+                             "image on the accelerator (one dispatch per "
+                             "region batch).")
+    parser.add_argument("--device_region_batch", type=int, default=32)
     parser.add_argument("--num_devices", type=int, default=-1,
                         help="-1 (default) resolves to 1 device; more than "
                              "one is not ported yet (raises).")

@@ -117,7 +117,7 @@ def main(argv=None):
             setattr(options, key, value)
     options.sub_command = args.sub_command
 
-    from ..infer.runner import resolve_device
+    from ..device import resolve_device
     from ..polish.pipeline import polish
 
     device = resolve_device(args.device)

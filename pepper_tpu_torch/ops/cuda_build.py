@@ -10,8 +10,8 @@ build directory (build.py) and bound with ctypes.  Each library exports
 
 KERNELS lists every kernel with the headers that go into its build stamp
 and the argument types of its launcher; the wrappers that call them live
-in lstm_kernel.py and gru_kernel.py, and the dtype codes, the H limit and
-the int8 layouts both families share are here.  A failed build or launch
+in lstm_kernel.py, gru_kernel.py and pileup_kernel.py, and the dtype
+codes, the H limit and the int8 layouts both RNN families share are here.  A failed build or launch
 raises: there is no fallback.
 """
 
@@ -50,6 +50,7 @@ KERNELS = {
                                           _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                           _I, _P]),
     "gru_recurrence": (_GRU, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "pileup_histogram": ((), [_P, _P, _P, _P, _I, _I, _P]),
 }
 _libs: dict = {}
 

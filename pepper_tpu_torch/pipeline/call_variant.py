@@ -1,8 +1,9 @@
 """End-to-end variant calling on one torch device.
 
 Per-region windows stream in-process into padded batches through the
-transducer on the device, and predictions flow into the decoder and the
-VCF writer — no intermediate files.  With threads > 1 one process pool
+transducer on the device (under --device_pileup, per-region packages in
+region batches through the device runner), and predictions flow into the
+decoder and the VCF writer — no intermediate files.  With threads > 1 one process pool
 serves window generation and candidate decoding.  The pool forks after
 CUDA is initialised in this process, so the worker functions
 (_interval_worker, candidate_finder._decode_worker) are host code that must
@@ -18,7 +19,8 @@ import time
 
 from ..decode.candidate_finder import decode_predictions, find_candidates
 from ..decode.vcf_writer import VCFWriter
-from ..infer.runner import InferenceRunner, fake_predict, resolve_device
+from ..device import resolve_device
+from ..infer.runner import InferenceRunner, fake_predict
 from ..io.bam import BamReader
 from ..io.fasta import FastaReader
 from .regions import build_intervals, get_chromosome_list, log_info
@@ -95,9 +97,50 @@ def resolve_num_devices(options) -> None:
     options.num_devices = requested
 
 
+def resolve_device_pileup(options) -> None:
+    """Clear options.device_pileup when the fused device-window flow
+    cannot serve the request (it classifies with the bf16/f32 lstm
+    transducer only): quantized serving, non-lstm families, HP images and
+    dry runs all take the host window flow, explicitly and logged, so the
+    user never gets a silently different model."""
+    if not getattr(options, "device_pileup", False):
+        return
+    blockers = []
+    if options.dry:
+        blockers.append("--dry")
+    if options.train_mode:
+        blockers.append("train_mode")
+    if options.use_hp_info:
+        blockers.append("--use_hp_info")
+    if options.quantized:
+        blockers.append("--quantized")
+    if getattr(options, "model_type", "lstm") != "lstm":
+        blockers.append(f"--model_type {options.model_type}")
+    if getattr(options, "num_devices", 1) != 1:
+        # the fused region-batch dispatch is single-device
+        blockers.append(f"--num_devices {options.num_devices}")
+    if blockers:
+        log_info("DEVICE PILEUP DISABLED (unsupported with "
+                 f"{', '.join(blockers)}); using the host window flow")
+        options.device_pileup = False
+
+
 def _make_predict_fn(options, params, device):
     if options.dry:
         return fake_predict
+    if getattr(options, "device_pileup", False) and not options.use_hp_info:
+        # fused device-window flow: the summarizer emits RegionPackages
+        # (native int8 region image + injection descriptors) and window
+        # gather + injection + classification run on the device, one call
+        # per region batch (ops/device_windows.py)
+        from ..infer.device_runner import DeviceRegionRunner
+
+        runner = DeviceRegionRunner(
+            params, compute_dtype=getattr(options, "compute_dtype",
+                                          "float32"),
+            region_batch=getattr(options, "device_region_batch", 32),
+            device=device)
+        return runner.predict
     runner = InferenceRunner(
         params, batch_size=options.batch_size,
         compute_dtype=getattr(options, "compute_dtype", "float32"),
@@ -125,7 +168,12 @@ def _stream_predictions(options, intervals, bed_list, predict_fn,
     stream_start = time.time()
     device_time = 0.0
     wait_time = 0.0
-    chunk_size = options.batch_size
+    # device-pileup streams RegionPackages (one per region), so the drain
+    # unit is a region batch rather than a window batch
+    device_mode = (getattr(options, "device_pileup", False)
+                   and not options.dry and not options.use_hp_info)
+    chunk_size = (getattr(options, "device_region_batch", 32)
+                  if device_mode else options.batch_size)
     # 1-deep dispatch pipeline: when the backend exposes dispatch/resolve
     # (InferenceRunner), batch k+1 is uploaded and enqueued BEFORE batch
     # k's probabilities are fetched.  Stream order is preserved.
@@ -153,6 +201,11 @@ def _stream_predictions(options, intervals, bed_list, predict_fn,
             inflight = None
             device_time += time.time() - t0
 
+    def count_windows(items):
+        if device_mode:  # RegionPackage stream
+            return sum(len(package.windows) for package in items)
+        return len(items)
+
     if options.threads <= 1 or len(intervals) <= 1:
         bam_handler = BamReader(options.bam)
         fasta_handler = FastaReader(options.fasta)
@@ -161,7 +214,7 @@ def _stream_predictions(options, intervals, bed_list, predict_fn,
                                             fasta_handler, contig, start,
                                             end, bed_list)
             if windows:
-                total_windows += len(windows)
+                total_windows += count_windows(windows)
                 pending.extend(windows)
                 drain()
     else:
@@ -179,7 +232,7 @@ def _stream_predictions(options, intervals, bed_list, predict_fn,
                 windows = future.result()
                 wait_time += time.time() - t0
                 if windows:
-                    total_windows += len(windows)
+                    total_windows += count_windows(windows)
                     pending.extend(windows)
                     drain()
         finally:
@@ -203,6 +256,7 @@ def call_variant(options, params=None, device=None):
     start_time = time.time()
     device = resolve_device(device)
     resolve_num_devices(options)
+    resolve_device_pileup(options)
     os.makedirs(options.output_dir, exist_ok=True)
 
     bam_handler = BamReader(options.bam)

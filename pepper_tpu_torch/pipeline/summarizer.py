@@ -1,7 +1,8 @@
 """Per-interval summary generation (AlignmentSummarizer.py:68-242 semantics):
-halo fetch and seeded reservoir downsampling.  Train mode (truth labels,
-hom-ref example subsampling), HP images and the device-pileup packages are
-not ported yet and raise NotImplementedError."""
+halo fetch and seeded reservoir downsampling, and under --device_pileup one
+RegionPackage per interval.  Train mode (truth labels, hom-ref example
+subsampling) and HP images are not ported yet and raise
+NotImplementedError."""
 
 from __future__ import annotations
 
@@ -34,7 +35,9 @@ def create_region_summary(options, bam_handler, fasta_handler, contig: str,
                           region_start_position: int,
                           region_end_position: int, bed_list=None):
     """Generate candidate windows for one interval (inference mode): fetch
-    with a 100bp halo, candidates gated to the unpadded interval.
+    with a 100bp halo, candidates gated to the unpadded interval.  Under
+    --device_pileup the windows come as one RegionPackage (images left to
+    the device).
     bed_list is accepted for the JAX package's signature; only train mode
     reads it."""
     halo = 100  # ConsensCandidateFinder.REGION_SAFE_BASES (Options.py:2)
@@ -46,10 +49,6 @@ def create_region_summary(options, bam_handler, fasta_handler, contig: str,
         raise NotImplementedError(
             "--use_hp_info (HP images, ops/pileup_hp.py) is not ported "
             "yet: ROADMAP.md queue A, item 9")
-    if getattr(options, "device_pileup", False):
-        raise NotImplementedError(
-            "--device_pileup (ops/device_windows.py) is not ported yet: "
-            "ROADMAP.md queue A, item 10")
 
     region_start = max(0, region_start_position - halo)
     region_end = region_end_position + halo
@@ -73,7 +72,17 @@ def create_region_summary(options, bam_handler, fasta_handler, contig: str,
     summary = RegionalSummary(contig, region_start, region_end,
                               ref_seq, use_native=use_native)
     summary.generate_max_insert_summary(all_reads)
-    return summary.generate_summary(
+    # mirror of call_variant.resolve_device_pileup's blockers (the fused
+    # flow serves only the non-quantized lstm transducer) so a direct
+    # caller can never get packages a runner won't serve
+    device_pileup = (getattr(options, "device_pileup", False)
+                     and not options.train_mode
+                     and not options.use_hp_info
+                     and not getattr(options, "dry", False)
+                     and not getattr(options, "quantized", False)
+                     and getattr(options, "num_devices", 1) == 1
+                     and getattr(options, "model_type", "lstm") == "lstm")
+    windows = summary.generate_summary(
         all_reads,
         min_snp_baseq=options.min_snp_baseq,
         min_indel_baseq=options.min_indel_baseq,
@@ -92,4 +101,14 @@ def create_region_summary(options, bam_handler, fasta_handler, contig: str,
         candidate_window_size=ImageOptions.CANDIDATE_WINDOW_SIZE,
         feature_size=ImageOptions.IMAGE_HEIGHT,
         train_mode=False,
-        build_window_images=True)
+        build_window_images=not device_pileup)
+    if device_pileup and windows:
+        from ..ops.device_windows import (RegionPackage,
+                                          descriptors_from_candidates)
+
+        return [RegionPackage(
+            windows=windows, image=summary.image_int8,
+            region_rows=summary.region_rows,
+            descriptors=descriptors_from_candidates(
+                summary.descriptor_rows, summary))]
+    return windows

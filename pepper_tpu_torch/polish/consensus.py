@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..infer.runner import resolve_device
+from ..device import resolve_device
 from ..models.params import params_from_jax
 from ..models.polish_gru import polish_forward, polish_forward_fused
 from ..models.quantize import (polish_forward_static,

@@ -20,7 +20,7 @@ import time
 
 import numpy as np
 
-from ..infer.runner import resolve_device
+from ..device import resolve_device
 from ..io.bam import BamReader
 from ..io.fasta import FastaReader
 from ..options import PolishImageOptions

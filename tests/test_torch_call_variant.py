@@ -169,7 +169,6 @@ def test_cli_call_variant_matches_library(sim, jax_model_run):
     ({"model_type": "no_cnn"}, "item 6"),
     ({"num_devices": 2}, "item 7"),
     ({"use_hp_info": True}, "item 9"),
-    ({"device_pileup": True}, "item 10"),
 ])
 def test_unported_options_raise(sim, override, item):
     options = _options(PepperOptions, set_parameters, sim,
@@ -188,10 +187,8 @@ def test_num_devices_all_resolves_to_one(sim):
 @pytest.mark.parametrize("argv,error", [
     (["--sharded"], NotImplementedError),
     (["--use_hp_info"], NotImplementedError),
-    (["--device_pileup"], NotImplementedError),
     (["--num_devices", "2"], NotImplementedError),
-    # options of unported modes are not accepted at all (argparse exits)
-    (["--device_region_batch", "8"], SystemExit),
+    # an unknown int8 mode is not accepted (argparse exits)
     (["--quantized", "--quantize_mode", "int4"], SystemExit),
 ])
 def test_cli_unported_flags_raise(sim, argv, error):

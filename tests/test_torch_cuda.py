@@ -501,3 +501,128 @@ def test_consensus_on_card_matches_cpu(device, monkeypatch, mode, env):
     confident = (top2[..., 0] - top2[..., 1]) > 0.05
     assert confident.float().mean() > 0.3
     assert torch.equal(labels.cpu()[confident], cpu_labels[confident])
+
+
+# ---------------------------------------------------------------------------
+# the pileup histogram and the device-pileup flows
+
+
+def _events(n_events, n_rows, n_cols=26, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, n_rows, n_events).astype(np.int32),
+            rng.randint(0, n_cols, n_events).astype(np.int32),
+            rng.choice([-1, 1], n_events).astype(np.int32))
+
+
+@pytest.mark.parametrize("n_events,n_rows,skew", [
+    (10, 40, False), (5000, 300, False), (50000, 4096, False), (3, 1, False),
+    (400000, 20000, False), (300000, 20000, True)])
+def test_histogram_kernel_matches_twin_exactly(device, n_events, n_rows,
+                                               skew):
+    """Exact integer equality, one tile holding most events in the skewed
+    case; out-of-range rows and columns in the slabs add nothing."""
+    from pepper_tpu_torch.ops import pileup_kernel as pk
+
+    rows, cols, deltas = _events(n_events, n_rows, seed=n_events)
+    if skew:
+        rows[: n_events // 2] = rows[: n_events // 2] % pk.TILE_R
+    rel, bc, bd, n_tiles, capacity = pk._bin_events(rows, cols, deltas,
+                                                    n_rows + 1)
+    rel[0, -1], bc[0, 0] = 400, 70
+    slabs = [torch.from_numpy(a).to(device) for a in (rel, bc, bd)]
+    n_chunks = capacity // pk.CHUNK_E
+    before = pk.pileup_histogram.launches
+    out = pk.pileup_histogram(*slabs, n_tiles, n_chunks)
+    assert pk.pileup_histogram.launches == before + 1
+    ref = pk.pileup_histogram_reference(*slabs, n_tiles, n_chunks)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.int32 and out.shape == ref.shape
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("n_events,n_rows", [(10, 40), (50000, 4096),
+                                             (0, 10)])
+def test_accumulate_cuda_matches_numpy(device, n_events, n_rows):
+    from pepper_tpu_torch.ops import pileup_kernel as pk
+
+    rows, cols, deltas = _events(n_events, n_rows, seed=1)
+    shape = (n_rows + 1, 26)
+    before = pk.pileup_histogram.launches
+    out = pk.accumulate_cuda(rows, cols, deltas, shape)
+    assert pk.pileup_histogram.launches == before + (n_events > 0)
+    np.testing.assert_array_equal(out, pk.accumulate_numpy(rows, cols,
+                                                           deltas, shape))
+    np.testing.assert_array_equal(
+        pk.accumulate_torch(rows, cols, deltas, shape), out)
+
+
+def _flow_inputs(n_regions=3, rows=2000, k=40, seed=0):
+    """Random region images and their events (the images are the clamped,
+    int8-cast accumulation of the events plus a reference channel), with
+    random snp/insert/delete descriptors."""
+    from pepper_tpu_torch.ops import device_windows as dw
+    from pepper_tpu_torch.ops import pileup_kernel as pk
+
+    rng = np.random.RandomState(seed)
+    images, events, refs, descriptors = [], [], [], []
+    for _ in range(n_regions):
+        ev = _events(40 * rows, rows, seed=rng.randint(1 << 30))
+        ref = rng.randint(1, 6, rows - 1).astype(np.int32)
+        image = pk.accumulate_numpy(*ev, (rows, 26))
+        image[:rows - 1, 0] += ref
+        image[:rows - 1, 11:25] = np.clip(image[:rows - 1, 11:25], -125, 125)
+        images.append(image.astype(np.int8))
+        events.append(ev)
+        refs.append(ref)
+        digit = rng.randint(1, 4, k)
+        descriptors.append(dw.CandidateDescriptors(
+            base_index=rng.randint(0, rows, k).astype(np.int32),
+            type_digit=digit.astype(np.int32),
+            type_value=rng.randint(0, 6, k).astype(np.int32),
+            depth_fwd=rng.randint(0, 60, k).astype(np.int32),
+            depth_rev=rng.randint(0, 60, k).astype(np.int32),
+            flip_fwd_col=rng.randint(8, 15, k).astype(np.int32),
+            flip_rev_col=rng.randint(19, 26, k).astype(np.int32),
+            star_fwd_col=np.full(k, 14, np.int32),
+            star_rev_col=np.full(k, 25, np.int32),
+            del_len=np.where(digit == 3, rng.randint(1, 6, k), 0)
+            .astype(np.int32)))
+    return images, events, refs, descriptors, [rows] * n_regions
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-4),
+                                        (torch.bfloat16, 1e-2)])
+def test_device_flows_on_card_match_cpu(device, dtype, atol):
+    """Both fused flows on cuda against the same flows on the CPU: the
+    images flow launches no histogram, the events flow one; each runs the
+    transducer's four LSTM launches."""
+    from pepper_tpu_torch.ops import device_windows as dw
+    from pepper_tpu_torch.ops import pileup_kernel as pk
+
+    params = transducer.init_transducer_params(
+        torch.Generator().manual_seed(3),
+        transducer.TransducerConfig(hidden=64, linear_size=64))
+    images, events, refs, descriptors, sizes = _flow_inputs()
+    runs = {
+        "images": lambda dev: dw.classify_regions_images(
+            params, images, descriptors, sizes, compute_dtype=dtype,
+            device=dev),
+        "events": lambda dev: dw.classify_regions_events(
+            params, events, refs, descriptors, sizes, compute_dtype=dtype,
+            device=dev),
+    }
+    results = {}
+    for name, run in runs.items():
+        hist, lstm = pk.pileup_histogram.launches, \
+            lstm_kernel.lstm_direction_fused.launches
+        probs = run(device)
+        torch.cuda.synchronize()
+        assert pk.pileup_histogram.launches - hist == (name == "events")
+        assert lstm_kernel.lstm_direction_fused.launches - lstm == 4
+        cpu = run("cpu")
+        assert probs.shape == cpu.shape == (sum(len(d.base_index)
+                                                for d in descriptors), 3)
+        torch.testing.assert_close(probs.cpu(), cpu, atol=atol, rtol=0)
+        results[name] = probs.cpu()
+    torch.testing.assert_close(results["events"], results["images"],
+                               atol=atol, rtol=0)

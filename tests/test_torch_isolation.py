@@ -43,6 +43,10 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_no_jax_package():
     sources = _port_sources()
     assert len(sources) > 20 and (REPO / "chip_smoke.py").exists()
+    # the device-pileup modules are among the scanned sources
+    for module in ("ops/pileup_kernel.py", "ops/device_windows.py",
+                   "infer/device_runner.py", "device.py"):
+        assert PORT / module in sources, module
     for path in sources:
         for module in _imported_modules(path):
             top = module.split(".")[0]
@@ -175,9 +179,10 @@ def test_kernel_stamp_covers_every_header_it_includes(name):
 
 
 def test_every_kernel_has_a_wrapper_with_a_twin_and_a_count():
-    from pepper_tpu_torch.ops import gru_kernel
+    from pepper_tpu_torch.ops import gru_kernel, pileup_kernel
 
-    modules = {name: module for module in (lstm_kernel, gru_kernel)
+    modules = {name: module
+               for module in (lstm_kernel, gru_kernel, pileup_kernel)
                for name in module.KERNELS}
     assert sorted(modules) == sorted(cuda_build.KERNELS)
     for name, module in modules.items():
@@ -193,3 +198,39 @@ def test_gru_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
         cuda_build.build_kernel(str(tmp_path / "build"),
                                 name="gru_direction_fused")
     assert not (tmp_path / "build" / "libgru_direction_fused.so").exists()
+
+
+def test_pileup_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is installed at its default path")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.build_kernel(str(tmp_path / "build"),
+                                name="pileup_histogram")
+    assert not (tmp_path / "build" / "libpileup_histogram.so").exists()
+
+
+def test_device_pileup_call_variant_without_device_raises_here(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable")
+    from pepper_tpu_torch.cli import main as cli
+    from pepper_tpu_torch.options import PepperOptions
+    from pepper_tpu_torch.pipeline.call_variant import call_variant
+
+    options = PepperOptions(output_dir=str(tmp_path / "out"),
+                            device_pileup=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call_variant(options, params={})
+    assert not (tmp_path / "out").exists()
+    from pepper_tpu_torch.models.checkpoint import save_params
+
+    model = tmp_path / "model.npz"
+    save_params(str(model), {"linear_1": {"w": np.zeros((2, 2))}},
+                {"model_type": "lstm"})
+    bam, fasta = tmp_path / "r.bam", tmp_path / "r.fa"
+    for path in (bam, fasta, tmp_path / "r.bam.bai", tmp_path / "r.fa.fai"):
+        path.write_bytes(b"")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["call_variant", "-b", str(bam), "-f", str(fasta),
+                  "-m", str(model), "-o", str(tmp_path / "cli"),
+                  "--device_pileup"])

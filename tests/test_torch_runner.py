@@ -13,7 +13,8 @@ from pepper_tpu.infer.runner import InferenceRunner as JaxRunner
 from pepper_tpu.models.transducer import (TransducerConfig as JaxConfig,
                                           init_transducer_params)
 from pepper_tpu.ops.pileup_ref import CandidateWindow as JaxWindow
-from pepper_tpu_torch.infer.runner import InferenceRunner, resolve_device
+from pepper_tpu_torch.device import resolve_device
+from pepper_tpu_torch.infer.runner import InferenceRunner
 from pepper_tpu_torch.ops.pileup_ref import CandidateWindow
 
 
