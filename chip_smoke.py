@@ -55,11 +55,18 @@ Phases, each printing one JSON line:
                T=100; encoder inputs 0..40), B=128, 4096 and 37, both
                directions, a non-zero h0:
                gru_direction_fused and gru_recurrence in float32 (atol 1e-5)
-               and bfloat16 (2e-2); gru_direction_fused_static with codes
-               within 1 and at least 99.9% equal and hT within 1e-5 (float32
-               mode) or 2e-2 (bfloat16 W_hh); per-launch times at B=128 and
-               4096 beside the bound, and cuDNN's torch.nn.GRU (for the
-               recurrence: with W_ih = I on xw, checked against the twin)
+               and bfloat16 (2e-2), also at B=32 and 512 (the other
+               consensus buckets) and, at B=37, H=32 and 256 (the core's
+               narrowest smem width and its L2-streaming body);
+               gru_direction_fused_static with codes within 1 and at least
+               99.9% equal and hT within 1e-5 (float32 mode) or 2e-2
+               (bfloat16 W_hh); per-launch times at B=32, 128, 512 and 4096
+               (the static kernel at 128 and 4096) beside the bound, and
+               cuDNN's torch.nn.GRU (for the recurrence: with W_ih = I on
+               xw, checked against the twin); the fused kernel's input
+               projection and recurrence timed apart; ptxas's registers,
+               static shared memory and spills of each entry of the two
+               redesigned kernels
  11 consensus  512 chunks through the consensus scan at the CLI's batch of
                128 in the float, static and recurrence modes, kernels
                against the twin path on the card (votes within the stated
@@ -155,8 +162,11 @@ def nvidia_smi_line() -> str:
     return result.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=10, warmup=2) -> float:
-    """Mean device time of fn() over iters runs, by CUDA events."""
+def cuda_ms(fn, iters=10, warmup=2, queued=False) -> float:
+    """Mean device time of fn() over iters runs, by CUDA events.  With
+    `queued`, the runs are enqueued behind a device sleep of ~1 ms, so that
+    launches shorter than the host's launch overhead run back to back and
+    their device time, not the host's launch rate, is what is timed."""
     import torch
 
     for _ in range(warmup):
@@ -164,6 +174,8 @@ def cuda_ms(fn, iters=10, warmup=2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(2_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -1000,14 +1012,22 @@ LAUNCHES_PER_BATCH = 4 * WINDOWS    # encoder and decoder, both directions
 STATIC_HT_BARS = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
-def gru_inputs(gen, layer, B, x_dtype, device):
-    """One GRU direction at the polish width: the encoder reads image
-    values (F=10) of 0..40, where the random-weight gates are not all
-    saturated, the decoder the encoder's two (-1, 1) streams; float32
+# phase 10's batches: the consensus buckets 32, 128 and 512 and the
+# serving batch; the widths besides GRU_H checked at B=37
+GRU_TIMED_BATCHES = (32, B_POLISH, 512, B_SERVE)
+GRU_CHECKED_BATCHES = (B_POLISH, B_SERVE, 37, 32, 512)
+STATIC_BATCHES = (B_POLISH, B_SERVE, 37)
+GRU_OTHER_WIDTHS = (32, 256)
+
+
+def gru_inputs(gen, layer, B, x_dtype, device, H=GRU_H):
+    """One GRU direction at the polish width (or H): the encoder reads
+    image values (F=10) of 0..40, where the random-weight gates are not
+    all saturated, the decoder the encoder's two (-1, 1) streams; float32
     weights and biases, and a non-zero float32 h0."""
     import torch
 
-    scale = 1.0 / GRU_H ** 0.5
+    scale = 1.0 / H ** 0.5
 
     def u(*size, s=scale):
         return (torch.rand(size, generator=gen, device=device) * 2 - 1) * s
@@ -1016,10 +1036,49 @@ def gru_inputs(gen, layer, B, x_dtype, device):
         xs = (torch.randint(0, 41, (GRU_T, B, GRU_F), generator=gen,
                             device=device).float(),)
     else:
-        xs = (u(GRU_T, B, GRU_H, s=1.0), u(GRU_T, B, GRU_H, s=1.0))
-    ws = tuple(u(x.shape[2], 3 * GRU_H) for x in xs)
-    return (tuple(x.to(x_dtype) for x in xs), ws, u(3 * GRU_H),
-            u(GRU_H, 3 * GRU_H), u(3 * GRU_H), u(B, GRU_H, s=0.9))
+        xs = (u(GRU_T, B, H, s=1.0), u(GRU_T, B, H, s=1.0))
+    ws = tuple(u(x.shape[2], 3 * H) for x in xs)
+    return (tuple(x.to(x_dtype) for x in xs), ws, u(3 * H), u(H, 3 * H),
+            u(3 * H), u(B, H, s=0.9))
+
+
+def recurrence_inputs(gen, B, dtype, device, H=GRU_H):
+    """xw (T, B, 3H) in (-2, 2) and dtype, the encoder's W_hh and b_hh and
+    an h0 in (-0.9, 0.9)."""
+    import torch
+
+    xw = ((torch.rand((GRU_T, B, 3 * H), generator=gen, device=device)
+           * 4 - 2).to(dtype))
+    _, _, _, w_hh, b_hh, _ = gru_inputs(gen, "encoder", 1, dtype, device, H)
+    h0 = torch.rand((B, H), generator=gen, device=device) * 1.8 - 0.9
+    return xw, w_hh, b_hh, h0
+
+
+def ptxas_entries(name):
+    """Each kernel entry of csrc/<name>.cu as ptxas reported it: registers,
+    static shared memory and spill bytes (phase 2's build report)."""
+    import re
+
+    from pepper_tpu_torch.ops import cuda_build
+
+    entries, entry = [], None
+    for line in cuda_build.ptxas_report(name=name).splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            entry = {"entry": found.group(1)}
+            entries.append(entry)
+        elif entry is not None:
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                               r"loads", line)
+            if spills:
+                entry["spill_stores"] = int(spills.group(1))
+                entry["spill_loads"] = int(spills.group(2))
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                entry["registers"] = int(used.group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                entry["smem_static"] = int(smem.group(1)) if smem else 0
+    return entries
 
 
 def gru_work(layer, B, x_item, out_item, static=False, rec_item=4):
@@ -1054,7 +1113,7 @@ def cudnn_gru(w_ih, b_ih, w_hh, b_hh, device):
 
 def phase_kernel_gru(device, card):
     import torch
-    from pepper_tpu_torch.ops import gru_kernel
+    from pepper_tpu_torch.ops import cuda_build, gru_kernel
 
     gen = torch.Generator(device=device).manual_seed(2468)
     fused = gru_kernel.gru_direction_fused
@@ -1072,32 +1131,60 @@ def phase_kernel_gru(device, card):
     def worst(a, b):
         return (a.float() - b.float()).abs().max().item()
 
+    def device_ms(fn, iters=10):
+        # a launch shorter than the host's call (the encoder's projection
+        # alone) would time the host, so this phase times queued
+        return cuda_ms(fn, iters=iters, queued=True)
+
+    def check_fused(xs, ws, b_ih, w_hh, b_hh, h0, dtype, bar, label):
+        """Both directions against the twin; the largest difference."""
+        e_max = 0.0
+        H = w_hh.shape[0]
+        T, B = xs[0].shape[:2]
+        for reverse in (False, True):
+            ys, hT = fused(xs, ws, b_ih, w_hh, b_hh, h0.to(dtype),
+                           reverse=reverse)
+            ref, ref_hT = fused_twin(xs, ws, b_ih, w_hh, b_hh, h0.to(dtype),
+                                     reverse=reverse)
+            torch.cuda.synchronize()
+            check(ys.shape == (T, B, H) and ys.dtype == dtype
+                  and bool(torch.isfinite(ys.float()).all()),
+                  f"gru_direction_fused output {tuple(ys.shape)} {ys.dtype}")
+            e = max(worst(ys, ref), worst(hT, ref_hT))
+            check(e <= bar,
+                  f"gru_direction_fused {label} reverse={reverse}: {e}")
+            e_max = max(e_max, e)
+            if dtype == torch.float32 and H == GRU_H:
+                layer = "encoder" if len(xs) == 1 else "decoder"
+                saturated[layer][0] += (ref.abs() > 0.99).sum().item()
+                saturated[layer][1] += ref.numel()
+        return e_max
+
+    def check_recurrence(B, dtype, bar, label, H=GRU_H):
+        xw, w_hh, b_hh, h0 = recurrence_inputs(gen, B, dtype, device, H)
+        out = rec(xw, w_hh, b_hh, h0)
+        ref = rec_twin(xw, w_hh, b_hh, h0)
+        torch.cuda.synchronize()
+        e = worst(out, ref)
+        check(out.dtype == dtype and out.shape == (GRU_T, B, H)
+              and e <= bar,
+              f"gru_recurrence {label}: {e}")
+        return e
+
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
         bar = KERNEL_BARS[dtype_name]
         e_fused = e_rec = e_ht = 0.0
         tally = [0, 0]
-        for B in (B_POLISH, B_SERVE, 37):
+        for B in GRU_CHECKED_BATCHES:
             for layer in ("encoder", "decoder"):
                 xs, ws, b_ih, w_hh, b_hh, h0 = gru_inputs(gen, layer, B,
                                                           dtype, device)
-                for reverse in (False, True):
-                    ys, hT = fused(xs, ws, b_ih, w_hh, b_hh, h0.to(dtype),
-                                   reverse=reverse)
-                    ref, ref_hT = fused_twin(xs, ws, b_ih, w_hh, b_hh,
-                                             h0.to(dtype), reverse=reverse)
-                    torch.cuda.synchronize()
-                    check(ys.shape == (GRU_T, B, GRU_H) and ys.dtype == dtype
-                          and bool(torch.isfinite(ys.float()).all()),
-                          f"gru_direction_fused output {tuple(ys.shape)} "
-                          f"{ys.dtype}")
-                    e = max(worst(ys, ref), worst(hT, ref_hT))
-                    check(e <= bar, f"gru_direction_fused {dtype_name} "
-                          f"{layer} B={B} reverse={reverse}: {e} > {bar}")
-                    e_fused = max(e_fused, e)
-                    if dtype == torch.float32:
-                        saturated[layer][0] += (ref.abs() > 0.99).sum().item()
-                        saturated[layer][1] += ref.numel()
+                e_fused = max(e_fused, check_fused(
+                    xs, ws, b_ih, w_hh, b_hh, h0, dtype, bar,
+                    f"{dtype_name} {layer} B={B}"))
+                if B not in STATIC_BATCHES:
+                    continue
                 # the served static combinations of this compute dtype:
                 # encoder float x with W_ih and W_hh of its dtype, decoder
                 # the encoder's int8 codes with int8 W_ih and W_hh in it
@@ -1129,19 +1216,15 @@ def phase_kernel_gru(device, card):
                           f"static {dtype_name} {layer} B={B}: hT {e}")
                     e_ht = max(e_ht, e)
             # the recurrence over xw of the encoder's shape
-            xw = ((torch.rand((GRU_T, B, 3 * GRU_H), generator=gen,
-                              device=device) * 4 - 2).to(dtype))
-            _, _, _, w_hh, b_hh, h0 = gru_inputs(gen, "encoder", 1, dtype,
-                                                 device)
-            h0 = (torch.rand((B, GRU_H), generator=gen, device=device)
-                  * 1.8 - 0.9)
-            out = rec(xw, w_hh, b_hh, h0)
-            ref = rec_twin(xw, w_hh, b_hh, h0)
-            torch.cuda.synchronize()
-            e = worst(out, ref)
-            check(out.dtype == dtype and e <= bar,
-                  f"gru_recurrence {dtype_name} B={B}: {e} > {bar}")
-            e_rec = max(e_rec, e)
+            e_rec = max(e_rec, check_recurrence(B, dtype, bar,
+                                                f"{dtype_name} B={B}"))
+        for H in GRU_OTHER_WIDTHS:
+            for layer in ("encoder", "decoder"):
+                e_fused = max(e_fused, check_fused(
+                    *gru_inputs(gen, layer, 37, dtype, device, H), dtype,
+                    bar, f"{dtype_name} {layer} H={H} B=37"))
+            e_rec = max(e_rec, check_recurrence(
+                37, dtype, bar, f"{dtype_name} H={H} B=37", H))
         share = tally[0] / tally[1]
         check(share >= CODE_BARS["static"],
               f"static {dtype_name}: {share} of the codes equal the twin's")
@@ -1152,7 +1235,7 @@ def phase_kernel_gru(device, card):
 
     # per-launch times in float32, the CLI's consensus dtype
     timings = {}
-    for B in (B_POLISH, B_SERVE):
+    for B in GRU_TIMED_BATCHES:
         for layer in ("encoder", "decoder"):
             xs, ws, b_ih, w_hh, b_hh, h0 = gru_inputs(gen, layer, B,
                                                       torch.float32, device)
@@ -1163,36 +1246,52 @@ def phase_kernel_gru(device, card):
                 lib_out, _ = gru(x_cat, h0[None])
             lib_diff = worst(lib_out, fused(xs, ws, b_ih, w_hh, b_hh, h0)[0])
             with torch.no_grad():
-                lib_ms = cuda_ms(lambda: gru(x_cat, h0[None]))
+                lib_ms = device_ms(lambda: gru(x_cat, h0[None]))
+            # the kernel's two launches apart: its library's projection
+            # entry, then gru_recurrence over the projected float32 xw (the
+            # same core as the fused kernel's second launch on float32 x)
+            xw = torch.empty((GRU_T, B, 3 * GRU_H), device=device)
+            two = len(xs) > 1
+
+            def project():
+                cuda_build.launch(
+                    "gru_direction_fused_projection", device, 0,
+                    xs[0].data_ptr(), xs[1].data_ptr() if two else None,
+                    ws[0].data_ptr(), ws[1].data_ptr() if two else None,
+                    xs[0].shape[2], xs[1].shape[2] if two else 0,
+                    b_ih.data_ptr(), xw.data_ptr(), GRU_T, B, GRU_H)
+
+            project()
+            torch.cuda.synchronize()
+            exact = (torch.cat(xs, dim=-1).double() @ torch.cat(ws).double()
+                     + b_ih.double())
+            check(worst(xw, exact) <= 1e-4,
+                  f"gru_direction_fused projection {layer} B={B}")
+            split = {"projection_ms": device_ms(project),
+                     "recurrence_ms": device_ms(
+                         lambda: rec(xw, w_hh, b_hh, h0))}
+            xw_bytes = 4 * GRU_T * B * 3 * GRU_H
+            h_bytes = 4 * GRU_T * B * GRU_H
             timings[f"fused_{layer}_B{B}"] = {
-                "kernel_ms": cuda_ms(lambda: fused(xs, ws, b_ih, w_hh, b_hh,
-                                                   h0)),
-                "plain_ms": cuda_ms(lambda: fused_twin(xs, ws, b_ih, w_hh,
-                                                       b_hh, h0), iters=3),
+                "kernel_ms": device_ms(lambda: fused(xs, ws, b_ih, w_hh,
+                                                     b_hh, h0)),
+                **split,
+                "plain_ms": device_ms(lambda: fused_twin(
+                    xs, ws, b_ih, w_hh, b_hh, h0), iters=3),
                 "cudnn_ms": lib_ms, "cudnn_max_abs_diff": lib_diff,
                 "bound_ms": bound_ms(proj + rec_ops, nbytes, PEAK_F32_FLOPS),
+                # each launch alone: x and W_ih in, xw out; xw, W_hh and
+                # h0 in, h out
+                "projection_bound_ms": bound_ms(
+                    proj, sum(4 * x.numel() for x in (*xs, *ws)) + xw_bytes,
+                    PEAK_F32_FLOPS),
+                "recurrence_bound_ms": bound_ms(
+                    rec_ops, xw_bytes + 4 * (w_hh.numel() + B * GRU_H)
+                    + h_bytes, PEAK_F32_FLOPS),
                 "gflop": (proj + rec_ops) / 1e9, "mbytes": nbytes / 1e6}
             if layer == "encoder":
-                s_xs, s_ws, acc_scale = xs, ws, None
-                seconds = (proj + rec_ops) / PEAK_F32_FLOPS
-            else:
-                s_xs = tuple(torch.round(x * 127).to(torch.int8) for x in xs)
-                q, w_scale = quantize_cols(torch.cat(ws))
-                s_ws = (q[:GRU_H].contiguous(), q[GRU_H:].contiguous())
-                acc_scale = w_scale / 127.0
-                seconds = proj / PEAK_INT8_OPS + rec_ops / PEAK_F32_FLOPS
-            _, _, s_bytes = gru_work(layer, B, 1 if layer == "decoder"
-                                     else 4, 1, static=True)
-            args = (s_xs, s_ws, b_ih, w_hh, b_hh, h0)
-            timings[f"static_{layer}_B{B}"] = {
-                "kernel_ms": cuda_ms(lambda: static(*args,
-                                                    acc_scale=acc_scale)),
-                "plain_ms": cuda_ms(lambda: static_twin(
-                    *args, acc_scale=acc_scale), iters=3),
-                "bound_ms": max(seconds, s_bytes / PEAK_BYTES) * 1e3}
-            if layer == "encoder":
-                xw = (torch.rand((GRU_T, B, 3 * GRU_H), generator=gen,
-                                 device=device) * 4 - 2)
+                xw, w_hh, b_hh, h0 = recurrence_inputs(gen, B, torch.float32,
+                                                       device)
                 r_bytes = 4 * (xw.numel() + w_hh.numel() + b_hh.numel()
                                + h0.numel() + GRU_T * B * GRU_H)
                 r_ops = 2 * GRU_T * B * GRU_H * 3 * GRU_H
@@ -1207,20 +1306,47 @@ def phase_kernel_gru(device, card):
                     lib_diff = worst(lib_out, rec_twin(xw, w_hh, b_hh, h0))
                     check(lib_diff <= KERNEL_BARS["float32"],
                           f"identity-W_ih torch.nn.GRU B={B}: {lib_diff}")
-                    lib_ms = cuda_ms(lambda: gru(xw, h0[None]))
+                    lib_ms = device_ms(lambda: gru(xw, h0[None]))
                 timings[f"recurrence_B{B}"] = {
-                    "kernel_ms": cuda_ms(lambda: rec(xw, w_hh, b_hh, h0)),
-                    "plain_ms": cuda_ms(lambda: rec_twin(xw, w_hh, b_hh, h0),
-                                        iters=3),
+                    "kernel_ms": device_ms(lambda: rec(xw, w_hh, b_hh, h0)),
+                    # back to back from Python, as earlier phases time
+                    "kernel_ms_unqueued": cuda_ms(
+                        lambda: rec(xw, w_hh, b_hh, h0)),
+                    "plain_ms": device_ms(
+                        lambda: rec_twin(xw, w_hh, b_hh, h0), iters=3),
                     "cudnn_ms": lib_ms, "cudnn_max_abs_diff": lib_diff,
                     "bound_ms": bound_ms(r_ops, r_bytes, PEAK_F32_FLOPS),
                     "bound_by": ("bytes" if r_bytes / PEAK_BYTES
                                  > r_ops / PEAK_F32_FLOPS else "operations")}
+            if B not in STATIC_BATCHES:
+                continue
+            xs, ws, b_ih, w_hh, b_hh, h0 = gru_inputs(gen, layer, B,
+                                                      torch.float32, device)
+            if layer == "encoder":
+                s_xs, s_ws, acc_scale = xs, ws, None
+                seconds = (proj + rec_ops) / PEAK_F32_FLOPS
+            else:
+                s_xs = tuple(torch.round(x * 127).to(torch.int8) for x in xs)
+                q, w_scale = quantize_cols(torch.cat(ws))
+                s_ws = (q[:GRU_H].contiguous(), q[GRU_H:].contiguous())
+                acc_scale = w_scale / 127.0
+                seconds = proj / PEAK_INT8_OPS + rec_ops / PEAK_F32_FLOPS
+            _, _, s_bytes = gru_work(layer, B, 1 if layer == "decoder"
+                                     else 4, 1, static=True)
+            args = (s_xs, s_ws, b_ih, w_hh, b_hh, h0)
+            timings[f"static_{layer}_B{B}"] = {
+                "kernel_ms": device_ms(lambda: static(
+                    *args, acc_scale=acc_scale)),
+                "plain_ms": device_ms(lambda: static_twin(
+                    *args, acc_scale=acc_scale), iters=3),
+                "bound_ms": max(seconds, s_bytes / PEAK_BYTES) * 1e3}
     emit({"phase": "kernel_gru", "kernel_names": list(gru_kernel.KERNELS),
           "card": card, "max_abs_err": err, "max_code_diff": max_code_diff,
           "code_equal_share": code_share,
           "saturated_share_float32": {k: n / total for k, (n, total)
                                       in saturated.items()},
+          "ptxas": {name: ptxas_entries(name)
+                    for name in ("gru_direction_fused", "gru_recurrence")},
           "per_launch_float32": timings})
     return err, max_code_diff, timings
 
@@ -1967,7 +2093,9 @@ def main() -> int:
     # the kernels line's names: each window runs the encoder and the
     # decoder launch twice (the recurrence: four launches of one shape)
     line_key = {"kernel_ms": "ms", "plain_ms": "plain_ms",
-                "bound_ms": "bound_ms", "cudnn_ms": "library_ms"}
+                "bound_ms": "bound_ms", "cudnn_ms": "library_ms",
+                "projection_ms": "projection_ms",
+                "recurrence_ms": "recurrence_ms"}
 
     def polish_batch(kind, keys):
         return {line_key[key]: WINDOWS * 2 * sum(
@@ -2048,8 +2176,12 @@ def main() -> int:
         "max_abs_err": gru_err["fused"]["float32"],
         "max_abs_err_bf16": gru_err["fused"]["bfloat16"],
         **polish_batch("fused", ("kernel_ms", "plain_ms", "bound_ms",
-                                 "cudnn_ms")),
+                                 "cudnn_ms", "projection_ms",
+                                 "recurrence_ms")),
         "bound_by": "operations",
+        "status": "redesigned: input projection out of the loop, W_hh in "
+                  "shared memory and registers, one row a block at B=128; "
+                  "earlier design: PERF.md section 6, row 5",
         "work": f"one consensus batch of {B_POLISH} chunks, float32: "
                 f"{WINDOWS} windows x encoder and decoder, forward and "
                 f"backward ({LAUNCHES_PER_BATCH} launches)",
@@ -2079,6 +2211,9 @@ def main() -> int:
            * gru_launch[f"recurrence_B{B_POLISH}"][key]
            for key in ("kernel_ms", "plain_ms", "bound_ms", "cudnn_ms")},
         "bound_by": gru_launch[f"recurrence_B{B_POLISH}"]["bound_by"],
+        "status": "redesigned: W_hh in shared memory and registers, one "
+                  "row a block at B=128; earlier design: PERF.md section 6, "
+                  "row 7",
         "library_note": "torch.nn.GRU(384, 128) (cuDNN) with W_ih = I and "
                         "b_ih = 0 on xw: the same function plus an extra "
                         "(T*B, 384) x (384, 384) input product, so an upper "

@@ -15,110 +15,50 @@
 // in the TPU kernel).  xw and out are float32 or bfloat16; W_hh and b_hh
 // float32.
 //
-// Design.  The layout of gru_cell.cuh: a block owns kRows = 16 batch rows
-// for all T steps, thread j owns hidden unit j and its three gate columns,
-// h stays in registers and is staged in shared memory for the product.
-// Thread j reads xw[t][row][q*H + j] straight into registers; neighbouring
-// threads read neighbouring addresses, so each warp's loads are coalesced.
+// Design: gru_core.cuh alone.  For H <= 128 W_hh lives in shared memory
+// (its first 96 rows in registers at one row a block, 64 at two), a block
+// owns as few batch rows as let the grid cover the SMs (1 at the consensus
+// batch of 128, so 128 blocks on the 132 SMs) and has 3H threads, one a
+// gate column, and the next
+// step's xw is loaded while the current step computes; for H up to 256
+// the L2-streaming body (16 rows and H threads a block).
 //
 // Bound.  Per launch it must read xw (T*B*3H values) and W_hh, write h
 // (T*B*H) and do 2*T*B*H*3H operations: at T=100, B=128, H=128 in float32
 // that is 26.5 MB (7.9 us at 3.35 TB/s) against 2.52 GFLOP (37.6 us at the
-// f32 rate), so operations bound it.  This first version does the recurrent
-// product as scalar f32 FMAs; the tensor cores and prefetching the next
-// step's xw are later work.
+// f32 rate), so operations bound it.  The smem body is held back instead by
+// its T serial steps, each a chain of shared-memory reads (W_hh's rows
+// outside registers, h as broadcasts), the product, the gates, the cell and
+// two barriers; each further row a block adds its broadcasts and FMAs to
+// a step and leaves fewer registers for W_hh, so the plan takes as few
+// rows a block as fill the SMs.
 //
 // Binding: a plain C launcher (no PyTorch headers) loaded with ctypes; it
 // launches on the caller's stream and returns cudaGetLastError().
 
-#include "gru_cell.cuh"
-
-namespace {
-
-using gru::kMaxHidden;
-using gru::kRows;
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxHidden)
-    gru_recurrence_kernel(const T* __restrict__ xw,
-                          const float* __restrict__ w_hh,
-                          const float* __restrict__ b_hh,
-                          const float* __restrict__ h0, T* __restrict__ out,
-                          int steps, int B, int H) {
-  extern __shared__ __align__(16) float hs[];  // [H][kRows]
-  const int j = threadIdx.x;
-  const int b0 = static_cast<int>(blockIdx.x) * kRows;
-  const int G = 3 * H;
-
-  float bh[3];
-  gru::load3(bh, b_hh, H, j);
-  float h[kRows];
-  gru::load_h0<T>(h, hs, h0, B, H, j, b0);
-
-  for (int t = 0; t < steps; ++t) {
-    const size_t base = static_cast<size_t>(t) * B;
-    float x[kRows][3];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = b0 + r;
-      const T* xr = xw + (base + (row < B ? row : 0)) * G + j;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        x[r][q] = row < B ? lstm::to_f32(xr[q * H]) : 0.0f;
-      }
-    }
-    __syncthreads();  // last step's h visible
-    float hw[kRows][3];
-    gru::zero(hw);
-    gru::accumulate(hw, hs, w_hh, H, H, j);
-    gru::add_bias(hw, bh);
-    __syncthreads();  // every thread is done reading hs
-
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      h[r] = gru::cell(x[r], hw[r], h[r]);
-      const T h_out = lstm::from_f32<T>(h[r]);
-      hs[j * kRows + r] = lstm::to_f32(h_out);
-      const int row = b0 + r;
-      if (row < B) out[(base + row) * H + j] = h_out;
-    }
-  }
-}
-
-template <typename T>
-int launch(const void* xw, const float* w_hh, const float* b_hh,
-           const float* h0, void* out, int steps, int B, int H,
-           cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(H) * kRows * sizeof(float);
-  auto kernel = gru_recurrence_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kRows - 1) / kRows);
-  kernel<<<grid, H, smem, stream>>>(static_cast<const T*>(xw), w_hh, b_hh,
-                                    h0, static_cast<T*>(out), steps, B, H);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "gru_core.cuh"
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (xw and out); W_hh, b_hh and h0 are
-// float32.  Returns a cudaError_t value (0 on success).
+// dtype: 0 = float32, 1 = bfloat16 (xw and out); W_hh (16-byte aligned),
+// b_hh and h0 are float32.  Returns a cudaError_t value (0 on success).
 int gru_recurrence_launch(int dtype, const void* xw, const float* w_hh,
                           const float* b_hh, const float* h0, void* out,
                           int steps, int B, int H, void* stream) {
-  if (H <= 0 || H > kMaxHidden || H % 32 != 0 || steps <= 0 || B <= 0) {
+  if (H <= 0 || H > gru::kMaxHidden || H % 32 != 0 || steps <= 0 || B <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(xw, w_hh, b_hh, h0, out, steps, B, H, s);
+    return static_cast<int>(gru::launch_core<float, float, float>(
+        static_cast<const float*>(xw), w_hh, b_hh, h0,
+        static_cast<float*>(out), steps, B, H, 0, s));
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(xw, w_hh, b_hh, h0, out, steps, B, H, s);
+    using bf16 = __nv_bfloat16;
+    return static_cast<int>(gru::launch_core<bf16, bf16, bf16>(
+        static_cast<const bf16*>(xw), w_hh, b_hh, h0,
+        static_cast<bf16*>(out), steps, B, H, 0, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,6 +8,8 @@ build directory (build.py) and bound with ctypes.  Each library exports
     int <name>_launch(..., void* stream)   -> a cudaError_t value
     const char* <name>_error_string(int)
 
+and may export further launchers beside it (ENTRIES).
+
 KERNELS lists every kernel with the headers that go into its build stamp
 and the argument types of its launcher; the wrappers that call them live
 in lstm_kernel.py, gru_kernel.py and pileup_kernel.py, and the dtype
@@ -33,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LSTM = ("lstm_cell.cuh",)
 _GRU = ("gru_cell.cuh", "lstm_cell.cuh")
+_GRU_CORE = ("gru_core.cuh",) + _GRU
 # name -> (headers it includes, argument types of <name>_launch, the
 # stream last)
 KERNELS = {
@@ -44,13 +47,21 @@ KERNELS = {
                                             _I, _P, _P, _P, _P, _P, _I, _I,
                                             _I, _I, _P]),
     "lstm_recurrence": (_LSTM, [_I, _P, _P, _P, _I, _I, _I, _P]),
-    "gru_direction_fused": (_GRU, [_I, _P, _P, _P, _P, _I, _I, _P, _P, _P,
-                                   _P, _P, _I, _I, _I, _I, _P]),
+    "gru_direction_fused": (_GRU_CORE, [_I, _P, _P, _P, _P, _I, _I, _P, _P,
+                                        _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "gru_direction_fused_static": (_GRU, [_I, _I, _P, _P, _P, _P, _I, _I, _P,
                                           _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                           _I, _P]),
-    "gru_recurrence": (_GRU, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "gru_recurrence": (_GRU_CORE, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "pileup_histogram": ((), [_P, _P, _P, _P, _I, _I, _P]),
+}
+# further launchers a kernel's library exports, <entry>_launch: entry ->
+# (the kernel, argument types)
+ENTRIES = {
+    # gru_direction_fused's input projection alone, for timing it apart
+    "gru_direction_fused_projection": (
+        "gru_direction_fused", [_I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
+                                _I, _P]),
 }
 _libs: dict = {}
 
@@ -107,9 +118,13 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(build_kernel(name=name))
-        launch_fn = getattr(lib, f"{name}_launch")
-        launch_fn.restype = ctypes.c_int
-        launch_fn.argtypes = KERNELS[name][1]
+        entries = {name: KERNELS[name][1]}
+        entries.update((entry, argtypes) for entry, (kernel, argtypes)
+                       in ENTRIES.items() if kernel == name)
+        for entry, argtypes in entries.items():
+            launch_fn = getattr(lib, f"{entry}_launch")
+            launch_fn.restype = ctypes.c_int
+            launch_fn.argtypes = argtypes
         error_string = getattr(lib, f"{name}_error_string")
         error_string.restype = ctypes.c_char_p
         error_string.argtypes = [ctypes.c_int]
@@ -118,15 +133,17 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
 
 
 def launch(name: str, device: torch.device, *args) -> None:
-    """Run <name>_launch(*args, stream) on the current stream of `device`;
-    raise if the launcher reports an error."""
-    lib = _kernel_lib(name)
+    """Run <name>_launch(*args, stream) of a kernel or an entry of ENTRIES
+    on the current stream of `device`; raise if the launcher reports an
+    error."""
+    kernel = ENTRIES[name][0] if name in ENTRIES else name
+    lib = _kernel_lib(kernel)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, f"{name}_launch")(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
-                           + getattr(lib, f"{name}_error_string")(err)
+                           + getattr(lib, f"{kernel}_error_string")(err)
                            .decode())
 
 

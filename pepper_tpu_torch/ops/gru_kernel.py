@@ -19,6 +19,11 @@ runs its `*_reference` twin, which does the same math in plain PyTorch.
 There is no fallback from one to the other: a failed build or launch
 raises.
 
+gru_direction_fused and gru_recurrence share one recurrence core
+(csrc/gru_core.cuh), which picks its body and the batch rows a block from
+B, H and the card's SM count; gru_direction_fused hands its kernel a
+float32 scratch for the input projection of all steps.
+
 The cell is torch.nn.GRU's (gru_cell, which models/rnn.py shares), with
 f32 state and f32 sums; h is rounded to W_hh's dtype before the recurrent
 product (to xw's dtype in gru_recurrence).  The kernels take the dtypes the polish
@@ -41,6 +46,12 @@ from .int8_matmul import int8_matmul
 
 KERNELS = ("gru_direction_fused", "gru_direction_fused_static",
            "gru_recurrence")
+
+
+def _aligned(t):
+    """t, or a copy of it on a fresh allocation where t does not start on
+    the 16-byte boundary that the kernels read weights from."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def use_fused_gru(device) -> bool:
@@ -176,17 +187,22 @@ def gru_direction_fused(x_parts, w_ih_parts, b_ih, w_hh, b_hh, h0,
     h0 = h0.float().contiguous()
     check_contiguous((*x_parts, *w_ih_parts, b_ih, w_hh, b_hh, h0),
                      x0.device, "gru_direction_fused")
+    w_ih_parts = tuple(_aligned(w) for w in w_ih_parts)
+    w_hh = _aligned(w_hh)
     T, B, F0 = x0.shape
     H = w_hh.shape[0]
     out = torch.empty((T, B, H), dtype=x0.dtype, device=x0.device)
     if T == 0 or B == 0:
         return out, h0.to(x0.dtype)
+    # the input projection of all steps, x @ W_ih + b_ih in float32
+    xw = torch.empty((T, B, 3 * H), dtype=torch.float32, device=x0.device)
     two = len(x_parts) > 1
     launch("gru_direction_fused", x0.device, DTYPE_CODE[x0.dtype], ptr(x0),
            ptr(x_parts[1] if two else None), ptr(w_ih_parts[0]),
            ptr(w_ih_parts[1] if two else None), F0,
            x_parts[1].shape[2] if two else 0, ptr(b_ih), ptr(w_hh),
-           ptr(b_hh), ptr(h0), ptr(out), T, B, H, int(bool(reverse)))
+           ptr(b_hh), ptr(h0), ptr(xw), ptr(out), T, B, H,
+           int(bool(reverse)))
     gru_direction_fused.launches += 1
     return out, (out[0] if reverse else out[-1])
 
@@ -366,6 +382,7 @@ def gru_recurrence(xw, w_hh, b_hh, h0):
     check_hidden(H)
     h0 = h0.float().contiguous()
     check_contiguous((xw, w_hh, b_hh, h0), xw.device, "gru_recurrence")
+    w_hh = _aligned(w_hh)
     T, B, _ = xw.shape
     out = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
     if T == 0 or B == 0:

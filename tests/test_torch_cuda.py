@@ -328,13 +328,14 @@ def test_quantized_runner_on_card_matches_cpu(device, mode, dtype, atol,
 GRU_H = 128
 
 
-def gru_inputs(device, x_dtype, parts, B, T=100, seed=0, w_dtype=None):
-    """One GRU direction at the polish width: the encoder's (F=10 image
-    values) or the decoder's (2 x 128 streams in (-1, 1)) x parts in
+def gru_inputs(device, x_dtype, parts, B, T=100, seed=0, w_dtype=None,
+               H=GRU_H):
+    """One GRU direction at the polish width (or H): the encoder's (F=10
+    image values) or the decoder's (2 x H streams in (-1, 1)) x parts in
     x_dtype, (F_i, 3H) weights, (3H,) float32 biases, W_hh and a non-zero
     (B, H) h0, on `device`."""
     gen = torch.Generator().manual_seed(seed)
-    s = 1.0 / GRU_H ** 0.5
+    s = 1.0 / H ** 0.5
     w_dtype = w_dtype or torch.float32
 
     def u(*size, scale=s):
@@ -345,22 +346,29 @@ def gru_inputs(device, x_dtype, parts, B, T=100, seed=0, w_dtype=None):
     else:
         xs = tuple(u(T, B, f, scale=1.0) for f in parts)
     xs = tuple(x.to(device, x_dtype) for x in xs)
-    ws = tuple(u(f, 3 * GRU_H).to(device, w_dtype) for f in parts)
-    return (xs, ws, u(3 * GRU_H).to(device), u(GRU_H, 3 * GRU_H).to(
-        device, w_dtype), u(3 * GRU_H).to(device),
-        u(B, GRU_H, scale=0.9).to(device))
+    ws = tuple(u(f, 3 * H).to(device, w_dtype) for f in parts)
+    return (xs, ws, u(3 * H).to(device), u(H, 3 * H).to(device, w_dtype),
+            u(3 * H).to(device), u(B, H, scale=0.9).to(device))
 
 
 GRU_PARTS = [(10,), (GRU_H, GRU_H)]
+# the consensus buckets (32, 128, 512 below), a ragged last block (1, 37,
+# 200, 300) and two waves of 16-row blocks (4096); H = 32, 64 and 128 take
+# the core's smem body (with 0, 64 and 96 rows of W_hh in registers at one
+# row a block, 64 at two, as at B=200), 256 its L2-streaming body
+GRU_BATCHES = [1, 32, 37, 128, 200, 300, 4096]
+GRU_WIDTHS = [32, 64, 128, 256]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("parts", GRU_PARTS, ids=["encoder", "decoder"])
-@pytest.mark.parametrize("B", [1, 37, 300])
-def test_gru_kernel_matches_twin(device, dtype, parts, B):
+@pytest.mark.parametrize("layer", ["encoder", "decoder"])
+@pytest.mark.parametrize("H", GRU_WIDTHS)
+@pytest.mark.parametrize("B", GRU_BATCHES)
+def test_gru_kernel_matches_twin(device, dtype, layer, H, B):
     from pepper_tpu_torch.ops import gru_kernel
 
-    xs, ws, b_ih, w_hh, b_hh, h0 = gru_inputs(device, dtype, parts, B)
+    parts = (10,) if layer == "encoder" else (H, H)
+    xs, ws, b_ih, w_hh, b_hh, h0 = gru_inputs(device, dtype, parts, B, H=H)
     h0 = h0.to(dtype)
     for reverse in (False, True):
         before = gru_kernel.gru_direction_fused.launches
@@ -370,7 +378,7 @@ def test_gru_kernel_matches_twin(device, dtype, parts, B):
         ref, ref_hT = gru_kernel.gru_direction_fused_reference(
             xs, ws, b_ih, w_hh, b_hh, h0, reverse=reverse)
         torch.cuda.synchronize()
-        assert ys.dtype == dtype and ys.shape == (100, B, GRU_H)
+        assert ys.dtype == dtype and ys.shape == (100, B, H)
         torch.testing.assert_close(ys.float(), ref.float(), atol=BARS[dtype],
                                    rtol=0)
         torch.testing.assert_close(hT.float(), ref_hT.float(),
@@ -418,29 +426,54 @@ def test_gru_static_kernel_matches_twin(device, x_dtype, w_hh_dtype, B):
                                    == torch.float32 else 2e-2, rtol=0)
 
 
+def _recurrence_inputs(device, dtype, B, H):
+    gen = torch.Generator().manual_seed(B)
+    xw = (torch.rand(100, B, 3 * H, generator=gen) * 4 - 2).to(device, dtype)
+    w_hh = ((torch.rand(H, 3 * H, generator=gen) * 2 - 1) / H ** 0.5).to(
+        device)
+    b_hh = (torch.rand(3 * H, generator=gen) * 0.2 - 0.1).to(device)
+    h0 = (torch.rand(B, H, generator=gen) * 1.8 - 0.9).to(device)
+    return xw, w_hh, b_hh, h0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B", [1, 37, 300])
-def test_gru_recurrence_kernel_matches_twin(device, dtype, B):
+@pytest.mark.parametrize("H", GRU_WIDTHS)
+@pytest.mark.parametrize("B", GRU_BATCHES)
+def test_gru_recurrence_kernel_matches_twin(device, dtype, H, B):
     from pepper_tpu_torch.ops import gru_kernel
 
-    gen = torch.Generator().manual_seed(B)
-    xw = (torch.rand(100, B, 3 * GRU_H, generator=gen) * 4 - 2).to(device,
-                                                                    dtype)
-    w_hh = ((torch.rand(GRU_H, 3 * GRU_H, generator=gen) * 2 - 1)
-            / GRU_H ** 0.5).to(device)
-    b_hh = (torch.rand(3 * GRU_H, generator=gen) * 0.2 - 0.1).to(device)
-    h0 = (torch.rand(B, GRU_H, generator=gen) * 1.8 - 0.9).to(device)
+    xw, w_hh, b_hh, h0 = _recurrence_inputs(device, dtype, B, H)
     before = gru_kernel.gru_recurrence.launches
     out = gru_kernel.gru_recurrence(xw, w_hh, b_hh, h0)
     assert gru_kernel.gru_recurrence.launches == before + 1
     ref = gru_kernel.gru_recurrence_reference(xw, w_hh, b_hh, h0)
     torch.cuda.synchronize()
-    assert out.dtype == dtype and out.shape == (100, B, GRU_H)
+    assert out.dtype == dtype and out.shape == (100, B, H)
     torch.testing.assert_close(out.float(), ref.float(), atol=BARS[dtype],
                                rtol=0)
 
 
-@pytest.mark.parametrize("case", ["bf16_weights", "float16_x", "h0_shape"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_direction_pallas_reverse_on_card_matches_cpu(device, dtype):
+    """The unfused path's backward direction (flips around the recurrence
+    kernel, xw in x's dtype) against the same call on the CPU."""
+    from pepper_tpu_torch.ops import gru_kernel
+
+    xs, ws, b_ih, w_hh, b_hh, h0 = gru_inputs(torch.device("cpu"), dtype,
+                                              GRU_PARTS[0], 37)
+    x = xs[0].transpose(0, 1).contiguous()
+    args = (x, ws[0].to(dtype), w_hh, b_ih, b_hh, h0)
+    ys, hT = gru_kernel.gru_direction_pallas(
+        *(a.to(device) for a in args), reverse=True)
+    ref, ref_hT = gru_kernel.gru_direction_pallas(*args, reverse=True)
+    torch.testing.assert_close(ys.float().cpu(), ref.float(),
+                               atol=BARS[dtype], rtol=0)
+    torch.testing.assert_close(hT.float().cpu(), ref_hT.float(),
+                               atol=BARS[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("case", ["bf16_weights", "float16_x", "h0_shape",
+                                  "hidden_288"])
 def test_gru_kernel_refuses_what_it_cannot_take(device, case):
     from pepper_tpu_torch.ops import gru_kernel
 
@@ -451,12 +484,60 @@ def test_gru_kernel_refuses_what_it_cannot_take(device, case):
         w_hh = w_hh.bfloat16()
     elif case == "float16_x":
         xs = (xs[0].half(),)
-    else:
+    elif case == "h0_shape":
         h0, error = h0[:3], ValueError
+    else:
+        xs, ws, b_ih, w_hh, b_hh, h0 = gru_inputs(
+            device, torch.float32, GRU_PARTS[0], 4, T=5, H=288)
+        error = ValueError
     before = gru_kernel.gru_direction_fused.launches
     with pytest.raises(error):
         gru_kernel.gru_direction_fused(xs, ws, b_ih, w_hh, b_hh, h0)
     assert gru_kernel.gru_direction_fused.launches == before
+
+
+def test_gru_recurrence_refuses_what_it_cannot_take(device):
+    from pepper_tpu_torch.ops import gru_kernel
+
+    xw, w_hh, b_hh, h0 = _recurrence_inputs(device, torch.float32, 4, 32)
+    before = gru_kernel.gru_recurrence.launches
+    with pytest.raises(TypeError):
+        gru_kernel.gru_recurrence(xw.half(), w_hh, b_hh, h0)
+    assert gru_kernel.gru_recurrence.launches == before
+
+
+def _unaligned(t):
+    """A contiguous copy of t that starts one float past a 16-byte
+    boundary."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype,
+                       device=t.device)[1:].view_as(t).copy_(t)
+
+
+@pytest.mark.parametrize("kernel", ["fused", "recurrence"])
+def test_gru_kernels_serve_unaligned_weights(device, kernel):
+    """Weights off the 16-byte boundary the kernels read them from are
+    copied onto a fresh allocation, not refused."""
+    from pepper_tpu_torch.ops import gru_kernel
+
+    if kernel == "fused":
+        xs, ws, b_ih, w_hh, b_hh, h0 = gru_inputs(
+            device, torch.float32, GRU_PARTS[1], 37, T=20)
+        args = (xs, tuple(_unaligned(w) for w in ws), b_ih, _unaligned(w_hh),
+                b_hh, h0)
+        before = gru_kernel.gru_direction_fused.launches
+        ys, hT = gru_kernel.gru_direction_fused(*args)
+        assert gru_kernel.gru_direction_fused.launches == before + 1
+        ref, ref_hT = gru_kernel.gru_direction_fused_reference(*args)
+        torch.testing.assert_close(hT, ref_hT, atol=BARS[torch.float32],
+                                   rtol=0)
+    else:
+        xw, w_hh, b_hh, h0 = _recurrence_inputs(device, torch.float32, 37,
+                                                GRU_H)
+        before = gru_kernel.gru_recurrence.launches
+        ys = gru_kernel.gru_recurrence(xw, _unaligned(w_hh), b_hh, h0)
+        assert gru_kernel.gru_recurrence.launches == before + 1
+        ref = gru_kernel.gru_recurrence_reference(xw, w_hh, b_hh, h0)
+    torch.testing.assert_close(ys, ref, atol=BARS[torch.float32], rtol=0)
 
 
 def _polish_params():

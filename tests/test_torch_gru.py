@@ -34,19 +34,19 @@ def _u(rng, *shape, scale=1.0 / H ** 0.5):
     return rng.uniform(-scale, scale, shape).astype(np.float32)
 
 
-def _direction(seed, parts):
-    """x parts (T, B, F_i), w_ih parts (F_i, 3H), b_ih, w_hh, b_hh and a
-    non-zero h0 (B, H), as numpy float32: the encoder reads image values,
-    the decoder streams in (-1, 1)."""
+def _direction(seed, parts, batch=B):
+    """x parts (T, batch, F_i), w_ih parts (F_i, 3H), b_ih, w_hh, b_hh and
+    a non-zero h0 (batch, H), as numpy float32: the encoder reads image
+    values, the decoder streams in (-1, 1)."""
     rng = np.random.RandomState(seed)
     if parts == (F,):
-        xs = (rng.randint(0, 40, (T, B, F)).astype(np.float32),)
+        xs = (rng.randint(0, 40, (T, batch, F)).astype(np.float32),)
     else:
-        xs = tuple(rng.uniform(-1, 1, (T, B, f)).astype(np.float32)
+        xs = tuple(rng.uniform(-1, 1, (T, batch, f)).astype(np.float32)
                    for f in parts)
     ws = tuple(_u(rng, f, 3 * H) for f in parts)
     return (xs, ws, _u(rng, 3 * H), _u(rng, H, 3 * H), _u(rng, 3 * H),
-            rng.uniform(-0.9, 0.9, (B, H)).astype(np.float32))
+            rng.uniform(-0.9, 0.9, (batch, H)).astype(np.float32))
 
 
 def _t(a, dtype=None):
@@ -244,3 +244,38 @@ def test_wrappers_on_cpu_run_their_twins_and_launch_nothing():
     gru_kernel.gru_recurrence(torch.zeros(T, B, 3 * H), _t(w_hh), _t(b_hh),
                               _t(h0))
     assert [c.launches for c in counters] == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 37])
+@pytest.mark.parametrize("case", ["encoder", "encoder_reverse", "decoder",
+                                  "decoder_reverse", "recurrence"])
+def test_gru_twins_match_jax_kernels_at_ragged_batches(case, batch, dtype):
+    """A batch of one and one that fills no block of the JAX kernels: the
+    fused and recurrence twins against the interpret-mode kernels."""
+    jdt, tdt, atol = DTYPES[dtype]
+    if case == "recurrence":
+        rng = np.random.RandomState(8)
+        xw = rng.uniform(-2, 2, (T, batch, 3 * H)).astype(np.float32)
+        w_hh, b_hh = _u(rng, H, 3 * H), _u(rng, 3 * H)
+        h0 = rng.uniform(-0.9, 0.9, (batch, H)).astype(np.float32)
+        ys = gru_kernel.gru_recurrence(_t(xw, tdt), _t(w_hh), _t(b_hh),
+                                       _t(h0))
+        j_ys = jk.gru_recurrence_pallas(jnp.asarray(xw, jdt), w_hh,
+                                        b_hh.reshape(1, -1), jnp.asarray(h0),
+                                        interpret=True)
+        assert ys.dtype == tdt and ys.shape == (T, batch, H)
+        _close(ys, j_ys, atol)
+        return
+    shape, _, direction = case.partition("_")
+    reverse = direction == "reverse"
+    xs, ws, b_ih, w_hh, b_hh, h0 = _direction(7, PARTS[shape], batch)
+    ys, hT = gru_kernel.gru_direction_fused(
+        tuple(_t(x, tdt) for x in xs), tuple(_t(w) for w in ws), _t(b_ih),
+        _t(w_hh), _t(b_hh), _t(h0, tdt), reverse=reverse)
+    j_ys, j_hT = jk.gru_direction_fused(
+        tuple(jnp.asarray(x, jdt) for x in xs), ws, b_ih, w_hh, b_hh,
+        jnp.asarray(h0, jdt), reverse=reverse, interpret=True)
+    assert ys.dtype == tdt and ys.shape == (T, batch, H)
+    _close(ys, j_ys, atol)
+    _close(hT, j_hT, atol)
