@@ -10,9 +10,17 @@ Phases, each printing one JSON line:
                kernel), with ptxas's register and spill lines
   3 kernel     lstm_direction_fused against its plain twin on the card, at
                the transducer's full width (encoder F=26, decoder 2x256,
-               H=256), B=4096 and B=37, both directions, float32 (atol
-               1e-5) and bfloat16 (atol 2e-2); per-launch times of kernel,
-               twin and cuDNN (torch.nn.LSTM) beside the bound
+               H=256), B=4096, 37, 128 and 512, both directions, float32
+               (atol 1e-5) and bfloat16 (atol 2e-2); per-launch times of
+               kernel and cuDNN (torch.nn.LSTM) beside the bound, queued
+               behind a device sleep, in bfloat16 at B=32, 128, 512 and
+               4096 (the decoder's input projection and recurrence also
+               apart, through the library's entries, whose outputs must
+               equal the kernel's), in float32 at 4096, the twin at 4096,
+               with the bfloat16 core's launch plan (rows and CTAs a
+               cluster, clusters, and how many run at once); ptxas's
+               registers, shared memory and spills of both float LSTM
+               kernels
   4 transducer transducer_infer on 4096 int8 windows through the kernel
                against the twin path on the card (probabilities atol 2e-4
                float32, 1e-2 bfloat16), and windows/s
@@ -29,8 +37,10 @@ Phases, each printing one JSON line:
                checked against the twin in float32
   7 kernel_dual
                bilstm_dual_fused against its twin (two twins of phase 3's
-               kernel), as phase 3, with the time of cuDNN's bidirectional
-               torch.nn.LSTM
+               kernel) at phase 3's batches, and its largest difference
+               from two single launches; times at B=4096 in bfloat16 as
+               phase 3's (the decoder's projection and recurrence apart),
+               with cuDNN's bidirectional torch.nn.LSTM
   8 transducer_quantized
                4096 int8 windows through the static, static_rec and
                dynamic int8 modes on the kernels against the twin path on
@@ -39,11 +49,12 @@ Phases, each printing one JSON line:
   9 call       call_variant through the CLI on a synthetic 30x scene with
                seeded random full-width weights: cuda bfloat16 (the float
                main path), cuda float32 and cpu float32 must give the same
-               (pos, REF, ALT, GT) set; so must cuda bfloat16 with
+               (pos, REF, ALT, GT) set, the bfloat16 run up to the order
+               of the ALT alleles within a site (near-tied candidates; the
+               count is printed); so must cuda bfloat16 with
                PEPPER_LSTM_DUAL=1; --quantized static, static_rec and
                dynamic on cuda must each give the set of a cpu run of the
-               same mode, up to the order of the ALT alleles within a
-               site (near-tied candidates; the count is printed);
+               same mode, up to the ALT order;
                --device_pileup on cuda in float32 must give the set of a
                cpu --device_pileup run and of the cuda host flow, in
                bfloat16 the cpu --device_pileup bfloat16 set up to the ALT
@@ -251,17 +262,35 @@ def launch_work(shape, B, itemsize):
     return flops, nbytes
 
 
+def split_work(B):
+    """The bfloat16 decoder's two launches alone, (operations, bytes) each:
+    the projection reads x, W_ih and b and writes the float32 xw; the
+    recurrence reads xw and W_hh and writes h."""
+    F, G = 2 * H, 4 * H
+    projection = (2 * T * B * F * G, 2 * (T * B * F + F * G + G)
+                  + 4 * T * B * G)
+    recurrence = (2 * T * B * H * G, 4 * T * B * G + 2 * H * G
+                  + 2 * T * B * H)
+    return projection, recurrence
+
+
 def bound_ms(flops, nbytes, peak_flops):
     return max(flops / peak_flops, nbytes / PEAK_BYTES) * 1e3
 
 
-def cudnn_ms(lstm, x):
+def device_ms(fn, iters=10):
+    """cuda_ms of launches queued behind a device sleep: the bfloat16 LSTM
+    launches are short enough for the host's launch rate to show."""
+    return cuda_ms(fn, iters=iters, queued=True)
+
+
+def cudnn_ms(lstm, x, queued=False):
     """Time of one torch.nn.LSTM call (cuDNN), the library yardstick that
     the port never uses."""
     import torch
 
     with torch.no_grad():
-        return cuda_ms(lambda: lstm(x))
+        return cuda_ms(lambda: lstm(x), queued=queued)
 
 
 def cudnn_lstm(directions, dtype, device):
@@ -284,6 +313,59 @@ def cudnn_lstm(directions, dtype, device):
     return lstm
 
 
+# phase 3's and 7's batches: the serving batch and the others of the
+# bfloat16 core's rows-a-cluster plan (16 rows at 37, 128 and 512, 128 at
+# 4096), and the batches phase 3 times
+LSTM_CHECKED_BATCHES = (B_SERVE, 37, 128, 512)
+LSTM_TIMED_BATCHES = (32, 128, 512, B_SERVE)
+
+
+def decoder_launches(device, name, xs, weights, biases, w_hhs, B):
+    """The bfloat16 decoder's two launches through the library's entries
+    (<name>_projection, <name>_recurrence) for one direction (the forward
+    one with `reverse`=0 after it) or, for bilstm_dual_fused, both:
+    (project, recur, outs)."""
+    import torch
+    from pepper_tpu_torch.ops import cuda_build
+
+    dual = name == "bilstm_dual_fused"
+    xws = [torch.empty((T, B, 4 * H), device=device)
+           for _ in range(2 if dual else 1)]
+    outs = [torch.empty((T, B, H), dtype=torch.bfloat16, device=device)
+            for _ in xws]
+    ptrs = [t.data_ptr() for t in xs]
+    w_ptrs = [w.data_ptr() for parts in weights for w in parts]
+
+    def project():
+        cuda_build.launch(f"{name}_projection", device, 1, *ptrs, *w_ptrs,
+                          H, H, *(b.data_ptr() for b in biases),
+                          *(xw.data_ptr() for xw in xws), T, B, H)
+
+    def recur():
+        cuda_build.launch(f"{name}_recurrence", device, 1,
+                          *(xw.data_ptr() for xw in xws),
+                          *(w.data_ptr() for w in w_hhs),
+                          *(o.data_ptr() for o in outs), T, B, H,
+                          *(() if dual else (0,)))
+
+    return project, recur, outs
+
+
+def core_plan(device, B, fused, dirs=1):
+    """The bfloat16 LSTM core's launch plan at width H, as its library
+    reports it: rows and CTAs a cluster, clusters a direction, and how many
+    clusters the card runs at once."""
+    import ctypes
+
+    from pepper_tpu_torch.ops import cuda_build
+
+    out = (ctypes.c_int * 4)()
+    cuda_build.launch("lstm_direction_fused_plan", device, B, H, dirs,
+                      int(fused), ctypes.addressof(out))
+    return dict(zip(("rows", "cluster_ctas", "clusters", "max_clusters"),
+                    out))
+
+
 def phase_kernel(device, card):
     import torch
     from pepper_tpu_torch.ops import lstm_kernel
@@ -296,7 +378,7 @@ def phase_kernel(device, card):
                               ("bfloat16", torch.bfloat16)):
         worst = 0.0
         for shape in ("encoder", "decoder"):
-            for B in (B_SERVE, 37):
+            for B in LSTM_CHECKED_BATCHES:
                 xs, ws, b, w_hh = lstm_inputs(gen, shape, B, dtype, device)
                 for reverse in (False, True):
                     out = kernel(xs, ws, b, w_hh, reverse=reverse)
@@ -317,26 +399,63 @@ def phase_kernel(device, card):
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32)):
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-        for shape in ("encoder", "decoder"):
-            xs, ws, b, w_hh = lstm_inputs(gen, shape, B_SERVE, dtype, device)
-            flops, nbytes = launch_work(shape, B_SERVE, xs[0].element_size())
-            x_cat = torch.cat(xs, dim=-1)
-            lstm = cudnn_lstm([(ws, b, w_hh)], dtype, device)
-            with torch.no_grad():
-                lib_out, _ = lstm(x_cat)
-            lib_diff = (lib_out.float() - kernel(xs, ws, b, w_hh).float()
-                        ).abs().max().item()
-            timings[f"{shape}_{dtype_name}"] = {
-                "kernel_ms": cuda_ms(lambda: kernel(xs, ws, b, w_hh)),
-                "plain_ms": cuda_ms(lambda: twin(xs, ws, b, w_hh)),
-                "cudnn_ms": cudnn_ms(lstm, x_cat),
-                "cudnn_max_abs_diff": lib_diff,
-                "bound_ms": bound_ms(flops, nbytes, peak),
-                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-            }
+        # bfloat16 at every timed batch, float32 (the scalar body) at the
+        # serving batch
+        batches = LSTM_TIMED_BATCHES if dtype == torch.bfloat16 else (
+            B_SERVE,)
+        for B in batches:
+            for shape in ("encoder", "decoder"):
+                xs, ws, b, w_hh = lstm_inputs(gen, shape, B, dtype, device)
+                flops, nbytes = launch_work(shape, B, xs[0].element_size())
+                x_cat = torch.cat(xs, dim=-1)
+                lstm = cudnn_lstm([(ws, b, w_hh)], dtype, device)
+                with torch.no_grad():
+                    lib_out, _ = lstm(x_cat)
+                out = kernel(xs, ws, b, w_hh)
+                lib_diff = (lib_out.float() - out.float()).abs().max().item()
+                entry = {
+                    "kernel_ms": device_ms(lambda: kernel(xs, ws, b, w_hh)),
+                    "cudnn_ms": cudnn_ms(lstm, x_cat, queued=True),
+                    "cudnn_max_abs_diff": lib_diff,
+                    "bound_ms": bound_ms(flops, nbytes, peak),
+                    "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                }
+                if B == B_SERVE:
+                    entry["plain_ms"] = device_ms(
+                        lambda: twin(xs, ws, b, w_hh), iters=3)
+                    # back to back from Python, unqueued
+                    entry["kernel_ms_unqueued"] = cuda_ms(
+                        lambda: kernel(xs, ws, b, w_hh))
+                if dtype == torch.bfloat16 and shape == "decoder":
+                    project, recur, (split,) = decoder_launches(
+                        device, "lstm_direction_fused", xs, [ws], [b],
+                        [w_hh], B)
+                    project()
+                    recur()
+                    torch.cuda.synchronize()
+                    check(torch.equal(split, out),
+                          f"decoder B={B}: projection + recurrence differ "
+                          "from the kernel")
+                    (p_ops, p_bytes), (r_ops, r_bytes) = split_work(B)
+                    entry.update(
+                        projection_ms=device_ms(project),
+                        recurrence_ms=device_ms(recur),
+                        projection_bound_ms=bound_ms(p_ops, p_bytes, peak),
+                        recurrence_bound_ms=bound_ms(r_ops, r_bytes, peak))
+                elif dtype == torch.bfloat16:
+                    # the encoder's features join the step: one launch, the
+                    # recurrence
+                    entry.update(projection_ms=0.0,
+                                 recurrence_ms=entry["kernel_ms"])
+                if dtype == torch.bfloat16:
+                    entry["plan"] = core_plan(device, B, shape == "encoder")
+                timings[f"{shape}_{dtype_name}_B{B}"] = entry
     emit({"phase": "kernel", "kernel_names": ["lstm_direction_fused"],
           "card": card, "max_abs_err": max_err,
-          "B": B_SERVE, "per_launch": timings})
+          "ptxas": {name: ptxas_entries(name)
+                    for name in ("lstm_direction_fused",
+                                 "bilstm_dual_fused")},
+          "per_launch": timings})
     return max_err, timings
 
 
@@ -647,7 +766,7 @@ def phase_kernel_dual(device, card):
                               ("bfloat16", torch.bfloat16)):
         worst = 0.0
         for shape in ("encoder", "decoder"):
-            for B in (B_SERVE, 37):
+            for B in LSTM_CHECKED_BATCHES:
                 args = inputs(shape, B, dtype)
                 xs, wf, wb, b_f, b_b, w_hh_f, w_hh_b = args
                 outs = kernel(*args)
@@ -676,15 +795,32 @@ def phase_kernel_dual(device, card):
         x_cat = torch.cat(xs, dim=-1)
         lstm = cudnn_lstm([(wf, b_f, w_hh_f), (wb, b_b, w_hh_b)], dtype,
                           device)
-        timings[f"{shape}_bfloat16"] = {
-            "kernel_ms": cuda_ms(lambda: kernel(*args)),
-            "two_single_launches_ms": cuda_ms(lambda: (
+        entry = {
+            "kernel_ms": device_ms(lambda: kernel(*args)),
+            "two_single_launches_ms": device_ms(lambda: (
                 single(xs, wf, b_f, w_hh_f),
                 single(xs, wb, b_b, w_hh_b, reverse=True))),
-            "plain_ms": cuda_ms(lambda: twin(*args), iters=5),
-            "cudnn_bidirectional_ms": cudnn_ms(lstm, x_cat),
+            "plain_ms": device_ms(lambda: twin(*args), iters=3),
+            "cudnn_bidirectional_ms": cudnn_ms(lstm, x_cat, queued=True),
             "bound_ms": 2 * bound_ms(flops, nbytes, PEAK_BF16_FLOPS),
         }
+        if shape == "decoder":
+            project, recur, split = decoder_launches(
+                device, "bilstm_dual_fused", xs, [wf, wb], [b_f, b_b],
+                [w_hh_f, w_hh_b], B_SERVE)
+            project()
+            recur()
+            whole = kernel(*args)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(split, whole)),
+                  "dual decoder: projection + recurrence differ from the "
+                  "kernel")
+            entry.update(projection_ms=device_ms(project),
+                         recurrence_ms=device_ms(recur))
+        else:
+            entry.update(projection_ms=0.0, recurrence_ms=entry["kernel_ms"])
+        entry["plan"] = core_plan(device, B_SERVE, shape == "encoder", 2)
+        timings[f"{shape}_bfloat16"] = entry
     emit({"phase": "kernel_dual", "kernel_names": ["bilstm_dual_fused"],
           "card": card, "max_abs_err": max_err,
           "max_abs_diff_from_single_launches": max_vs_single, "B": B_SERVE,
@@ -969,11 +1105,11 @@ def phase_call(device, workdir, scene, threads=4):
             check(not any(counts.values()), f"{name} launched {counts}")
             continue
         calls, expected = runs[name]["calls"], runs[reference]["calls"]
-        if "--quantized" in extra or (dtype == "bfloat16"
-                                      and "--device_pileup" in extra):
+        if "--quantized" in extra or dtype == "bfloat16":
             # int8 codes on the card and the CPU differ at the 1e-4 share,
-            # and bfloat16 windows batched by region round apart from the
-            # twins' at a few ulps, so near-tied candidates of one site may
+            # and bfloat16 products on the tensor cores, or of windows
+            # batched by region, round apart from the float32 and twin
+            # paths' at a few ulps, so near-tied candidates of one site may
             # list in either order
             alt_order_only[name] = len(calls - expected)
             calls, expected = canonical_calls(calls), canonical_calls(
@@ -2080,8 +2216,10 @@ def main() -> int:
                 for key in keys}
 
     float_batch = batch(
-        [per_launch["encoder_bfloat16"], per_launch["decoder_bfloat16"]],
-        ("kernel_ms", "plain_ms", "bound_ms", "cudnn_ms"))
+        [per_launch[f"encoder_bfloat16_B{B_SERVE}"],
+         per_launch[f"decoder_bfloat16_B{B_SERVE}"]],
+        ("kernel_ms", "plain_ms", "bound_ms", "cudnn_ms", "projection_ms",
+         "recurrence_ms"))
     static_batch = {mode: batch(
         [static_launch[f"encoder_{mode}_bfloat16"],
          static_launch[f"decoder_{mode}_bfloat16"]],
@@ -2105,7 +2243,12 @@ def main() -> int:
     dual_batch = batch(
         [dual_launch["encoder_bfloat16"], dual_launch["decoder_bfloat16"]],
         ("kernel_ms", "plain_ms", "bound_ms", "cudnn_bidirectional_ms",
-         "two_single_launches_ms"), runs=1)
+         "two_single_launches_ms", "projection_ms", "recurrence_ms"), runs=1)
+    lstm_status = ("redesigned: bfloat16 on the tensor cores (mma.sync), "
+                   "W_hh split over a cluster of 4 CTAs in shared memory, "
+                   "the decoder's input projection a tiled tensor-core "
+                   "product of its own; earlier design: PERF.md section 6, "
+                   "row {}")
     emit({"kernels": [{
         "name": "lstm_direction_fused", "route": "cuda",
         "source": "pepper_tpu_torch/ops/csrc/lstm_direction_fused.cu",
@@ -2116,6 +2259,9 @@ def main() -> int:
         "ms": float_batch["kernel_ms"], "plain_ms": float_batch["plain_ms"],
         "bound_ms": float_batch["bound_ms"], "bound_by": "operations",
         "library_ms": float_batch["cudnn_ms"],
+        "projection_ms": float_batch["projection_ms"],
+        "recurrence_ms": float_batch["recurrence_ms"],
+        "status": lstm_status.format(1),
         "work": f"one batch of {B_SERVE} windows, bfloat16: encoder and "
                 "decoder, forward and backward (4 launches)",
     }, {
@@ -2166,6 +2312,9 @@ def main() -> int:
         "bound_ms": dual_batch["bound_ms"], "bound_by": "operations",
         "library_ms": dual_batch["cudnn_bidirectional_ms"],
         "two_single_launches_ms": dual_batch["two_single_launches_ms"],
+        "projection_ms": dual_batch["projection_ms"],
+        "recurrence_ms": dual_batch["recurrence_ms"],
+        "status": lstm_status.format(3),
         "work": f"one batch of {B_SERVE} windows, bfloat16, "
                 "PEPPER_LSTM_DUAL=1: encoder and decoder (2 launches)",
     }, {

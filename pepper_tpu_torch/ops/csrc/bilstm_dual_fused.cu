@@ -5,12 +5,17 @@
 // behind the other's recurrent matmul.
 //
 // Design.  Blocks run in parallel on Hopper, so the two directions need no
-// shared body: the grid is (row blocks, 2) and blockIdx.y picks the
-// direction's weights, bias, output and time order; every block then runs
-// lstm::direction_body (lstm_cell.cuh), the same code as
+// shared body: the grid's y index picks the direction's weights, bias,
+// output and time order, and every block runs the code of
 // lstm_direction_fused.cu, so each output equals one launch of that kernel.
-// What one launch buys is twice the blocks in flight: at B=256 a single
-// direction has 16 row blocks for 132 SMs, the pair has 32.
+// bfloat16: lstm_core.cuh's cluster recurrence, both directions in one
+// grid; where the input projection leaves the step (the decoder), one
+// projection launch computes both directions' xw (N = 8H) from one read of
+// x, with the same tiles and sums as a single direction's.  float32:
+// lstm::direction_body (lstm_cell.cuh) on a grid of (row blocks, 2).  The
+// library also exports the decoder's two bfloat16 launches alone
+// (bilstm_dual_fused_projection_launch, bilstm_dual_fused_recurrence_launch),
+// so that they can be timed apart.
 //
 // Bound.  The sum of two lstm_direction_fused launches: 2*T*B*(F+H)*4H
 // operations per direction, bound by operations at the serving shapes.
@@ -18,7 +23,7 @@
 // Binding: a plain C launcher (no PyTorch headers) loaded with ctypes; it
 // launches on the caller's stream and returns cudaGetLastError().
 
-#include "lstm_cell.cuh"
+#include "lstm_core.cuh"
 
 namespace {
 
@@ -49,57 +54,115 @@ __global__ void __launch_bounds__(kMaxHidden)
                        static_cast<int>(blockIdx.x) * kRows);
 }
 
-template <typename T>
-int launch(const void* x0, const void* x1, const void* wf0, const void* wf1,
-           const void* wb0, const void* wb1, int F0, int F1,
-           const void* bias_f, const void* bias_b, const void* w_hh_f,
-           const void* w_hh_b, void* out_f, void* out_b, int steps, int B,
-           int H, cudaStream_t stream) {
+struct F32Tag {};
+
+cudaError_t launch_f32(const float* x0, const float* x1, const float* wf0,
+                       const float* wf1, const float* wb0, const float* wb1,
+                       int F0, int F1, const float* bias_f,
+                       const float* bias_b, const float* w_hh_f,
+                       const float* w_hh_b, float* out_f, float* out_b,
+                       int steps, int B, int H, cudaStream_t stream) {
+  auto kernel = bilstm_dual_fused_kernel<float>;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = lstm::ensure_smem_limit<F32Tag>(reinterpret_cast<const void*>(kernel),
+                                        device);
+  if (err != cudaSuccess) return err;
   const size_t smem = static_cast<size_t>(F0 + F1 + H) * kRows * sizeof(float);
-  auto kernel = bilstm_dual_fused_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((B + kRows - 1) / kRows, 2);
-  kernel<<<grid, H, smem, stream>>>(
-      static_cast<const T*>(x0), static_cast<const T*>(x1),
-      static_cast<const T*>(wf0), static_cast<const T*>(wf1),
-      static_cast<const T*>(wb0), static_cast<const T*>(wb1), F0, F1,
-      static_cast<const T*>(bias_f), static_cast<const T*>(bias_b),
-      static_cast<const T*>(w_hh_f), static_cast<const T*>(w_hh_b),
-      static_cast<T*>(out_f), static_cast<T*>(out_b), steps, B, H);
-  return static_cast<int>(cudaGetLastError());
+  kernel<<<grid, H, smem, stream>>>(x0, x1, wf0, wf1, wb0, wb1, F0, F1,
+                                    bias_f, bias_b, w_hh_f, w_hh_b, out_f,
+                                    out_b, steps, B, H);
+  return cudaGetLastError();
 }
+
+constexpr int kReverse[2] = {0, 1};
 
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  x1/wf1/wb1 may be null with F1 == 0.
-// Returns a cudaError_t value (0 on success).
+// xw_f/xw_b: float32 scratches of steps * B * 4H values each where the
+// bfloat16 input projection leaves the step (F0 + F1 > 32), else null; the
+// bfloat16 weights 16-byte aligned.  Returns a cudaError_t value (0 on
+// success).
 int bilstm_dual_fused_launch(int dtype, const void* x0, const void* x1,
                              const void* wf0, const void* wf1,
                              const void* wb0, const void* wb1, int F0,
                              int F1, const void* bias_f, const void* bias_b,
                              const void* w_hh_f, const void* w_hh_b,
-                             void* out_f, void* out_b, int steps, int B,
-                             int H, void* stream) {
-  if (H <= 0 || H > kMaxHidden || H % 32 != 0 || F0 <= 0 || F1 < 0 ||
-      steps <= 0 || B <= 0) {
+                             float* xw_f, float* xw_b, void* out_f,
+                             void* out_b, int steps, int B, int H,
+                             void* stream) {
+  if (!lstm::valid_shape(F0, F1, steps, B, H)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(x0, x1, wf0, wf1, wb0, wb1, F0, F1, bias_f, bias_b,
-                         w_hh_f, w_hh_b, out_f, out_b, steps, B, H, s);
+    using F = const float*;
+    return static_cast<int>(launch_f32(
+        static_cast<F>(x0), static_cast<F>(x1), static_cast<F>(wf0),
+        static_cast<F>(wf1), static_cast<F>(wb0), static_cast<F>(wb1), F0,
+        F1, static_cast<F>(bias_f), static_cast<F>(bias_b),
+        static_cast<F>(w_hh_f), static_cast<F>(w_hh_b),
+        static_cast<float*>(out_f), static_cast<float*>(out_b), steps, B, H,
+        s));
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(x0, x1, wf0, wf1, wb0, wb1, F0, F1, bias_f,
-                                 bias_b, w_hh_f, w_hh_b, out_f, out_b, steps,
-                                 B, H, s);
+    const void* w0[2] = {wf0, wb0};
+    const void* w1[2] = {wf1, wb1};
+    const void* bias[2] = {bias_f, bias_b};
+    const void* w_hh[2] = {w_hh_f, w_hh_b};
+    float* xw[2] = {xw_f, xw_b};
+    void* out[2] = {out_f, out_b};
+    return static_cast<int>(lstm::launch_directions(
+        x0, x1, F0, F1, w0, w1, bias, w_hh, xw, out, kReverse, 2, steps, B, H,
+        s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bfloat16 input projection of both directions alone (the decoder's
+// first launch): xw_d = [x0 x1] @ [wd0; wd1] + bias_d in float32.
+int bilstm_dual_fused_projection_launch(int dtype, const void* x0,
+                                        const void* x1, const void* wf0,
+                                        const void* wf1, const void* wb0,
+                                        const void* wb1, int F0, int F1,
+                                        const void* bias_f,
+                                        const void* bias_b, float* xw_f,
+                                        float* xw_b, int steps, int B, int H,
+                                        void* stream) {
+  if (dtype != 1 || !lstm::valid_shape(F0, F1, steps, B, H)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* w0[2] = {wf0, wb0};
+  const void* w1[2] = {wf1, wb1};
+  const void* bias[2] = {bias_f, bias_b};
+  float* xw[2] = {xw_f, xw_b};
+  return static_cast<int>(lstm::launch_projections(
+      x0, x1, F0, F1, w0, w1, bias, xw, 2, steps, B, H,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The bfloat16 recurrences of both directions alone (the decoder's second
+// launch) over their float32 xw.
+int bilstm_dual_fused_recurrence_launch(int dtype, const float* xw_f,
+                                        const float* xw_b,
+                                        const void* w_hh_f,
+                                        const void* w_hh_b, void* out_f,
+                                        void* out_b, int steps, int B, int H,
+                                        void* stream) {
+  if (dtype != 1 || !lstm::valid_steps(steps, B, H)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* xw[2] = {xw_f, xw_b};
+  const void* w_hh[2] = {w_hh_f, w_hh_b};
+  void* out[2] = {out_f, out_b};
+  return static_cast<int>(lstm::launch_recurrence(
+      xw, w_hh, out, kReverse, 2, steps, B, H,
+      static_cast<cudaStream_t>(stream)));
 }
 
 const char* bilstm_dual_fused_error_string(int err) {

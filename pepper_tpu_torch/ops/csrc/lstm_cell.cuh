@@ -1,8 +1,8 @@
 // Device code shared by the port's LSTM kernels for Hopper (sm_90a): dtype
-// conversions, the gate nonlinearity, the staged-row products and the body
-// of one fused LSTM direction.  Included by lstm_direction_fused.cu,
-// bilstm_dual_fused.cu, lstm_direction_fused_static.cu and
-// lstm_recurrence.cu; each builds into a library of its own.
+// conversions, the gate nonlinearity, the staged-row products and the
+// float32 body of one fused LSTM direction (bfloat16 runs lstm_core.cuh).
+// Included by lstm_core.cuh, lstm_direction_fused_static.cu and
+// lstm_recurrence.cu; each kernel builds into a library of its own.
 //
 // Layout every kernel shares: a block owns kRows batch rows for all T steps
 // and has H threads; thread j owns hidden unit j and accumulates the four

@@ -1,5 +1,5 @@
-// One LSTM direction over T steps with the input projection fused in, for
-// Hopper (sm_90a).  Replaces the TPU kernel
+// One LSTM direction over T steps with the input projection, for Hopper
+// (sm_90a).  Replaces the TPU kernel
 // pepper_tpu/ops/lstm_kernel.py::lstm_direction_fused (body
 // _make_fused_kernel): per step
 //
@@ -14,28 +14,26 @@
 // decoder reads the encoder's forward and backward streams without a
 // concat).  x, W and out share one dtype: float32 or bfloat16.
 //
-// Design.  Batch rows are independent, so a block owns BT rows and runs all
-// T steps itself: no grid-wide synchronisation.  Thread j owns hidden unit j
-// and accumulates the four gate columns j, H+j, 2H+j, 3H+j for its BT rows
-// in f32 registers, so the cell update needs no exchange and c never leaves
-// registers.  Shared memory holds this step's x rows and the rounded h, both
-// as f32 laid out [feature][row] so one 16-byte broadcast read feeds four
-// rows.  The weights are read from global memory every step: W_hh alone is
-// 512 KB in bf16 at H=256, more than one SM's shared memory, and the whole
-// weight set stays resident in the 50 MB L2.  The body is
-// lstm::direction_body in lstm_cell.cuh, which bilstm_dual_fused.cu runs
-// for both directions in one launch.
+// bfloat16, the serving default: lstm_core.cuh's tensor-core recurrence,
+// W_hh split over a thread-block cluster.  The encoder's 26 features join
+// the step's product; the decoder's 512 first go through the core's input
+// projection into the float32 scratch xw (T, B, 4H) that the caller
+// allocates, and the recurrence then reads xw.  The library also exports
+// the two launches alone (lstm_direction_fused_projection_launch and
+// lstm_direction_fused_recurrence_launch), so that they can be timed
+// apart, and the core's launch plan (lstm_direction_fused_plan_launch,
+// which launches nothing).
 //
-// Bound.  2*T*B*(F+H)*4H operations against x in + h out bytes: at the
-// serving shapes the work is far above the card's ridge point, so it is
-// bound by operations.  This first version does its products as scalar f32
-// FMAs, not on the tensor cores, and so runs well above the tensor-core
-// bound; mma/wgmma, TMA and a cluster-split W_hh are later work.
+// float32: lstm::direction_body (lstm_cell.cuh), scalar f32 FMAs with the
+// weights read from L2 every step, a block of kRows rows and H threads, the
+// input product inside the step.  It holds the twin to 1e-5, which TF32
+// products do not.  Bound, both dtypes: 2*T*B*(F+H)*4H operations against
+// x in and h out, so operations.
 //
 // Binding: a plain C launcher (no PyTorch headers) loaded with ctypes; it
 // launches on the caller's stream and returns cudaGetLastError().
 
-#include "lstm_cell.cuh"
+#include "lstm_core.cuh"
 
 namespace {
 
@@ -57,50 +55,98 @@ __global__ void __launch_bounds__(kMaxHidden)
                        B, H, reverse, static_cast<int>(blockIdx.x) * kRows);
 }
 
-template <typename T>
-int launch(const void* x0, const void* x1, const void* w0, const void* w1,
-           int F0, int F1, const void* bias, const void* w_hh, void* out,
-           int steps, int B, int H, int reverse, cudaStream_t stream) {
+struct F32Tag {};
+
+cudaError_t launch_f32(const float* x0, const float* x1, const float* w0,
+                       const float* w1, int F0, int F1, const float* bias,
+                       const float* w_hh, float* out, int steps, int B, int H,
+                       int reverse, cudaStream_t stream) {
+  auto kernel = lstm_direction_fused_kernel<float>;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = lstm::ensure_smem_limit<F32Tag>(reinterpret_cast<const void*>(kernel),
+                                        device);
+  if (err != cudaSuccess) return err;
   const size_t smem = static_cast<size_t>(F0 + F1 + H) * kRows * sizeof(float);
-  auto kernel = lstm_direction_fused_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kRows - 1) / kRows);
-  kernel<<<grid, H, smem, stream>>>(
-      static_cast<const T*>(x0), static_cast<const T*>(x1),
-      static_cast<const T*>(w0), static_cast<const T*>(w1), F0, F1,
-      static_cast<const T*>(bias), static_cast<const T*>(w_hh),
-      static_cast<T*>(out), steps, B, H, reverse);
-  return static_cast<int>(cudaGetLastError());
+  kernel<<<(B + kRows - 1) / kRows, H, smem, stream>>>(
+      x0, x1, w0, w1, F0, F1, bias, w_hh, out, steps, B, H, reverse);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  x1/w1 may be null with F1 == 0.
-// Returns a cudaError_t value (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  x1/w1 may be null with F1 == 0.  xw: a
+// float32 scratch of steps * B * 4H values where the bfloat16 input
+// projection leaves the step (F0 + F1 > 32), else null; the bfloat16
+// weights 16-byte aligned.  Returns a cudaError_t value (0 on success).
 int lstm_direction_fused_launch(int dtype, const void* x0, const void* x1,
                                 const void* w0, const void* w1, int F0,
                                 int F1, const void* bias, const void* w_hh,
-                                void* out, int steps, int B, int H,
+                                float* xw, void* out, int steps, int B, int H,
                                 int reverse, void* stream) {
-  if (H <= 0 || H > kMaxHidden || H % 32 != 0 || F0 <= 0 || F1 < 0 ||
-      steps <= 0 || B <= 0) {
+  if (!lstm::valid_shape(F0, F1, steps, B, H)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(x0, x1, w0, w1, F0, F1, bias, w_hh, out, steps, B,
-                         H, reverse, s);
+    return static_cast<int>(launch_f32(
+        static_cast<const float*>(x0), static_cast<const float*>(x1),
+        static_cast<const float*>(w0), static_cast<const float*>(w1), F0, F1,
+        static_cast<const float*>(bias), static_cast<const float*>(w_hh),
+        static_cast<float*>(out), steps, B, H, reverse, s));
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(x0, x1, w0, w1, F0, F1, bias, w_hh, out,
-                                 steps, B, H, reverse, s);
+    return static_cast<int>(lstm::launch_directions(
+        x0, x1, F0, F1, &w0, &w1, &bias, &w_hh, &xw, &out, &reverse, 1, steps,
+        B, H, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bfloat16 input projection alone (the first of the decoder's two
+// launches), with the same arguments: xw = [x0 x1] @ [w0; w1] + bias in
+// float32 for all steps * B rows.
+int lstm_direction_fused_projection_launch(int dtype, const void* x0,
+                                           const void* x1, const void* w0,
+                                           const void* w1, int F0, int F1,
+                                           const void* bias, float* xw,
+                                           int steps, int B, int H,
+                                           void* stream) {
+  if (dtype != 1 || !lstm::valid_shape(F0, F1, steps, B, H)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(
+      lstm::launch_projections(x0, x1, F0, F1, &w0, &w1, &bias, &xw, 1, steps,
+                               B, H, static_cast<cudaStream_t>(stream)));
+}
+
+// The bfloat16 recurrence alone (the decoder's second launch) over a
+// float32 xw (steps, B, 4H) that holds the input projection and the bias.
+int lstm_direction_fused_recurrence_launch(int dtype, const float* xw,
+                                           const void* w_hh, void* out,
+                                           int steps, int B, int H,
+                                           int reverse, void* stream) {
+  if (dtype != 1 || !lstm::valid_steps(steps, B, H)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(lstm::launch_recurrence(
+      &xw, &w_hh, &out, &reverse, 1, steps, B, H,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The bfloat16 core's launch plan for dirs (1 or 2) directions of B rows at
+// width H, fused (1: x joins the step's product) or over xw: out[0] rows a
+// cluster, out[1] CTAs a cluster, out[2] clusters a direction, out[3]
+// clusters that run at once.  Launches nothing.
+int lstm_direction_fused_plan_launch(int B, int H, int dirs, int fused,
+                                     int* out, void* /*stream*/) {
+  if (!lstm::valid_steps(1, B, H) || dirs < 1 || dirs > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(lstm::core_plan(B, H, dirs, fused != 0, out));
 }
 
 const char* lstm_direction_fused_error_string(int err) {

@@ -34,15 +34,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LSTM = ("lstm_cell.cuh",)
+_LSTM_CORE = ("lstm_core.cuh",) + _LSTM
 _GRU = ("gru_cell.cuh", "lstm_cell.cuh")
 _GRU_CORE = ("gru_core.cuh",) + _GRU
 # name -> (headers it includes, argument types of <name>_launch, the
 # stream last)
 KERNELS = {
-    "lstm_direction_fused": (_LSTM, [_I, _P, _P, _P, _P, _I, _I, _P, _P, _P,
-                                     _I, _I, _I, _I, _P]),
-    "bilstm_dual_fused": (_LSTM, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
-                                  _P, _P, _P, _P, _I, _I, _I, _P]),
+    "lstm_direction_fused": (_LSTM_CORE, [_I, _P, _P, _P, _P, _I, _I, _P, _P,
+                                          _P, _P, _I, _I, _I, _I, _P]),
+    "bilstm_dual_fused": (_LSTM_CORE, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                                       _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _P]),
     "lstm_direction_fused_static": (_LSTM, [_I, _I, _I, _P, _P, _P, _P, _I,
                                             _I, _P, _P, _P, _P, _P, _I, _I,
                                             _I, _I, _P]),
@@ -58,6 +60,21 @@ KERNELS = {
 # further launchers a kernel's library exports, <entry>_launch: entry ->
 # (the kernel, argument types)
 ENTRIES = {
+    # the two bfloat16 LSTM kernels' input projection and recurrence alone
+    "lstm_direction_fused_projection": (
+        "lstm_direction_fused", [_I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
+                                 _I, _P]),
+    "lstm_direction_fused_recurrence": (
+        "lstm_direction_fused", [_I, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # the bfloat16 core's launch plan (B, H, dirs, fused, int out[4]);
+    # launches nothing
+    "lstm_direction_fused_plan": (
+        "lstm_direction_fused", [_I, _I, _I, _I, _P, _P]),
+    "bilstm_dual_fused_projection": (
+        "bilstm_dual_fused", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                              _P, _I, _I, _I, _P]),
+    "bilstm_dual_fused_recurrence": (
+        "bilstm_dual_fused", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     # gru_direction_fused's input projection alone, for timing it apart
     "gru_direction_fused_projection": (
         "gru_direction_fused", [_I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
@@ -149,6 +166,12 @@ def launch(name: str, device: torch.device, *args) -> None:
 
 def ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def aligned(t):
+    """t, or a copy of it on a fresh allocation where t does not start on
+    the 16-byte boundary that the kernels read weights from."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def require_cuda(t: torch.Tensor, name: str) -> None:

@@ -39,19 +39,13 @@ import os
 
 import torch
 
-from .cuda_build import (DTYPE_CODE, FLOATS, check_contiguous, check_hidden,
-                         int8_codes, launch, pack_quads, ptr, require_cuda,
-                         split_rows)
+from .cuda_build import (DTYPE_CODE, FLOATS, aligned, check_contiguous,
+                         check_hidden, int8_codes, launch, pack_quads, ptr,
+                         require_cuda, split_rows)
 from .int8_matmul import int8_matmul
 
 KERNELS = ("gru_direction_fused", "gru_direction_fused_static",
            "gru_recurrence")
-
-
-def _aligned(t):
-    """t, or a copy of it on a fresh allocation where t does not start on
-    the 16-byte boundary that the kernels read weights from."""
-    return t.clone() if t.data_ptr() % 16 else t
 
 
 def use_fused_gru(device) -> bool:
@@ -187,8 +181,8 @@ def gru_direction_fused(x_parts, w_ih_parts, b_ih, w_hh, b_hh, h0,
     h0 = h0.float().contiguous()
     check_contiguous((*x_parts, *w_ih_parts, b_ih, w_hh, b_hh, h0),
                      x0.device, "gru_direction_fused")
-    w_ih_parts = tuple(_aligned(w) for w in w_ih_parts)
-    w_hh = _aligned(w_hh)
+    w_ih_parts = tuple(aligned(w) for w in w_ih_parts)
+    w_hh = aligned(w_hh)
     T, B, F0 = x0.shape
     H = w_hh.shape[0]
     out = torch.empty((T, B, H), dtype=x0.dtype, device=x0.device)
@@ -382,7 +376,7 @@ def gru_recurrence(xw, w_hh, b_hh, h0):
     check_hidden(H)
     h0 = h0.float().contiguous()
     check_contiguous((xw, w_hh, b_hh, h0), xw.device, "gru_recurrence")
-    w_hh = _aligned(w_hh)
+    w_hh = aligned(w_hh)
     T, B, _ = xw.shape
     out = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
     if T == 0 or B == 0:

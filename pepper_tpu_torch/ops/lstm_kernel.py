@@ -23,7 +23,10 @@ The float kernels compute, per step, gates = f32(b) + sum_i x_i[t] @ W_ih_i
 + bf(h) @ W_hh with f32 accumulation and f32 h/c state, where bf(h) is h
 rounded to the weight dtype; h is emitted in the input dtype.  The bias is
 upcast from whatever dtype the caller holds it in (transducer_infer casts
-every param to the compute dtype first, as the JAX package does).  The
+every param to the compute dtype first, as the JAX package does).  In
+bfloat16 the two float kernels run on the tensor cores; inputs wider than
+FUSED_X_MAX features are first projected into a float32 xw scratch that
+the wrapper allocates (csrc/lstm_core.cuh).  The
 static kernel's int8 products are exact int32 sums with one float32
 rescale, and its int8 codes are round(h*127), round-half-to-even.
 """
@@ -36,12 +39,17 @@ import torch
 
 # build_kernel stays importable from here
 from .cuda_build import (  # noqa: F401
-    DTYPE_CODE, FLOATS, build_kernel, check_contiguous, check_hidden,
-    int8_codes, launch, pack_quads, ptr, require_cuda, split_rows)
+    DTYPE_CODE, FLOATS, aligned, build_kernel, check_contiguous,
+    check_hidden, int8_codes, launch, pack_quads, ptr, require_cuda,
+    split_rows)
 from .int8_matmul import int8_matmul
 
 KERNELS = ("lstm_direction_fused", "bilstm_dual_fused",
            "lstm_direction_fused_static", "lstm_recurrence")
+# kXMax in csrc/lstm_core.cuh: bfloat16 feature parts of at most this many
+# features in all join the step's product; wider ones are projected first,
+# into a float32 xw scratch
+FUSED_X_MAX = 32
 
 
 def _check_parts(x_parts, w_ih_parts, H) -> None:
@@ -119,6 +127,18 @@ def _check_kernel_args(x_parts, w_ih_parts, b, w_hh):
                      "lstm_direction_fused")
 
 
+def _projection_scratch(x_parts, H):
+    """The float32 xw (T, B, 4H) that the bfloat16 kernels project wide
+    inputs into, or None where the features join the step's product (and
+    in float32, whose kernel projects inside the step)."""
+    x0 = x_parts[0]
+    if (x0.dtype != torch.bfloat16
+            or sum(x.shape[2] for x in x_parts) <= FUSED_X_MAX):
+        return None
+    return torch.empty((*x0.shape[:2], 4 * H), dtype=torch.float32,
+                       device=x0.device)
+
+
 def lstm_direction_fused(x_parts, w_ih_parts, b, w_hh, reverse=False):
     """One LSTM direction with the input projection fused in.
 
@@ -139,12 +159,15 @@ def lstm_direction_fused(x_parts, w_ih_parts, b, w_hh, reverse=False):
     out = torch.empty((T, B, H), dtype=x0.dtype, device=x0.device)
     if T == 0 or B == 0:
         return out
+    w_ih_parts = tuple(aligned(w) for w in w_ih_parts)
+    w_hh = aligned(w_hh)
     x1, w1 = (x_parts[1], w_ih_parts[1]) if len(x_parts) > 1 else (None,
                                                                     None)
+    xw = _projection_scratch(x_parts, H)
     launch("lstm_direction_fused", x0.device, DTYPE_CODE[x0.dtype],
            ptr(x0), ptr(x1), ptr(w_ih_parts[0]), ptr(w1), F0,
-           0 if x1 is None else x1.shape[2], ptr(b), ptr(w_hh), ptr(out),
-           T, B, H, int(bool(reverse)))
+           0 if x1 is None else x1.shape[2], ptr(b), ptr(w_hh), ptr(xw),
+           ptr(out), T, B, H, int(bool(reverse)))
     lstm_direction_fused.launches += 1
     return out
 
@@ -183,13 +206,18 @@ def bilstm_dual_fused(x_parts, wf_parts, wb_parts, b_f, b_b, w_hh_f,
     out_b = torch.empty_like(out_f)
     if T == 0 or B == 0:
         return out_f, out_b
+    wf_parts = tuple(aligned(w) for w in wf_parts)
+    wb_parts = tuple(aligned(w) for w in wb_parts)
+    w_hh_f, w_hh_b = aligned(w_hh_f), aligned(w_hh_b)
+    xw_f, xw_b = (_projection_scratch(x_parts, H) for _ in range(2))
     two = len(x_parts) > 1
     launch("bilstm_dual_fused", x0.device, DTYPE_CODE[x0.dtype], ptr(x0),
            ptr(x_parts[1] if two else None), ptr(wf_parts[0]),
            ptr(wf_parts[1] if two else None), ptr(wb_parts[0]),
            ptr(wb_parts[1] if two else None), F0,
            x_parts[1].shape[2] if two else 0, ptr(b_f), ptr(b_b),
-           ptr(w_hh_f), ptr(w_hh_b), ptr(out_f), ptr(out_b), T, B, H)
+           ptr(w_hh_f), ptr(w_hh_b), ptr(xw_f), ptr(xw_b), ptr(out_f),
+           ptr(out_b), T, B, H)
     bilstm_dual_fused.launches += 1
     return out_f, out_b
 

@@ -42,24 +42,22 @@ def device():
     return torch.device("cuda")
 
 
-def _inputs(device, dtype, parts, B, T=33, seed=0):
+def _inputs(device, dtype, parts, B, T=33, seed=0, hidden=H):
     gen = torch.Generator(device=device).manual_seed(seed)
-    s = 1.0 / H ** 0.5
+    s = 1.0 / hidden ** 0.5
 
     def u(*size, scale=s):
         return ((torch.rand(size, generator=gen, device=device) * 2 - 1)
                 * scale).to(dtype)
 
     xs = tuple(u(T, B, f, scale=1.0) for f in parts)
-    ws = tuple(u(f, 4 * H) for f in parts)
-    return xs, ws, u(4 * H, scale=2 * s), u(H, 4 * H)
+    ws = tuple(u(f, 4 * hidden) for f in parts)
+    return xs, ws, u(4 * hidden, scale=2 * s), u(hidden, 4 * hidden)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("parts", [(26,), (H, H)], ids=["encoder", "decoder"])
-@pytest.mark.parametrize("B", [1, 37, 512])
-def test_kernel_matches_twin(device, dtype, parts, B):
-    args = _inputs(device, dtype, parts, B)
+def _check_direction(args, dtype, B, hidden=H):
+    """Both directions of lstm_direction_fused against the twin, one launch
+    each."""
     for reverse in (False, True):
         before = lstm_kernel.lstm_direction_fused.launches
         out = lstm_kernel.lstm_direction_fused(*args, reverse=reverse)
@@ -67,9 +65,102 @@ def test_kernel_matches_twin(device, dtype, parts, B):
         ref = lstm_kernel.lstm_direction_fused_reference(*args,
                                                          reverse=reverse)
         torch.cuda.synchronize()
-        assert out.dtype == dtype and out.shape == (33, B, H)
+        assert out.dtype == dtype and out.shape == (33, B, hidden)
         torch.testing.assert_close(out.float(), ref.float(),
                                    atol=BARS[dtype], rtol=0)
+
+
+# batches that cross the bfloat16 core's rows-a-cluster plan (16 rows at
+# B <= 512, 128 at the serving batch) and a ragged last cluster
+LSTM_BATCHES = [1, 37, 128, 300, 512, 4096]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("parts", [(26,), (H, H)], ids=["encoder", "decoder"])
+@pytest.mark.parametrize("B", LSTM_BATCHES)
+def test_kernel_matches_twin(device, dtype, parts, B):
+    _check_direction(_inputs(device, dtype, parts, B), dtype, B)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layer", ["encoder", "decoder"])
+@pytest.mark.parametrize("hidden", [32, 96, 128, 256])
+def test_kernel_widths_match_twin(device, dtype, layer, hidden):
+    """The cluster sizes: one CTA at H=32, two at 96 and 128, four at
+    256."""
+    parts = (26,) if layer == "encoder" else (hidden, hidden)
+    _check_direction(_inputs(device, dtype, parts, 37, hidden=hidden), dtype,
+                     37, hidden)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("parts", [(10, 16), (36, 20)],
+                         ids=["two_fused_parts", "unaligned_parts"])
+def test_kernel_other_feature_splits_match_twin(device, dtype, parts):
+    """Two parts that join the step's product (26 features), and two whose
+    widths are no multiple of 8 (the projection's element-wise loads)."""
+    _check_direction(_inputs(device, dtype, parts, 37), dtype, 37)
+
+
+def test_projection_entry_matches_float_product(device):
+    """The bfloat16 projection alone: xw = b + x_0 @ W_0 + x_1 @ W_1, f32
+    sums of exact products, against a float64 product; the recurrence
+    entry over that xw gives the kernel's output bit for bit."""
+    from pepper_tpu_torch.ops import cuda_build
+
+    for B in (37, 512):
+        xs, ws, b, w_hh = _inputs(device, torch.bfloat16, (H, H), B)
+        xw = torch.full((33, B, 4 * H), float("nan"), device=device)
+        cuda_build.launch("lstm_direction_fused_projection", device, 1,
+                          *(t.data_ptr() for t in (*xs, *ws)), H, H,
+                          b.data_ptr(), xw.data_ptr(), 33, B, H)
+        exact = (torch.cat(xs, dim=-1).double() @ torch.cat(ws).double()
+                 + b.double())
+        torch.cuda.synchronize()
+        torch.testing.assert_close(xw.double(), exact, atol=1e-4, rtol=0)
+        for reverse in (0, 1):
+            out = torch.empty((33, B, H), dtype=torch.bfloat16,
+                              device=device)
+            cuda_build.launch("lstm_direction_fused_recurrence", device, 1,
+                              xw.data_ptr(), w_hh.data_ptr(), out.data_ptr(),
+                              33, B, H, reverse)
+            whole = lstm_kernel.lstm_direction_fused(xs, ws, b, w_hh,
+                                                     reverse=bool(reverse))
+            torch.testing.assert_close(out, whole, atol=0, rtol=0)
+    with pytest.raises(RuntimeError, match="projection launch failed"):
+        cuda_build.launch("lstm_direction_fused_projection", device, 0,
+                          *(t.data_ptr() for t in (*xs, *ws)), H, H,
+                          b.data_ptr(), xw.data_ptr(), 33, B, H)
+
+
+def test_core_plan_covers_the_batch_in_one_wave(device):
+    """The bfloat16 core's launch plan: 4 CTAs a cluster at H=256, clusters
+    that cover B, and one wave unless even 144 rows a cluster need more."""
+    import ctypes
+
+    from pepper_tpu_torch.ops import cuda_build
+
+    for B in (1, 37, 512, 4096):
+        for fused in (0, 1):
+            for dirs in (1, 2):
+                out = (ctypes.c_int * 4)()
+                cuda_build.launch("lstm_direction_fused_plan", device, B, H,
+                                  dirs, fused, ctypes.addressof(out))
+                rows, ctas, clusters, at_once = out
+                assert ctas == 4 and rows in (16, 32, 48, 96, 144)
+                assert rows * (clusters - 1) < B <= rows * clusters
+                assert dirs * clusters <= at_once or rows == 144
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_kernels_serve_unaligned_weights(device, dtype):
+    """Weights off the 16-byte boundary are copied, not refused."""
+    xs, ws, b, w_hh = _inputs(device, dtype, (H, H), 37)
+    args = (xs, tuple(_unaligned(w) for w in ws), b, _unaligned(w_hh))
+    out = lstm_kernel.lstm_direction_fused(*args)
+    ref = lstm_kernel.lstm_direction_fused_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=BARS[dtype],
+                               rtol=0)
 
 
 def test_kernel_narrow_hidden(device):
@@ -267,7 +358,7 @@ def test_recurrence_kernel_matches_twin(device, dtype, B):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("parts", [(26,), (H, H)], ids=["encoder", "decoder"])
-@pytest.mark.parametrize("B", [1, 37, 300])
+@pytest.mark.parametrize("B", LSTM_BATCHES)
 def test_dual_kernel_matches_twin(device, dtype, parts, B):
     xs, wf, b_f, w_hh_f = _inputs(device, dtype, parts, B, seed=1)
     _, wb, b_b, w_hh_b = _inputs(device, dtype, parts, B, seed=2)
@@ -276,15 +367,16 @@ def test_dual_kernel_matches_twin(device, dtype, parts, B):
     fwd, bwd = lstm_kernel.bilstm_dual_fused(*args)
     assert lstm_kernel.bilstm_dual_fused.launches == before + 1
     ref_f, ref_b = lstm_kernel.bilstm_dual_fused_reference(*args)
-    single = lstm_kernel.lstm_direction_fused(xs, wb, b_b, w_hh_b,
-                                              reverse=True)
+    singles = (lstm_kernel.lstm_direction_fused(xs, wf, b_f, w_hh_f),
+               lstm_kernel.lstm_direction_fused(xs, wb, b_b, w_hh_b,
+                                                reverse=True))
     torch.cuda.synchronize()
-    for out, ref in ((fwd, ref_f), (bwd, ref_b)):
+    for out, ref, single in zip((fwd, bwd), (ref_f, ref_b), singles):
         assert out.dtype == dtype and out.shape == (33, B, H)
         torch.testing.assert_close(out.float(), ref.float(),
                                    atol=BARS[dtype], rtol=0)
-    # the same device code as the single-direction kernel
-    torch.testing.assert_close(bwd, single, atol=0, rtol=0)
+        # the same sums as the single-direction kernel's, bit for bit
+        torch.testing.assert_close(out, single, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("M,K,N", [(4, 26, 3), (37, 512, 1024),

@@ -59,6 +59,110 @@ def test_twin_matches_jax_kernel(T, B, H, n_parts, reverse, dtype):
                                np.asarray(expected, np.float32), atol=atol)
 
 
+FULL_PARTS = {"encoder": (26,), "decoder": (256, 256)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("layer", ["encoder", "decoder"])
+def test_twin_matches_jax_kernel_at_full_width(layer, reverse, dtype):
+    """The transducer's widths: T=33, H=256, the encoder's 26 window
+    features or the decoder's two 256-wide streams."""
+    jdtype, tdtype, atol = DTYPES[dtype]
+    xs, ws, b, w_hh = _direction_inputs(11, 33, 8, 256, FULL_PARTS[layer])
+    expected = jkernel.lstm_direction_fused(
+        tuple(jnp.asarray(x, jdtype) for x in xs),
+        tuple(jnp.asarray(w, jdtype) for w in ws), jnp.asarray(b, jdtype),
+        jnp.asarray(w_hh, jdtype), reverse=reverse, interpret=True)
+    actual = lstm_kernel.lstm_direction_fused_reference(
+        _torch(xs, tdtype), _torch(ws, tdtype), *_torch([b, w_hh], tdtype),
+        reverse=reverse)
+    assert actual.dtype == tdtype and actual.shape == (33, 8, 256)
+    np.testing.assert_allclose(actual.float().numpy(),
+                               np.asarray(expected, np.float32), atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layer", ["encoder", "decoder"])
+def test_dual_twin_matches_jax_kernel_at_full_width(layer, dtype):
+    jdtype, tdtype, atol = DTYPES[dtype]
+    xs, wf, b_f, w_hh_f = _direction_inputs(12, 33, 8, 256,
+                                            FULL_PARTS[layer])
+    _, wb, b_b, w_hh_b = _direction_inputs(13, 33, 8, 256, FULL_PARTS[layer])
+
+    def jx(arrays):
+        return tuple(jnp.asarray(a, jdtype) for a in arrays)
+
+    expected = jkernel.bilstm_dual_fused(
+        jx(xs), jx(wf), jx(wb), *jx([b_f, b_b, w_hh_f, w_hh_b]),
+        interpret=True)
+    actual = lstm_kernel.bilstm_dual_fused_reference(
+        _torch(xs, tdtype), _torch(wf, tdtype), _torch(wb, tdtype),
+        *_torch([b_f, b_b, w_hh_f, w_hh_b], tdtype))
+    for a, e in zip(actual, expected):
+        assert a.dtype == tdtype and a.shape == (33, 8, 256)
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(e, np.float32), atol=atol)
+
+
+@pytest.mark.parametrize("name", ["lstm_direction_fused",
+                                  "bilstm_dual_fused"])
+def test_float_lstm_kernels_build_with_the_core(name):
+    """Both float LSTM kernels include the bfloat16 core, so it enters their
+    build stamps; the library of lstm_direction_fused also exports the
+    projection alone."""
+    from pepper_tpu_torch.ops import cuda_build
+
+    headers, argtypes = cuda_build.KERNELS[name]
+    assert headers == ("lstm_core.cuh", "lstm_cell.cuh")
+    # the xw scratch(es) sit before the outputs
+    assert len(argtypes) == {"lstm_direction_fused": 16,
+                             "bilstm_dual_fused": 21}[name]
+
+
+def test_lstm_entries_are_bound_with_their_argument_types():
+    import ctypes
+
+    from pepper_tpu_torch.ops import cuda_build
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    entries = {
+        # dtype, x0, x1, w0, w1, F0, F1, bias, xw, steps, B, H, stream
+        "lstm_direction_fused_projection": [I, P, P, P, P, I, I, P, P, I, I,
+                                            I, P],
+        # dtype, xw, w_hh, out, steps, B, H, reverse, stream
+        "lstm_direction_fused_recurrence": [I, P, P, P, I, I, I, I, P],
+        # B, H, dirs, fused, int out[4], stream
+        "lstm_direction_fused_plan": [I, I, I, I, P, P],
+        # dtype, x0, x1, wf0, wf1, wb0, wb1, F0, F1, bias_f, bias_b, xw_f,
+        # xw_b, steps, B, H, stream
+        "bilstm_dual_fused_projection": [I, P, P, P, P, P, P, I, I, P, P, P,
+                                         P, I, I, I, P],
+        # dtype, xw_f, xw_b, w_hh_f, w_hh_b, out_f, out_b, steps, B, H,
+        # stream
+        "bilstm_dual_fused_recurrence": [I, P, P, P, P, P, P, I, I, I, P],
+    }
+    for name, expected in entries.items():
+        kernel, argtypes = cuda_build.ENTRIES[name]
+        assert kernel == name.rsplit("_", 1)[0] and argtypes == expected
+
+
+@pytest.mark.parametrize("dtype,parts,scratch", [
+    (torch.bfloat16, (256, 256), True), (torch.bfloat16, (26,), False),
+    (torch.bfloat16, (16, 16), False), (torch.bfloat16, (20, 13), True),
+    (torch.float32, (256, 256), False)])
+def test_projection_scratch_only_where_the_input_leaves_the_step(
+        dtype, parts, scratch):
+    """bfloat16 inputs of more than 32 features in all are projected into a
+    float32 (T, B, 4H) xw first; narrower ones, and float32, need none."""
+    xs = tuple(torch.zeros((5, 3, f), dtype=dtype) for f in parts)
+    xw = lstm_kernel._projection_scratch(xs, 32)
+    if scratch:
+        assert xw.shape == (5, 3, 128) and xw.dtype == torch.float32
+    else:
+        assert xw is None
+
+
 def test_wrapper_takes_the_twin_on_cpu():
     """On CPU tensors the wrapper is the twin, and launches nothing."""
     xs, ws, b, w_hh = _direction_inputs(3, 9, 5, 32, [26])
