@@ -32,9 +32,13 @@ Phases, each printing one JSON line:
                99.5% (static_rec) equal; per-launch times beside the bound
   6 kernel_recurrence
                lstm_recurrence against its twin, xw (33, B, 1024) in
-               bfloat16 (atol 2e-2) and float32 (atol 1e-5), B=4096 and 37;
-               the time of cuDNN's torch.nn.LSTM with W_ih = I on xw,
-               checked against the twin in float32
+               bfloat16 (atol 2e-2) and float32 (atol 1e-5), B=4096, 37 and
+               512, both directions; times queued behind a device sleep
+               (unqueued beside them) of the kernel at B=4096, 37 and 512
+               in bfloat16 and at 4096 in float32, and of cuDNN's
+               torch.nn.LSTM with W_ih = I on xw, checked against the twin
+               in float32; the bfloat16 core's launch plan and ptxas's
+               registers and spills of the library's entries
   7 kernel_dual
                bilstm_dual_fused against its twin (two twins of phase 3's
                kernel) at phase 3's batches, and its largest difference
@@ -45,7 +49,9 @@ Phases, each printing one JSON line:
                4096 int8 windows through the static, static_rec and
                dynamic int8 modes on the kernels against the twin path on
                the card (atol 5e-3, 1e-2, 1e-2), windows/s, and the largest
-               difference from the float transducer
+               difference from the float transducer; one dynamic batch
+               under torch.profiler: its ten operations and ten kernels
+               with the most device time
   9 call       call_variant through the CLI on a synthetic 30x scene with
                seeded random full-width weights: cuda bfloat16 (the float
                main path), cuda float32 and cpu float32 must give the same
@@ -95,17 +101,23 @@ Phases, each printing one JSON line:
                a --dry run must move the draft toward the truth (fewer of
                the truth's 21-mers missing)
  13 kernel_histogram
-               pileup_histogram against its twin on the card, exact integer
-               equality: one region of phase 9's scene (its real events from
-               the Python walker), the event flow's 8-region dispatch (the
-               scene's 6 regions and its first 2 again), that dispatch's
-               events 4 times over (~20 M, the depth of ~120x), a skewed
-               dispatch with one tile at 10x the mean tile (padded/event
-               bytes printed), and accumulate_cuda against accumulate_torch
-               on tests/test_pileup_kernel.py's cases and on no events (no
-               launch); per launch the kernel, the twin (also the library
-               call: one index_add_, here on the unbinned events), the
-               bound, the host binning and the pinned host-to-device copy
+               pileup_histogram_events against its twin on the card, exact
+               integer equality, on flat events in the order the walker
+               emitted them: one region of phase 9's scene (its real events
+               from the Python walker), the event flow's 8-region dispatch
+               (the scene's 6 regions and its first 2 again), that
+               dispatch's events 4 times over (~20 M, the depth of ~120x),
+               a skewed dispatch with one 256-row tile at 10x the mean, and
+               the dispatch sorted by row; the slab wrapper
+               pileup_histogram on the region's binned slabs; and
+               accumulate_cuda against accumulate_torch on
+               tests/test_pileup_kernel.py's cases and on no events (no
+               launch); per launch, queued behind a device sleep (unqueued
+               beside them), the kernel, the twin and the library call (one
+               index_add_ into a zeroed image), the bound, the host time of
+               the flat int32 events beside that of the TPU layout's
+               binning (which no path runs any more), the bytes of each
+               layout and the flat events' pinned host-to-device copy
  14 device_flows
                on phase 9's scene, bfloat16 and float32: (a)
                classify_regions_images at --device_region_batch 32 against
@@ -113,16 +125,20 @@ Phases, each printing one JSON line:
                histogram; (b) classify_regions_events over the 8-region
                dispatch against the same flow on the twins and against (a),
                one histogram and 4 lstm_direction_fused launches a
-               dispatch; (c) the summarizer's Python walker with
-               accumulate_cuda as its RegionalSummary matrix backend:
+               dispatch, with its host half (pack_events), the bytes it
+               uploads and a whole call's wall time; (c) the summarizer's
+               Python walker with accumulate_cuda as its RegionalSummary
+               matrix backend:
                windows equal to the in-place walker's and the native
                pass's, byte for byte, one launch a region; windows/s of
                each flow's device half and the events per window (phases
                13 and 14 run right after phase 9, on its scene)
 
 Then the kernel summary line, the nvidia-smi line and, last, the result
-line.  Any failed check raises, and the script exits non-zero without the
-result line; so it does without a CUDA device or outside a checkout.
+line.  `--phases 6,13` runs phases 1 and 2 and the listed ones only, and
+prints neither the summary nor the result line.  Any failed check
+raises, and the script exits non-zero without the result line; so it
+does without a CUDA device or outside a checkout.
 """
 
 from __future__ import annotations
@@ -175,9 +191,10 @@ def nvidia_smi_line() -> str:
 
 def cuda_ms(fn, iters=10, warmup=2, queued=False) -> float:
     """Mean device time of fn() over iters runs, by CUDA events.  With
-    `queued`, the runs are enqueued behind a device sleep of ~1 ms, so that
-    launches shorter than the host's launch overhead run back to back and
-    their device time, not the host's launch rate, is what is timed."""
+    `queued`, the runs are enqueued behind a device sleep of ~10 ms, longer
+    than a busy host takes to enqueue them, so that launches shorter than
+    the host's launch overhead run back to back and their device time, not
+    the host's launch rate, is what is timed."""
     import torch
 
     for _ in range(warmup):
@@ -186,7 +203,7 @@ def cuda_ms(fn, iters=10, warmup=2, queued=False) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     if queued:
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -680,6 +697,20 @@ def phase_kernel_static(device, card):
 # ---------------------------------------------------------------- phase 6
 
 
+def recurrence_plan(device, B):
+    """The bfloat16 core's launch plan as lstm_recurrence runs it: rows and
+    CTAs a cluster, clusters, and how many clusters run at once."""
+    import ctypes
+
+    from pepper_tpu_torch.ops import cuda_build
+
+    out = (ctypes.c_int * 4)()
+    cuda_build.launch("lstm_recurrence_plan", device, B, H,
+                      ctypes.addressof(out))
+    return dict(zip(("rows", "cluster_ctas", "clusters", "max_clusters"),
+                    out))
+
+
 def phase_kernel_recurrence(device, card):
     import torch
     from pepper_tpu_torch.ops import lstm_kernel
@@ -699,19 +730,21 @@ def phase_kernel_recurrence(device, card):
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
         worst = 0.0
-        for B in (B_SERVE, 37):
+        for B in (B_SERVE, 37, 512):
             xw, w_hh = inputs(B, dtype)
-            out = kernel(xw, w_hh)
-            ref = twin(xw, w_hh)
-            torch.cuda.synchronize()
-            check(out.shape == (T, B, H) and out.dtype == dtype,
-                  f"recurrence output {tuple(out.shape)} {out.dtype}")
-            check(bool(torch.isfinite(out.float()).all()),
-                  "recurrence output not finite")
-            err = (out.float() - ref.float()).abs().max().item()
-            check(err <= KERNEL_BARS[dtype_name],
-                  f"recurrence {dtype_name} B={B}: max abs diff {err}")
-            worst = max(worst, err)
+            for reverse in (False, True):
+                out = kernel(xw, w_hh, reverse=reverse)
+                ref = twin(xw, w_hh, reverse=reverse)
+                torch.cuda.synchronize()
+                check(out.shape == (T, B, H) and out.dtype == dtype,
+                      f"recurrence output {tuple(out.shape)} {out.dtype}")
+                check(bool(torch.isfinite(out.float()).all()),
+                      "recurrence output not finite")
+                err = (out.float() - ref.float()).abs().max().item()
+                check(err <= KERNEL_BARS[dtype_name],
+                      f"recurrence {dtype_name} B={B} reverse={reverse}: "
+                      f"max abs diff {err}")
+                worst = max(worst, err)
         max_err[dtype_name] = worst
 
     # torch.nn.LSTM(4H, H) with W_ih = I and zero biases computes the
@@ -725,21 +758,40 @@ def phase_kernel_recurrence(device, card):
         lib_diff = (lstm(xw)[0] - twin(xw, w_hh)).abs().max().item()
     check(lib_diff <= KERNEL_BARS["float32"],
           f"identity-W_ih torch.nn.LSTM: {lib_diff}")
+    f32_ms = device_ms(lambda: kernel(xw, w_hh))
     xw, w_hh = inputs(B_SERVE, torch.bfloat16)
     lstm = cudnn_lstm([((eye,), torch.zeros(4 * H, device=device), w_hh)],
                       torch.bfloat16, device)
     nbytes = 2 * (xw.numel() + w_hh.numel() + T * B_SERVE * H)
     flops = 2 * T * B_SERVE * H * 4 * H
-    timing = {"kernel_ms": cuda_ms(lambda: kernel(xw, w_hh)),
+    # kernel and library queued behind a device sleep; the figures timed
+    # back to back from Python beside them
+    timing = {"kernel_ms": device_ms(lambda: kernel(xw, w_hh)),
+              "kernel_ms_unqueued": cuda_ms(lambda: kernel(xw, w_hh)),
+              "kernel_ms_reverse": device_ms(
+                  lambda: kernel(xw, w_hh, reverse=True)),
               "plain_ms": cuda_ms(lambda: twin(xw, w_hh), iters=5),
-              "cudnn_ms": cudnn_ms(lstm, xw),
+              "cudnn_ms": cudnn_ms(lstm, xw, queued=True),
+              "cudnn_ms_unqueued": cudnn_ms(lstm, xw),
               "cudnn_max_abs_diff_f32": lib_diff,
               "bound_ms": bound_ms(flops, nbytes, PEAK_BF16_FLOPS),
               "bound_by": ("bytes" if nbytes / PEAK_BYTES
                            > flops / PEAK_BF16_FLOPS else "operations"),
-              "mbytes": nbytes / 1e6, "gflop": flops / 1e9}
+              "mbytes": nbytes / 1e6, "gflop": flops / 1e9,
+              "kernel_ms_float32": f32_ms}
+    for B in (37, 512):
+        small = inputs(B, torch.bfloat16)
+        timing[f"kernel_ms_B{B}"] = device_ms(lambda: kernel(*small))
     emit({"phase": "kernel_recurrence", "kernel_names": ["lstm_recurrence"],
           "card": card, "max_abs_err": max_err, "B": B_SERVE,
+          "plan": {f"B{B}": recurrence_plan(device, B)
+                   for B in (37, 512, B_SERVE)},
+          # the library's own entries: the float32 body and the core's
+          # bfloat16-xw instances (it also builds the fused ones it never
+          # launches)
+          "ptxas": [e for e in ptxas_entries("lstm_recurrence")
+                    if "lstm_recurrence_kernel" in e["entry"]
+                    or "nv_bfloat16" in e["entry"]],
           "per_launch_bfloat16": timing})
     return max_err, timing
 
@@ -831,6 +883,40 @@ def phase_kernel_dual(device, card):
 # ---------------------------------------------------------------- phase 8
 
 
+def profile_top(fn, n=10):
+    """One run of fn() under torch.profiler: the n PyTorch operations with
+    the most device time of their own, the n kernels (and copies) with the
+    most device time, each as name, count and total ms, and the device
+    time of every kernel of the run in all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def self_ms(event):
+        return getattr(event, "self_device_time_total",
+                       getattr(event, "self_cuda_time_total", 0.0)) / 1e3
+
+    def top(events):
+        events = sorted((e for e in events if self_ms(e) > 0), key=self_ms,
+                        reverse=True)
+        return [{"name": e.key[:160], "count": e.count,
+                 "total_ms": self_ms(e)} for e in events[:n]]
+
+    averages = prof.key_averages()
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+    return {"device_ms": sum(self_ms(e) for e in kernels),
+            "ops": top(e for e in averages
+                       if e.device_type != DeviceType.CUDA),
+            "kernels": top(kernels)}
+
+
 def phase_transducer_quantized(device, card):
     import torch
     from pepper_tpu_torch.models import quantize
@@ -902,6 +988,10 @@ def phase_transducer_quantized(device, card):
                 name: (probs - p).abs().max().item()
                 for name, p in floats.items()},
         }
+        if mode == "dynamic":
+            # where the dynamic batch's time goes, one JSON line
+            emit({"phase": "transducer_quantized_profile", "mode": mode,
+                  "B": B_SERVE, "card": card, **profile_top(forward)})
     emit({"phase": "transducer_quantized", "card": card, "B": B_SERVE,
           "compute_dtype": "bfloat16", **result})
     return result
@@ -1861,7 +1951,7 @@ def scene_regions(device, bam, fasta, region_size=10000):
         return out, made[0]
 
     regions, walk_s = [], 0.0
-    pileup_kernel.pileup_histogram.launches = 0
+    pileup_kernel.pileup_histogram_events.launches = 0
     for interval in intervals:
         recorded = {}
 
@@ -1899,7 +1989,7 @@ def scene_regions(device, bam, fasta, region_size=10000):
         regions.append({"package": package, "host_windows": host_windows,
                         "events": recorded["events"], "ref": channel})
     walker = {"regions": len(regions),
-              "launches": pileup_kernel.pileup_histogram.launches,
+              "launches": pileup_kernel.pileup_histogram_events.launches,
               "windows_equal": sum(len(r["host_windows"]) for r in regions),
               "walk_s": round(walk_s, 3),
               "events": sum(len(r["events"][0]) for r in regions)}
@@ -1916,26 +2006,32 @@ def dispatch_regions(regions, n=8):
 
 
 def histogram_case(device, events, n_rows):
-    """Binned slabs of (rows, cols, deltas) on the card, the binning's host
-    seconds, and the pinned host-to-device copy's milliseconds."""
+    """Flat int32 events on the card, the host seconds to make them (the
+    int32 arrays the flow uploads) and, for comparison, to bin them as the
+    TPU kernel's layout wants (_bin_events, which no path of the port
+    runs), the bytes of each layout, and the pinned host-to-device copy's
+    milliseconds of the flat one."""
     import torch
     from pepper_tpu_torch.ops import pileup_kernel as pk
 
-    rows, cols, deltas = events
     t0 = time.perf_counter()
-    rel, bc, bd, n_tiles, capacity = pk._bin_events(
-        rows.astype(np.int32), cols, deltas, n_rows)
+    flat = [np.ascontiguousarray(a, np.int32) for a in events]
+    flat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, _, _, n_tiles, capacity = pk._bin_events(*flat, n_rows)
     bin_s = time.perf_counter() - t0
-    pinned = [torch.from_numpy(a).pin_memory() for a in (rel, bc, bd)]
+    pinned = [torch.from_numpy(a).pin_memory() for a in flat]
     h2d_ms = cuda_ms(lambda: [p.to(device, non_blocking=True)
                               for p in pinned], iters=3, warmup=1)
-    slabs = [p.to(device) for p in pinned]
-    return slabs, n_tiles, capacity // pk.CHUNK_E, bin_s, h2d_ms
+    return [p.to(device) for p in pinned], {
+        "host_flat_s": flat_s, "bin_host_s": bin_s, "h2d_ms": h2d_ms,
+        "h2d_mbytes": 12 * len(flat[0]) / 1e6,
+        "binned_mbytes": 12 * n_tiles * capacity / 1e6}
 
 
 def phase_kernel_histogram(device, card, regions):
-    """pileup_histogram against its twin, exactly, at the shapes of its two
-    paths and two harder ones; per-launch times."""
+    """pileup_histogram_events against its twin, exactly, at the shapes of
+    its two paths and harder ones; per-launch times."""
     import torch
     from pepper_tpu_torch.ops import device_windows as dw
     from pepper_tpu_torch.ops import pileup_kernel as pk
@@ -1949,9 +2045,9 @@ def phase_kernel_histogram(device, card, regions):
               rng.randint(0, 26, n_events).astype(np.int32),
               rng.choice([-1, 1], n_events).astype(np.int32))
         shape = (n_rows + 1, 26)
-        pk.pileup_histogram.launches = 0
+        pk.pileup_histogram_events.launches = 0
         out = pk.accumulate_cuda(*ev, shape, device=device)
-        launched = pk.pileup_histogram.launches
+        launched = pk.pileup_histogram_events.launches
         ref = pk.accumulate_torch(*ev, shape, device=device)
         check(launched == (n_events > 0),
               f"accumulate_cuda launched {launched} times on {n_events} "
@@ -1964,7 +2060,8 @@ def phase_kernel_histogram(device, card, regions):
                                            if n_events else 0)
 
     # the shapes of the two paths: one region (the matrix backend), and the
-    # event flow's 8-region dispatch in its strided layout
+    # event flow's 8-region dispatch in its strided layout, each in the
+    # order the walker emitted its events
     one = regions[0]
     batch = dispatch_regions(regions)
     sizes = [r["package"].region_rows for r in batch]
@@ -1980,53 +2077,75 @@ def phase_kernel_histogram(device, card, regions):
     in_hot = np.flatnonzero(tile_of == hot)
     extra = np.resize(in_hot, int(10 * mean) - len(in_hot))
     skewed = tuple(np.concatenate([a, a[extra]]) for a in dispatch)
+    by_row = np.argsort(dispatch[0], kind="stable")
     cases = {
         "region": (one["events"], one["package"].region_rows),
         "dispatch": (dispatch, total_rows),
         "dispatch_x4": (tuple(np.tile(a, 4) for a in dispatch), total_rows),
         "skewed": (skewed, total_rows),
+        # the TPU layout's order: every warp's lanes on a few rows
+        "dispatch_row_sorted": (tuple(a[by_row] for a in dispatch),
+                                total_rows),
     }
+    F = 26
     result = {}
     for name, (events, n_rows) in cases.items():
-        slabs, n_tiles, n_chunks, bin_s, h2d_ms = histogram_case(
-            device, events, n_rows)
-        out = pk.pileup_histogram(*slabs, n_tiles, n_chunks)
-        ref = pk.pileup_histogram_reference(*slabs, n_tiles, n_chunks)
+        flat, host = histogram_case(device, events, n_rows)
+        pk.pileup_histogram_events.launches = 0
+        out = pk.pileup_histogram_events(*flat, n_rows, F)
+        launched = pk.pileup_histogram_events.launches
+        ref = pk.pileup_histogram_events_reference(*flat, n_rows, F)
         torch.cuda.synchronize()
         err = (out.long() - ref.long()).abs().max().item()
-        check(out.dtype == torch.int32 and err == 0,
-              f"pileup_histogram {name}: differs from its twin by {err}")
+        check(launched == 1 and out.dtype == torch.int32 and err == 0,
+              f"pileup_histogram_events {name}: {launched} launches, "
+              f"differs from its twin by {err}")
         n_events = len(events[0])
-        flat = torch.from_numpy(events[0].astype(np.int64) * pk.COL_PAD
-                                + events[1]).to(device)
-        deltas = torch.from_numpy(events[2].astype(np.int32)).to(device)
-        numel = n_tiles * pk.TILE_R * pk.COL_PAD
+        keys = (flat[0].long() * F + flat[1]).contiguous()
 
         def library():
-            return torch.zeros(numel, dtype=torch.int32,
-                               device=device).index_add_(0, flat, deltas)
+            return torch.zeros(n_rows * F, dtype=torch.int32,
+                               device=device).index_add_(0, keys, flat[2])
 
-        lib_err = (library().reshape(-1, pk.COL_PAD) - out).abs().max().item()
+        lib_err = (library().reshape(n_rows, F) - out).abs().max().item()
         check(lib_err == 0, f"index_add_ {name}: differs by {lib_err}")
         # bytes it must move: each event read once (12 B) and the image's
         # 26 feature columns written once (4 B)
-        nbytes = 12 * n_events + 4 * n_rows * 26
-        slot_bytes = 12 * n_tiles * n_chunks * pk.CHUNK_E
+        nbytes = 12 * n_events + 4 * n_rows * F
+
+        def kernel():
+            return pk.pileup_histogram_events(*flat, n_rows, F)
+
         result[name] = {
-            "events": n_events, "rows": n_rows, "tiles": n_tiles,
-            "chunks_per_tile": n_chunks, "max_abs_err": err,
-            "padded_bytes_per_event_byte": slot_bytes / (12 * n_events),
-            "kernel_ms": cuda_ms(lambda: pk.pileup_histogram(
-                *slabs, n_tiles, n_chunks)),
-            "plain_ms": cuda_ms(lambda: pk.pileup_histogram_reference(
-                *slabs, n_tiles, n_chunks), iters=5),
-            "library_ms": cuda_ms(library),
-            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_mbytes": nbytes / 1e6,
-            "bin_host_s": bin_s, "h2d_ms": h2d_ms,
-            "h2d_mbytes": slot_bytes / 1e6}
-        del slabs, flat, deltas, out, ref
-    emit({"phase": "kernel_histogram", "kernel_names": ["pileup_histogram"],
-          "card": card, "small_max_abs_err": small, **result})
+            "events": n_events, "rows": n_rows, "max_abs_err": err,
+            "kernel_ms": cuda_ms(kernel, queued=True),
+            "kernel_ms_unqueued": cuda_ms(kernel),
+            "plain_ms": cuda_ms(lambda: pk.pileup_histogram_events_reference(
+                *flat, n_rows, F), iters=5),
+            "library_ms": cuda_ms(library, queued=True),
+            "library_ms_unqueued": cuda_ms(library),
+            "bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "bound_mbytes": nbytes / 1e6, **host}
+        del flat, keys, out, ref
+
+    # the slab wrapper (the TPU kernel's input) now runs the same kernel on
+    # the slots as flat events: the region's binned slabs, exactly
+    rel, bc, bd, n_tiles, capacity = pk._bin_events(
+        *(np.asarray(a, np.int32) for a in one["events"]),
+        one["package"].region_rows)
+    slabs = [torch.from_numpy(a).to(device) for a in (rel, bc, bd)]
+    pk.pileup_histogram_events.launches = 0
+    out = pk.pileup_histogram(*slabs, n_tiles, capacity // pk.CHUNK_E)
+    launched = pk.pileup_histogram_events.launches
+    ref = pk.pileup_histogram_reference(*slabs, n_tiles,
+                                        capacity // pk.CHUNK_E)
+    torch.cuda.synchronize()
+    check(launched == 1 and torch.equal(out, ref),
+          "pileup_histogram on the region's slabs differs from its twin")
+    emit({"phase": "kernel_histogram",
+          "kernel_names": ["pileup_histogram_events"],
+          "card": card, "small_max_abs_err": small,
+          "slabs_equal_twin": True, **result})
     return result
 
 
@@ -2056,7 +2175,7 @@ def phase_device_flows(device, card, regions, walker):
     k_images, k_events = len(host_windows), sum(
         len(d.base_index) for d in ev_args[2])
     n_events = sum(len(e[0]) for e in ev_args[0])
-    counters = (pileup_kernel.pileup_histogram,
+    counters = (pileup_kernel.pileup_histogram_events,
                 lstm_kernel.lstm_direction_fused)
 
     def counted(fn):
@@ -2090,9 +2209,11 @@ def phase_device_flows(device, card, regions, walker):
         with twin_path():
             twin_b = events_flow()
         torch.cuda.synchronize()
-        check(count_a == {"pileup_histogram": 0, "lstm_direction_fused": 4},
+        check(count_a == {"pileup_histogram_events": 0,
+                          "lstm_direction_fused": 4},
               f"images flow {dtype_name} launched {count_a}")
-        check(count_b == {"pileup_histogram": 1, "lstm_direction_fused": 4},
+        check(count_b == {"pileup_histogram_events": 1,
+                          "lstm_direction_fused": 4},
               f"events flow {dtype_name} launched {count_b}")
         check(probs_a.shape == (k_images, 3) and probs_b.shape == (k_events, 3)
               and bool(torch.isfinite(probs_b).all()),
@@ -2116,16 +2237,16 @@ def phase_device_flows(device, card, regions, walker):
         t0 = time.perf_counter()
         packed = dw.pack_events(ev_args[0], ev_args[1], ev_args[3])
         pack_s = time.perf_counter() - t0
-        rel, cols, deltas, ref_col, mask = (upload(a, device)
-                                            for a in packed[:5])
-        n_tiles, n_chunks, total_rows, ev_offsets = packed[5:]
+        rows, cols, deltas, ref_col, mask = (upload(a, device)
+                                             for a in packed[:5])
+        total_rows, ev_offsets = packed[5:]
         merged_b, _ = dw._merge_descriptors(ev_args[2], ev_offsets,
                                             device=device)
         images_ms = cuda_ms(lambda: dw._fused_images_classify(
             cast, stacked_d, merged_a, dtype), iters=5)
         events_ms = cuda_ms(lambda: dw._fused_events_classify(
-            cast, rel, cols, deltas, ref_col, mask, merged_b, n_tiles,
-            n_chunks, total_rows, dtype), iters=5)
+            cast, rows, cols, deltas, ref_col, mask, merged_b, total_rows,
+            dtype), iters=5)
         t0 = time.perf_counter()
         events_flow().cpu()
         wall_events = time.perf_counter() - t0
@@ -2138,7 +2259,7 @@ def phase_device_flows(device, card, regions, walker):
             "events": {"regions": len(batch), "windows": k_events,
                        "events": n_events,
                        "events_per_window": n_events / k_events,
-                       "tiles": n_tiles, "chunks_per_tile": n_chunks,
+                       "h2d_mbytes": sum(a.nbytes for a in packed[:5]) / 1e6,
                        "device_ms": events_ms,
                        "windows_per_s": k_events / events_ms * 1e3,
                        "host_pack_s": pack_s,
@@ -2155,17 +2276,62 @@ def histogram_row(case):
             "max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": "bytes", "library_ms": case["library_ms"],
-            "library_note": "one index_add_ of the unbinned events into a "
-                            "zeroed int32 image; the plain twin is the same "
-                            "index_add_ on the binned slabs"}
+            "status": "redesigned: flat events in any order, no host sort "
+                      "or binning, one launch of red.global adds with warp "
+                      "aggregation of equal keys; earlier design: PERF.md "
+                      "section 6, rows 8 and 9",
+            "library_note": "one index_add_ of the events into a zeroed "
+                            "int32 image, as the plain twin does"}
 
 
 # ---------------------------------------------------------------- main
 
 
-def main() -> int:
+def run_phases(device, smi, only):
+    """Some of phases 3-14 alone (after phases 1 and 2), for a short run:
+    no kernel summary and no result line.  Phases 13 and 14 walk phase 9's
+    scene without running phase 9."""
+    simple = {3: phase_kernel, 4: phase_transducer, 5: phase_kernel_static,
+              6: phase_kernel_recurrence, 7: phase_kernel_dual,
+              8: phase_transducer_quantized, 10: phase_kernel_gru}
+    for number in sorted(set(simple) & only):
+        simple[number](device, smi)
+    if only & {9, 13, 14}:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            scene = write_scene(workdir)
+            if 9 in only:
+                phase_call(device, workdir, scene)
+            if only & {13, 14}:
+                regions, walker = scene_regions(device, *scene[:2])
+                if 13 in only:
+                    phase_kernel_histogram(device, smi, regions)
+                if 14 in only:
+                    phase_device_flows(device, smi, regions, walker)
+    if only & {11, 12}:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            scene = write_polish_scene(workdir)
+            if 11 in only:
+                phase_consensus(device, smi, scene_images(*scene[:2]))
+            if 12 in only:
+                phase_polish(device, workdir, scene)
+
+
+def parse_phases(argv):
+    """`--phases 6,13`: the phases to run (3-14), or None for all."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: chip_smoke.py [--phases N[,N...]]")
+    only = {int(n) for n in argv[1].split(",")}
+    if not only or not only <= set(range(3, 15)):
+        raise SystemExit(f"--phases takes numbers 3-14, got {argv[1]}")
+    return only
+
+
+def main(argv=()) -> int:
     import torch
 
+    only = parse_phases(list(argv))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2188,6 +2354,11 @@ def main() -> int:
           "cuda": torch.version.cuda})
     t0 = time.time()
     phase_build()
+    if only:
+        run_phases(device, smi, only)
+        emit({"phase": "done", "phases": sorted(only),
+              "seconds_total": round(time.time() - t0, 3)})
+        return 0
     max_err, per_launch = phase_kernel(device, smi)
     phase_transducer(device, smi)
     code_diff, code_share, static_launch = phase_kernel_static(device, smi)
@@ -2295,6 +2466,11 @@ def main() -> int:
         "bound_ms": rec_batch["bound_ms"],
         "bound_by": rec_launch["bound_by"],
         "library_ms": rec_batch["cudnn_ms"],
+        "status": "redesigned: bfloat16 on lstm_core.cuh's tensor-core "
+                  "body over the caller's bfloat16 xw (mma.sync, W_hh split "
+                  "over a cluster of 4 CTAs), reverse in the kernel; "
+                  "float32 keeps the first body; earlier design: PERF.md "
+                  "section 6, row 4",
         "library_note": "torch.nn.LSTM(1024, 256) (cuDNN) with W_ih = I and "
                         "zero biases on xw: the same function plus an extra "
                         "(T*B, 1024) x (1024, 1024) input product, so an "
@@ -2381,7 +2557,8 @@ def main() -> int:
     }, {
         **histogram_row(hist["dispatch"]),
         "replaces": "pepper_tpu/ops/device_windows.py:192",
-        "launches": flow_launches["bfloat16"]["events"]["pileup_histogram"],
+        "launches": flow_launches["bfloat16"]["events"][
+            "pileup_histogram_events"],
         "work": "the histogram of one classify_regions_events dispatch of 8 "
                 f"regions: {hist['dispatch']['events']} events, "
                 f"{hist['dispatch']['rows']} rows (one launch a dispatch; "
@@ -2394,4 +2571,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

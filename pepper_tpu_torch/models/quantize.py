@@ -216,13 +216,11 @@ def _int8_linear(x, w_q, w_scale, b=None):
 
 def _recurrence(xw, w_hh, reverse, compute_dtype):
     """xw: (B, T, 4H) float32 projections -> (B, T, H) hidden outputs
-    through lstm_recurrence, which runs forward only."""
+    through lstm_recurrence, which steps T-1..0 for the reverse
+    direction."""
     xw_t = xw.to(compute_dtype).transpose(0, 1)
-    if reverse:
-        xw_t = xw_t.flip(0)
-    ys = lstm_kernel.lstm_recurrence(xw_t.contiguous(), w_hh.to(compute_dtype))
-    if reverse:
-        ys = ys.flip(0)
+    ys = lstm_kernel.lstm_recurrence(xw_t.contiguous(), w_hh.to(compute_dtype),
+                                     reverse=reverse)
     return ys.transpose(0, 1)
 
 

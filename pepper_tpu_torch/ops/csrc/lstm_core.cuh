@@ -1,11 +1,14 @@
-// The bfloat16 LSTM core that lstm_direction_fused.cu and
-// bilstm_dual_fused.cu share, for Hopper (sm_90a).  Together with the input
-// projection below it replaces the bf16 path of the TPU kernels
+// The bfloat16 LSTM core that lstm_direction_fused.cu, bilstm_dual_fused.cu
+// and lstm_recurrence.cu share, for Hopper (sm_90a).  Together with the
+// input projection below it replaces the bf16 path of the TPU kernels
 // pepper_tpu/ops/lstm_kernel.py::lstm_direction_fused (body
-// _make_fused_kernel) and ::bilstm_dual_fused (body _make_dual_kernel):
-// per step, with t running T-1..0 for a reversed direction,
+// _make_fused_kernel) and ::bilstm_dual_fused (body _make_dual_kernel), and
+// alone the bf16 path of ::lstm_recurrence_pallas (body _lstm_kernel), whose
+// xw the caller computed: per step, with t running T-1..0 for a reversed
+// direction,
 //
 //   gates = f32(b) + sum_i x_i[t] @ W_ih_i + bf(h) @ W_hh      (f32 sums)
+//         = f32(xw[t]) + bf(h) @ W_hh                (over a precomputed xw)
 //   i, f, g, o = sigmoid, sigmoid, tanh, sigmoid of the four H-wide slices
 //   c = f * c + i * g ;  h = o * tanh(c)                        (f32 state)
 //   out[t] = h rounded to bfloat16
@@ -55,7 +58,11 @@
 //   tiled bf16 tensor-core product of its own, writes xw = [x_0 x_1] @
 //   [W_ih_0; W_ih_1] + b in float32 for all T*B rows (xw is not rounded to
 //   bf16, which would change the math), and each chunk's accumulators start
-//   from xw[t], loaded one chunk ahead.
+//   from xw[t], loaded one chunk ahead.  lstm_recurrence runs the same
+//   hoisted body over the bf16 xw its caller computed: xw's element type
+//   is a template parameter (XW, float by default), and a thread loads its
+//   two adjacent units' xw as one float2 or one bfloat162, widened to f32;
+//   a bf16 xw halves the bytes a step streams.
 // * The nonlinearities: sigmoid(v) = 1/(1 + e^-v), tanh(v) = 1 - 2/(1 +
 //   e^2v), e^v by ex2 on the special-function unit and the reciprocal by
 //   Newton steps on the FMA pipe, within 2e-7 of the library functions.
@@ -70,9 +77,11 @@
 
 #include <atomic>
 #include <climits>
+#include <cstdint>
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 
 #include "lstm_cell.cuh"
 
@@ -89,23 +98,35 @@ constexpr int kMaxCluster = 4;
 constexpr int kCoreMaxThreads = 256;  // 8 warps: U = 64 units
 constexpr int kCoreDevices = 64;
 
-// One direction's operands.  Fused x: w_x0/w_x1 and bias; hoisted: xw.
+// One direction's operands.  Fused x: w_x0/w_x1 and bias; hoisted: xw, of
+// element type XW (float or bf16).
+template <typename XW = float>
 struct Direction {
   const bf16* w_hh;   // (H, 4H)
   const bf16* w_x0;   // (F0, 4H)
   const bf16* w_x1;   // (F1, 4H) or null
   const bf16* bias;   // (4H,)
-  const float* xw;    // (T, B, 4H)
+  const XW* xw;       // (T, B, 4H)
   bf16* out;          // (T, B, H)
   int reverse;
 };
 
+template <typename XW = float>
 struct CoreArgs {
   const bf16* x0;     // (T, B, F0), read by the fused-x body
   const bf16* x1;     // (T, B, F1) or null
   int F0, F1, steps, B, H;
-  Direction dir[2];   // blockIdx.y picks one
+  Direction<XW> dir[2];  // blockIdx.y picks one
 };
+
+// xw[0..1] of one thread's two adjacent units, widened to f32
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -219,16 +240,16 @@ inline size_t core_smem_bytes(int H, int rows, bool fused_x) {
 }
 
 // A cluster's R = 16 * kMT * kChunks rows, in kChunks chunks of kMT m16
-// tiles (see the design above).
-template <int kMT, int kChunks, bool kFusedX>
+// tiles (see the design above); XW, the hoisted body's xw element type.
+template <int kMT, int kChunks, bool kFusedX, typename XW>
 __global__ void __launch_bounds__(kCoreMaxThreads, 1)
-    core_kernel(const CoreArgs a) {
+    core_kernel(const CoreArgs<XW> a) {
   constexpr int R = 16 * kMT * kChunks;
   cg::cluster_group cluster = cg::this_cluster();
   const int n = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   // the parameters as locals: lambdas below capture these, not `a`
-  const Direction d = blockIdx.y ? a.dir[1] : a.dir[0];
+  const Direction<XW> d = blockIdx.y ? a.dir[1] : a.dir[0];
   const bf16* x0 = a.x0;
   const bf16* x1 = a.x1;
   const int F0 = a.F0, F1 = a.F1, B = a.B, steps = a.steps, H = a.H;
@@ -339,9 +360,8 @@ __global__ void __launch_bounds__(kCoreMaxThreads, 1)
         for (int q = 0; q < 4; ++q) {
           float2 v = make_float2(0.0f, 0.0f);
           if (row < B) {
-            v = *reinterpret_cast<const float2*>(
-                d.xw + (static_cast<size_t>(t) * B + row) * G + q * H +
-                unit);
+            v = load_pair(d.xw + (static_cast<size_t>(t) * B + row) * G +
+                          q * H + unit);
           }
           nxt[mt][q][2 * e] = v.x;
           nxt[mt][q][2 * e + 1] = v.y;
@@ -530,7 +550,7 @@ cudaError_t ensure_smem_limit(const void* kernel, int device) {
   return cudaSuccess;
 }
 
-template <int kMT, int kChunks, bool kFusedX>
+template <int kMT, int kChunks, bool kFusedX, typename XW>
 struct CoreTag {};
 
 template <int kMT, int kChunks, bool kFusedX>
@@ -553,7 +573,7 @@ void fill_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int H,
 // How many clusters of a core kernel at width H run at once on `device`
 // (cudaOccupancyMaxActiveClusters, asked once per device and H; 30 of 4
 // CTAs on an H100 SXM at H=256, so 120 of its 132 SMs).
-template <int kMT, int kChunks, bool kFusedX>
+template <int kMT, int kChunks, bool kFusedX, typename XW>
 cudaError_t max_clusters(int device, int H, int* count) {
   static std::mutex mu;
   static std::map<std::tuple<int, int>, int> memo;
@@ -564,8 +584,8 @@ cudaError_t max_clusters(int device, int H, int* count) {
     *count = found->second;
     return cudaSuccess;
   }
-  auto kernel = core_kernel<kMT, kChunks, kFusedX>;
-  cudaError_t err = ensure_smem_limit<CoreTag<kMT, kChunks, kFusedX>>(
+  auto kernel = core_kernel<kMT, kChunks, kFusedX, XW>;
+  cudaError_t err = ensure_smem_limit<CoreTag<kMT, kChunks, kFusedX, XW>>(
       reinterpret_cast<const void*>(kernel), device);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
@@ -577,11 +597,11 @@ cudaError_t max_clusters(int device, int H, int* count) {
   return cudaSuccess;
 }
 
-template <int kMT, int kChunks, bool kFusedX>
-cudaError_t launch_rows(const CoreArgs& a, int dirs, int device,
+template <int kMT, int kChunks, bool kFusedX, typename XW>
+cudaError_t launch_rows(const CoreArgs<XW>& a, int dirs, int device,
                         cudaStream_t stream) {
-  auto kernel = core_kernel<kMT, kChunks, kFusedX>;
-  cudaError_t err = ensure_smem_limit<CoreTag<kMT, kChunks, kFusedX>>(
+  auto kernel = core_kernel<kMT, kChunks, kFusedX, XW>;
+  cudaError_t err = ensure_smem_limit<CoreTag<kMT, kChunks, kFusedX, XW>>(
       reinterpret_cast<const void*>(kernel), device);
   if (err != cudaSuccess) return err;
   const int rows = 16 * kMT * kChunks;
@@ -598,12 +618,12 @@ cudaError_t launch_rows(const CoreArgs& a, int dirs, int device,
 // the fewest of 16, 32, 48, 96 and 144 whose clusters all run in one wave,
 // else 144 (in more waves where B asks for them).  *count: how many
 // clusters of that plan run at once.
-template <bool kFusedX>
+template <bool kFusedX, typename XW>
 cudaError_t pick_rows(int B, int H, int dirs, int device, int* rows,
                       int* count) {
   cudaError_t err;
 #define LSTM_TRY(MT, CH)                                                    \
-  err = max_clusters<MT, CH, kFusedX>(device, H, count);                  \
+  err = max_clusters<MT, CH, kFusedX, XW>(device, H, count);              \
   if (err != cudaSuccess) return err;                                     \
   *rows = 16 * (MT) * (CH);                                               \
   if (static_cast<long long>(dirs) * ((B + *rows - 1) / *rows) <= *count) { \
@@ -615,15 +635,15 @@ cudaError_t pick_rows(int B, int H, int dirs, int device, int* rows,
   LSTM_TRY(3, 2)
 #undef LSTM_TRY
   *rows = 144;
-  return max_clusters<3, 3, kFusedX>(device, H, count);
+  return max_clusters<3, 3, kFusedX, XW>(device, H, count);
 }
 
-template <bool kFusedX>
-cudaError_t launch_plan(const CoreArgs& a, int dirs, int device,
+template <bool kFusedX, typename XW>
+cudaError_t launch_plan(const CoreArgs<XW>& a, int dirs, int device,
                         cudaStream_t stream) {
   int rows = 0, count = 0;
   const cudaError_t err =
-      pick_rows<kFusedX>(a.B, a.H, dirs, device, &rows, &count);
+      pick_rows<kFusedX, XW>(a.B, a.H, dirs, device, &rows, &count);
   if (err != cudaSuccess) return err;
   switch (rows) {
     case 16:
@@ -639,22 +659,36 @@ cudaError_t launch_plan(const CoreArgs& a, int dirs, int device,
   }
 }
 
+// The fused-x body exists for a float xw only (it reads no xw), so a
+// library that runs the core over a bf16 xw builds the hoisted body alone.
+template <typename XW>
+constexpr bool kHasFused = std::is_same<XW, float>::value;
+
 // The recurrence of dirs directions (a.dir[0..dirs-1]): with fused_x
 // (F0 + F1 <= kXMax) x[t] joins the step's product, else it runs over each
-// direction's xw.  W_hh must be 16-byte aligned.
-inline cudaError_t launch_core(const CoreArgs& a, int dirs, bool fused_x,
-                               cudaStream_t stream) {
+// direction's xw, whose rows must start on two elements.  W_hh must be
+// 16-byte aligned.
+template <typename XW>
+cudaError_t launch_core(const CoreArgs<XW>& a, int dirs, bool fused_x,
+                        cudaStream_t stream) {
+  if (fused_x && !kHasFused<XW>) return cudaErrorInvalidValue;
   for (int i = 0; i < dirs; ++i) {
     if (reinterpret_cast<uintptr_t>(a.dir[i].w_hh) % 16 != 0) {
       return cudaErrorMisalignedAddress;
     }
     if (!fused_x && a.dir[i].xw == nullptr) return cudaErrorInvalidValue;
+    if (!fused_x &&
+        reinterpret_cast<uintptr_t>(a.dir[i].xw) % (2 * sizeof(XW)) != 0) {
+      return cudaErrorMisalignedAddress;
+    }
   }
   int device = 0;
   const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  return fused_x ? launch_plan<true>(a, dirs, device, stream)
-                 : launch_plan<false>(a, dirs, device, stream);
+  if constexpr (kHasFused<XW>) {
+    if (fused_x) return launch_plan<true>(a, dirs, device, stream);
+  }
+  return launch_plan<false>(a, dirs, device, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -920,14 +954,19 @@ inline bool valid_shape(int F0, int F1, int steps, int B, int H) {
 // The plan launch_core takes for dirs directions of B rows at width H:
 // out[0] rows a cluster, out[1] CTAs a cluster, out[2] clusters a
 // direction, out[3] clusters that run at once.
-inline cudaError_t core_plan(int B, int H, int dirs, bool fused_x,
-                             int* out) {
+template <typename XW = float>
+cudaError_t core_plan(int B, int H, int dirs, bool fused_x, int* out) {
+  if (fused_x && !kHasFused<XW>) return cudaErrorInvalidValue;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   int rows = 0, count = 0;
-  err = fused_x ? pick_rows<true>(B, H, dirs, device, &rows, &count)
-                : pick_rows<false>(B, H, dirs, device, &rows, &count);
+  if constexpr (kHasFused<XW>) {
+    err = fused_x ? pick_rows<true, XW>(B, H, dirs, device, &rows, &count)
+                  : pick_rows<false, XW>(B, H, dirs, device, &rows, &count);
+  } else {
+    err = pick_rows<false, XW>(B, H, dirs, device, &rows, &count);
+  }
   if (err != cudaSuccess) return err;
   out[0] = rows;
   out[1] = cluster_size(H);
@@ -936,15 +975,15 @@ inline cudaError_t core_plan(int B, int H, int dirs, bool fused_x,
   return cudaSuccess;
 }
 
-// The bfloat16 recurrence of dirs directions over their float32 xw, which
-// holds the input projection and the bias; direction i runs reversed where
-// reverse[i].
-inline cudaError_t launch_recurrence(const float* const* xw,
-                                     const void* const* w_hh,
-                                     void* const* out, const int* reverse,
-                                     int dirs, int steps, int B, int H,
-                                     cudaStream_t stream) {
-  CoreArgs a{};
+// The bfloat16 recurrence of dirs directions over their xw (float32 from
+// the fused kernels' projection, or bfloat16 from lstm_recurrence's
+// caller), which holds the input projection and the bias; direction i runs
+// reversed where reverse[i].
+template <typename XW>
+cudaError_t launch_recurrence(const XW* const* xw, const void* const* w_hh,
+                              void* const* out, const int* reverse, int dirs,
+                              int steps, int B, int H, cudaStream_t stream) {
+  CoreArgs<XW> a{};
   a.steps = steps;
   a.B = B;
   a.H = H;
@@ -996,7 +1035,7 @@ inline cudaError_t launch_directions(
     return launch_recurrence(xws, w_hh, out, reverse, dirs, steps, B, H,
                              stream);
   }
-  CoreArgs a{};
+  CoreArgs<> a{};
   a.x0 = static_cast<const bf16*>(x0);
   a.x1 = static_cast<const bf16*>(x1);
   a.F0 = F0;

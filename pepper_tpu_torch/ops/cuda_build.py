@@ -32,7 +32,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _LSTM = ("lstm_cell.cuh",)
 _LSTM_CORE = ("lstm_core.cuh",) + _LSTM
 _GRU = ("gru_cell.cuh", "lstm_cell.cuh")
@@ -48,14 +48,14 @@ KERNELS = {
     "lstm_direction_fused_static": (_LSTM, [_I, _I, _I, _P, _P, _P, _P, _I,
                                             _I, _P, _P, _P, _P, _P, _I, _I,
                                             _I, _I, _P]),
-    "lstm_recurrence": (_LSTM, [_I, _P, _P, _P, _I, _I, _I, _P]),
+    "lstm_recurrence": (_LSTM_CORE, [_I, _P, _P, _P, _I, _I, _I, _I, _P]),
     "gru_direction_fused": (_GRU_CORE, [_I, _P, _P, _P, _P, _I, _I, _P, _P,
                                         _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "gru_direction_fused_static": (_GRU, [_I, _I, _P, _P, _P, _P, _I, _I, _P,
                                           _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                           _I, _P]),
     "gru_recurrence": (_GRU_CORE, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "pileup_histogram": ((), [_P, _P, _P, _P, _I, _I, _P]),
+    "pileup_histogram": ((), [_P, _P, _P, _L, _P, _I, _I, _P]),
 }
 # further launchers a kernel's library exports, <entry>_launch: entry ->
 # (the kernel, argument types)
@@ -70,6 +70,9 @@ ENTRIES = {
     # launches nothing
     "lstm_direction_fused_plan": (
         "lstm_direction_fused", [_I, _I, _I, _I, _P, _P]),
+    # the bfloat16 core's plan as lstm_recurrence runs it (B, H, int
+    # out[4]); launches nothing
+    "lstm_recurrence_plan": ("lstm_recurrence", [_I, _I, _P, _P]),
     "bilstm_dual_fused_projection": (
         "bilstm_dual_fused", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
                               _P, _I, _I, _I, _P]),

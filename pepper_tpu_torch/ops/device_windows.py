@@ -10,10 +10,11 @@ per candidate (CandidateDescriptors).
 
   classify_regions_images  host-native int8 region images -> gather and
                            inject -> classifier (--device_pileup)
-  classify_regions_events  raw (row, col, ±1) pileup events, binned on the
-                           host -> the histogram kernel
-                           (ops/pileup_kernel.py) -> reference channel,
-                           clamp, gather and inject -> classifier
+  classify_regions_events  raw (row, col, ±1) pileup events, shifted into
+                           the strided layout and uploaded as they are ->
+                           the histogram kernel (ops/pileup_kernel.py) ->
+                           reference channel, clamp, gather and inject ->
+                           classifier
   classify_region_device   the one-region form of the event flow
 
 Each runs on `device`, cuda unless the caller asks for another; the
@@ -191,17 +192,16 @@ def _fused_images_classify(params, images, descriptors,
     return transducer_infer(params, windows, compute_dtype)
 
 
-def _fused_events_classify(params, rel_blocks, col_blocks, delta_blocks,
-                           ref_col, clamp_mask, descriptors, n_tiles,
-                           n_chunks, total_rows, compute_dtype=torch.float32):
-    """The event flow's device half: the histogram kernel, then the
-    reference channel, the clamp of columns [CLAMP_COL_START,
-    CLAMP_COL_END) on the rows of clamp_mask, the window gather and the
-    classifier."""
+def _fused_events_classify(params, rows, cols, deltas, ref_col, clamp_mask,
+                           descriptors, total_rows,
+                           compute_dtype=torch.float32):
+    """The event flow's device half: the histogram kernel on the flat
+    events into the (total_rows, F) image, then the reference channel, the
+    clamp of columns [CLAMP_COL_START, CLAMP_COL_END) on the rows of
+    clamp_mask, the window gather and the classifier."""
     F = ImageOptions.IMAGE_HEIGHT
-    hist = pileup_kernel.pileup_histogram(rel_blocks, col_blocks,
-                                          delta_blocks, n_tiles, n_chunks)
-    image = hist[:total_rows, :F].contiguous()
+    image = pileup_kernel.pileup_histogram_events(rows, cols, deltas,
+                                                  total_rows, F)
     image[:, 0] += ref_col
     cs, ce = ImageOptions.CLAMP_COL_START, ImageOptions.CLAMP_COL_END
     clamped = image[:, cs:ce].clamp(ImageOptions.MIN_COLOR_VALUE, MAX_COLOR)
@@ -245,13 +245,14 @@ def classify_regions_images(params, images, descriptor_list, region_sizes,
 
 
 def pack_events(event_list, ref_channels, region_sizes):
-    """The event flow's host half: events shifted into the strided layout
-    and binned once, the reference channel and the clamp mask.
-    Returns (rel, cols, deltas, ref_col, clamp_mask, n_tiles, n_chunks,
-    total_rows, offsets), all numpy."""
+    """The event flow's host half: the events shifted into the strided
+    layout and concatenated, in the order they came (no sort, no binning),
+    the reference channel and the clamp mask.  Returns (rows, cols, deltas,
+    ref_col, clamp_mask, total_rows, offsets), all numpy, the events
+    int32."""
     stride, offsets = pack_regions(region_sizes)
     total_rows = len(event_list) * stride
-    rows = np.concatenate([np.asarray(e[0], np.int64) + offsets[r]
+    rows = np.concatenate([np.asarray(e[0], np.int32) + np.int32(offsets[r])
                            for r, e in enumerate(event_list)])
     cols = np.concatenate([np.asarray(e[1], np.int32)
                            for e in event_list])
@@ -263,35 +264,30 @@ def pack_events(event_list, ref_channels, region_sizes):
         ref_col[offsets[r]:offsets[r] + len(channel)] = channel
         # clamp covers expanded rows [0, region_size) = all but the stop row
         clamp_mask[offsets[r]:offsets[r] + int(region_sizes[r]) - 1] = True
-    rel, binned_cols, binned_deltas, n_tiles, capacity = \
-        pileup_kernel._bin_events(rows.astype(np.int32), cols, deltas,
-                                  total_rows)
-    return (rel, binned_cols, binned_deltas, ref_col, clamp_mask, n_tiles,
-            capacity // pileup_kernel.CHUNK_E, total_rows, offsets)
+    return rows, cols, deltas, ref_col, clamp_mask, total_rows, offsets
 
 
 def classify_regions_events(params, event_list, ref_channels,
                             descriptor_list, region_sizes,
                             compute_dtype=torch.float32, device=None):
     """Fused event flow over a batch of regions: events are shifted into
-    the strided layout and binned once on the host, and the histogram ->
-    windows -> classifier chain runs on `device`.
+    the strided layout on the host and uploaded as they are, and the
+    histogram -> windows -> classifier chain runs on `device`.
 
     event_list: per region (rows, cols, deltas); ref_channels: per region
     expanded reference channel values; region_sizes: expanded rows per
     region (region_size + 1, i.e. including the stop row).  Returns
     (K_total, 3) float32 probabilities on `device`."""
     device = resolve_device(device)
-    (rel, cols, deltas, ref_col, clamp_mask, n_tiles, n_chunks, total_rows,
-     offsets) = pack_events(event_list, ref_channels, region_sizes)
+    rows, cols, deltas, ref_col, clamp_mask, total_rows, offsets = \
+        pack_events(event_list, ref_channels, region_sizes)
     merged, k_total = _merge_descriptors(descriptor_list, offsets,
                                          device=device)
     probs = _fused_events_classify(
-        params_from_jax(params, device), upload(rel, device),
+        params_from_jax(params, device), upload(rows, device),
         upload(cols, device), upload(deltas, device),
         upload(ref_col, device), upload(clamp_mask, device), merged,
-        n_tiles=n_tiles, n_chunks=n_chunks, total_rows=total_rows,
-        compute_dtype=compute_dtype)
+        total_rows=total_rows, compute_dtype=compute_dtype)
     return probs[:k_total]
 
 

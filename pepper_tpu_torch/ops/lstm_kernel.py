@@ -397,23 +397,26 @@ def bilstm_fused_static(x_parts, params, acc_scale=None, rec_scale=None,
 # lstm_recurrence
 
 
-def lstm_recurrence_reference(xw, w_hh):
+def lstm_recurrence_reference(xw, w_hh, reverse=False):
     """Plain twin of the recurrence kernel: f32 state, h rounded to xw's
-    dtype before the recurrent product, output in xw's dtype."""
+    dtype before the recurrent product, output in xw's dtype; reverse=True
+    steps t = T-1..0."""
     T, B, _ = xw.shape
     dtype = xw.dtype
     out = torch.empty((T, B, w_hh.shape[0]), dtype=dtype, device=xw.device)
     return _recurrence_twin(xw.float(), _float_recurrent(w_hh),
-                            lambda h: h.to(dtype), out)
+                            lambda h: h.to(dtype), out, reverse)
 
 
-def lstm_recurrence(xw, w_hh):
-    """LSTM recurrence over precomputed input projections, forward only
-    (the caller flips for the backward direction).  xw: (T, B, 4H)
-    float32 or bfloat16; w_hh: (H, 4H) in xw's dtype.  Returns (T, B, H)
-    in xw's dtype."""
+def lstm_recurrence(xw, w_hh, reverse=False):
+    """LSTM recurrence over precomputed input projections.  xw: (T, B, 4H)
+    float32 or bfloat16; w_hh: (H, 4H) in xw's dtype; reverse=True runs
+    the backward direction by stepping t = T-1..0 (what flipping xw,
+    running forward and flipping the output computes).  Returns (T, B, H)
+    in natural order, in xw's dtype.  In bfloat16 it runs on the tensor
+    cores (csrc/lstm_core.cuh); float32 keeps the scalar body."""
     if xw.device.type == "cpu":
-        return lstm_recurrence_reference(xw, w_hh)
+        return lstm_recurrence_reference(xw, w_hh, reverse=reverse)
     require_cuda(xw, "lstm_recurrence")
     if xw.dtype not in FLOATS or w_hh.dtype != xw.dtype:
         raise TypeError(f"lstm_recurrence takes float32 or bfloat16 xw and "
@@ -428,8 +431,9 @@ def lstm_recurrence(xw, w_hh):
     out = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
     if T == 0 or B == 0:
         return out
+    xw, w_hh = aligned(xw), aligned(w_hh)
     launch("lstm_recurrence", xw.device, DTYPE_CODE[xw.dtype], ptr(xw),
-           ptr(w_hh), ptr(out), T, B, H)
+           ptr(w_hh), ptr(out), T, B, H, int(bool(reverse)))
     lstm_recurrence.launches += 1
     return out
 

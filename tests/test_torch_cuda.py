@@ -150,6 +150,14 @@ def test_core_plan_covers_the_batch_in_one_wave(device):
                 assert ctas == 4 and rows in (16, 32, 48, 96, 144)
                 assert rows * (clusters - 1) < B <= rows * clusters
                 assert dirs * clusters <= at_once or rows == 144
+        # lstm_recurrence's instance of the core, over a bfloat16 xw
+        out = (ctypes.c_int * 4)()
+        cuda_build.launch("lstm_recurrence_plan", device, B, H,
+                          ctypes.addressof(out))
+        rows, ctas, clusters, at_once = out
+        assert ctas == 4 and rows in (16, 32, 48, 96, 144)
+        assert rows * (clusters - 1) < B <= rows * clusters
+        assert clusters <= at_once or rows == 144
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -339,21 +347,67 @@ def test_static_kernel_refuses_what_it_cannot_take(device, case):
     assert lstm_kernel.lstm_direction_fused_static.launches == before
 
 
+def _lstm_recurrence_inputs(device, dtype, B, hidden=H, seed=None):
+    gen = torch.Generator().manual_seed(B if seed is None else seed)
+    xw = ((torch.rand(33, B, 4 * hidden, generator=gen) * 2 - 1)).to(
+        device, dtype)
+    w_hh = ((torch.rand(hidden, 4 * hidden, generator=gen) * 2 - 1)
+            / 16).to(device, dtype)
+    return xw, w_hh
+
+
+def _check_recurrence(xw, w_hh, dtype):
+    """Both directions of lstm_recurrence against the twin, one launch
+    each."""
+    T, B, _ = xw.shape
+    for reverse in (False, True):
+        before = lstm_kernel.lstm_recurrence.launches
+        out = lstm_kernel.lstm_recurrence(xw, w_hh, reverse=reverse)
+        assert lstm_kernel.lstm_recurrence.launches == before + 1
+        ref = lstm_kernel.lstm_recurrence_reference(xw, w_hh,
+                                                    reverse=reverse)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == (T, B, w_hh.shape[0])
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=BARS[dtype], rtol=0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B", [1, 37, 512])
-def test_recurrence_kernel_matches_twin(device, dtype, B):
-    gen = torch.Generator().manual_seed(B)
-    xw = ((torch.rand(33, B, 4 * H, generator=gen) * 2 - 1)).to(device, dtype)
-    w_hh = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) / 16).to(device,
-                                                                    dtype)
-    before = lstm_kernel.lstm_recurrence.launches
-    out = lstm_kernel.lstm_recurrence(xw, w_hh)
-    assert lstm_kernel.lstm_recurrence.launches == before + 1
-    ref = lstm_kernel.lstm_recurrence_reference(xw, w_hh)
-    torch.cuda.synchronize()
-    assert out.dtype == dtype and out.shape == (33, B, H)
-    torch.testing.assert_close(out.float(), ref.float(), atol=BARS[dtype],
-                               rtol=0)
+@pytest.mark.parametrize("hidden", [64, 128, 256])
+@pytest.mark.parametrize("B", [1, 37, 512, 4096])
+def test_recurrence_kernel_matches_twin(device, dtype, B, hidden):
+    """bfloat16 on the tensor-core core (1, 2 and 4 CTAs a cluster; the
+    plan's 16-row clusters and its 144-row ones at 4096), float32 on the
+    scalar body; both directions."""
+    _check_recurrence(*_lstm_recurrence_inputs(device, dtype, B, hidden),
+                      dtype)
+
+
+def test_recurrence_kernel_serves_unaligned_operands(device):
+    """A bfloat16 xw or W_hh off the 16-byte boundary is copied, not
+    refused."""
+    xw, w_hh = _lstm_recurrence_inputs(device, torch.bfloat16, 37)
+    _check_recurrence(_unaligned(xw), _unaligned(w_hh), torch.bfloat16)
+
+
+@pytest.mark.parametrize("hidden", [32, 96, 128, 256])
+def test_lstm_libraries_share_a_process_at_each_width(device, hidden):
+    """The three libraries that instantiate lstm_core.cuh, loaded in one
+    process, each launch at every cluster size (1, 2, 2 and 4 CTAs) and
+    agree with their twins: the core's launcher statics stay each
+    library's own."""
+    dtype = torch.bfloat16
+    xs, ws, b, w_hh = _inputs(device, dtype, (hidden, hidden), 37,
+                              hidden=hidden)
+    _check_direction((xs, ws, b, w_hh), dtype, 37, hidden)
+    dual = (xs, ws, ws, b, b, w_hh, w_hh)
+    outs = lstm_kernel.bilstm_dual_fused(*dual)
+    refs = lstm_kernel.bilstm_dual_fused_reference(*dual)
+    for out, ref in zip(outs, refs):
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=BARS[dtype], rtol=0)
+    _check_recurrence(*_lstm_recurrence_inputs(device, dtype, 37, hidden),
+                      dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -704,13 +758,62 @@ def test_histogram_kernel_matches_twin_exactly(device, n_events, n_rows,
     rel[0, -1], bc[0, 0] = 400, 70
     slabs = [torch.from_numpy(a).to(device) for a in (rel, bc, bd)]
     n_chunks = capacity // pk.CHUNK_E
-    before = pk.pileup_histogram.launches
+    before = pk.pileup_histogram_events.launches
     out = pk.pileup_histogram(*slabs, n_tiles, n_chunks)
-    assert pk.pileup_histogram.launches == before + 1
+    assert pk.pileup_histogram_events.launches == before + 1
     ref = pk.pileup_histogram_reference(*slabs, n_tiles, n_chunks)
     torch.cuda.synchronize()
     assert out.dtype == torch.int32 and out.shape == ref.shape
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("case", [
+    "emission", "row_sorted", "skewed", "one_key", "outside", "tail_1",
+    "tail_2", "tail_3", "misaligned", "empty"])
+def test_events_kernel_matches_twin_exactly(device, case):
+    """The flat-event kernel against its twin, exact integer equality:
+    events in emission-like order (runs of consecutive rows, as a read's
+    bases), sorted by row, half of them in one 256-row tile, every event on
+    one (row, col), rows and columns outside the image, N not a multiple
+    of 4, views that start off the 16-byte boundary, and no events (no
+    launch)."""
+    from pepper_tpu_torch.ops import pileup_kernel as pk
+
+    n_rows, n_cols = 20000, 26
+    rng = np.random.RandomState(len(case))
+    n_events = {"tail_1": 40001, "tail_2": 40002, "tail_3": 40003,
+                "empty": 0}.get(case, 400000)
+    rows, cols, deltas = _events(n_events, n_rows, seed=n_events)
+    if case == "emission":
+        starts = rng.randint(0, n_rows - 1000, n_events // 1000 + 1)
+        rows = (np.repeat(starts, 1000)[:n_events]
+                + np.tile(np.arange(1000), n_events // 1000 + 1)[:n_events]
+                ).astype(np.int32)
+    elif case == "row_sorted":
+        order = np.argsort(rows, kind="stable")
+        rows, cols, deltas = rows[order], cols[order], deltas[order]
+    elif case == "skewed":
+        rows[: n_events // 2] %= pk.TILE_R
+    elif case == "one_key":
+        rows[:], cols[:] = 7, 3
+    elif case == "outside":
+        rows[::7] = rng.choice([-1, -500, n_rows, n_rows + 9, 2 ** 31 - 1],
+                               len(rows[::7]))
+        cols[::5] = rng.choice([-1, n_cols, 63, 64, 1000], len(cols[::5]))
+    tensors = [torch.from_numpy(a).to(device) for a in (rows, cols, deltas)]
+    if case == "misaligned":
+        tensors = [torch.cat([t[:k], t])[k:] for k, t in zip((1, 2, 3),
+                                                             tensors)]
+        assert all(t.data_ptr() % 16 for t in tensors)
+    before = pk.pileup_histogram_events.launches
+    out = pk.pileup_histogram_events(*tensors, n_rows, n_cols)
+    assert pk.pileup_histogram_events.launches == before + (n_events > 0)
+    ref = pk.pileup_histogram_events_reference(*tensors, n_rows, n_cols)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.int32 and out.shape == (n_rows, n_cols)
+    assert torch.equal(out, ref)
+    if case == "one_key":
+        assert int(out[7, 3]) == int(deltas.sum())
 
 
 @pytest.mark.parametrize("n_events,n_rows", [(10, 40), (50000, 4096),
@@ -720,9 +823,9 @@ def test_accumulate_cuda_matches_numpy(device, n_events, n_rows):
 
     rows, cols, deltas = _events(n_events, n_rows, seed=1)
     shape = (n_rows + 1, 26)
-    before = pk.pileup_histogram.launches
+    before = pk.pileup_histogram_events.launches
     out = pk.accumulate_cuda(rows, cols, deltas, shape)
-    assert pk.pileup_histogram.launches == before + (n_events > 0)
+    assert pk.pileup_histogram_events.launches == before + (n_events > 0)
     np.testing.assert_array_equal(out, pk.accumulate_numpy(rows, cols,
                                                            deltas, shape))
     np.testing.assert_array_equal(
@@ -786,11 +889,12 @@ def test_device_flows_on_card_match_cpu(device, dtype, atol):
     }
     results = {}
     for name, run in runs.items():
-        hist, lstm = pk.pileup_histogram.launches, \
+        hist, lstm = pk.pileup_histogram_events.launches, \
             lstm_kernel.lstm_direction_fused.launches
         probs = run(device)
         torch.cuda.synchronize()
-        assert pk.pileup_histogram.launches - hist == (name == "events")
+        assert pk.pileup_histogram_events.launches - hist == (
+            name == "events")
         assert lstm_kernel.lstm_direction_fused.launches - lstm == 4
         cpu = run("cpu")
         assert probs.shape == cpu.shape == (sum(len(d.base_index)

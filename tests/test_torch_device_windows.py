@@ -245,24 +245,32 @@ def test_classify_regions_flows_match_jax(tmp_path, flow):
 
 def test_events_flow_launch_count_and_capacity(tmp_path):
     """On the CPU the flow runs the histogram's twin: no launch is
-    counted; its binning gives every tile the fullest tile's capacity in
-    whole chunks, and no more."""
+    counted.  pack_events hands the kernel every event once, unsorted and
+    unpadded: the regions' events concatenated in order, rows shifted by
+    each region's offset, int32, in an image of the regions' strides."""
     regions = _region_batch(tmp_path)
-    packed = dw.pack_events([r["events"] for r in regions],
-                            [r["ref"] for r in regions],
-                            [r["host"].region_rows for r in regions])
-    rel, n_tiles, n_chunks = packed[0], packed[5], packed[6]
-    fullest = max(int((tile >= 0).sum()) for tile in rel)
-    assert n_chunks == max(1, -(-fullest // pileup_kernel.CHUNK_E))
-    assert rel.shape == (n_tiles, n_chunks * pileup_kernel.CHUNK_E)
-    assert packed[7] == 3 * dw.pack_regions([41, 41, 41])[0]
-    before = pileup_kernel.pileup_histogram.launches
-    dw.classify_regions_events(_params(1), [r["events"] for r in regions],
+    events = [r["events"] for r in regions]
+    sizes = [r["host"].region_rows for r in regions]
+    rows, cols, deltas, ref_col, clamp_mask, total_rows, offsets = \
+        dw.pack_events(events, [r["ref"] for r in regions], sizes)
+    stride, expected_offsets = dw.pack_regions(sizes)
+    np.testing.assert_array_equal(offsets, expected_offsets)
+    assert total_rows == 3 * stride == 3 * dw.pack_regions([41, 41, 41])[0]
+    for name, got, want in (
+            ("rows", rows, [np.asarray(e[0], np.int64) + offsets[r]
+                            for r, e in enumerate(events)]),
+            ("cols", cols, [e[1] for e in events]),
+            ("deltas", deltas, [e[2] for e in events])):
+        assert got.dtype == np.int32, name
+        np.testing.assert_array_equal(got, np.concatenate(want),
+                                      err_msg=name)
+    assert ref_col.shape == clamp_mask.shape == (total_rows,)
+    before = pileup_kernel.pileup_histogram_events.launches
+    dw.classify_regions_events(_params(1), events,
                                [r["ref"] for r in regions],
-                               [r["descriptors"] for r in regions],
-                               [r["host"].region_rows for r in regions],
+                               [r["descriptors"] for r in regions], sizes,
                                device="cpu")
-    assert pileup_kernel.pileup_histogram.launches == before
+    assert pileup_kernel.pileup_histogram_events.launches == before
 
 
 def test_device_runner_matches_jax_runner(tmp_path):

@@ -106,18 +106,20 @@ def test_dual_twin_matches_jax_kernel_at_full_width(layer, dtype):
 
 
 @pytest.mark.parametrize("name", ["lstm_direction_fused",
-                                  "bilstm_dual_fused"])
+                                  "bilstm_dual_fused", "lstm_recurrence"])
 def test_float_lstm_kernels_build_with_the_core(name):
-    """Both float LSTM kernels include the bfloat16 core, so it enters their
+    """The float LSTM kernels include the bfloat16 core, so it enters their
     build stamps; the library of lstm_direction_fused also exports the
     projection alone."""
     from pepper_tpu_torch.ops import cuda_build
 
     headers, argtypes = cuda_build.KERNELS[name]
     assert headers == ("lstm_core.cuh", "lstm_cell.cuh")
-    # the xw scratch(es) sit before the outputs
+    # the xw scratch(es) sit before the outputs; lstm_recurrence takes
+    # `reverse` before the stream
     assert len(argtypes) == {"lstm_direction_fused": 16,
-                             "bilstm_dual_fused": 21}[name]
+                             "bilstm_dual_fused": 21,
+                             "lstm_recurrence": 9}[name]
 
 
 def test_lstm_entries_are_bound_with_their_argument_types():
@@ -141,6 +143,8 @@ def test_lstm_entries_are_bound_with_their_argument_types():
         # dtype, xw_f, xw_b, w_hh_f, w_hh_b, out_f, out_b, steps, B, H,
         # stream
         "bilstm_dual_fused_recurrence": [I, P, P, P, P, P, P, I, I, I, P],
+        # B, H, int out[4], stream
+        "lstm_recurrence_plan": [I, I, P, P],
     }
     for name, expected in entries.items():
         kernel, argtypes = cuda_build.ENTRIES[name]

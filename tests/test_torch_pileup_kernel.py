@@ -1,9 +1,11 @@
 """The port's pileup histogram on the CPU against the JAX package's: the host
-binning byte for byte, every matrix backend (numpy golden, the plain
-torch scatter, the kernel's twin) equal to JAX's numpy golden, XLA scatter
-and Pallas kernel (interpret mode off the TPU) on the same events, and the
-event-stream windows of RegionalSummary(matrix_backend=...) equal to the
-in-place walker's.  All comparisons are exact: the sums are integers."""
+binning byte for byte, the kernel's twin on flat events in any order (and
+on the slabs' flat events) equal to JAX's numpy golden and Pallas kernel
+(interpret mode off the TPU), every matrix backend (numpy golden, the
+plain torch scatter, the kernel's twin) equal to JAX's numpy golden, XLA
+scatter and Pallas kernel on the same events, and the event-stream windows
+of RegionalSummary(matrix_backend=...) equal to the in-place walker's.
+All comparisons are exact: the sums are integers."""
 
 import functools
 
@@ -36,7 +38,7 @@ def test_constants_match_jax():
     assert (pk.TILE_R, pk.CHUNK_E, pk.COL_PAD, pk._SUBCHUNKS,
             pk._SUBCHUNK_E) == (jpk.TILE_R, jpk.CHUNK_E, jpk.COL_PAD,
                                 jpk._SUBCHUNKS, jpk._SUBCHUNK_E)
-    assert pk.KERNELS == ("pileup_histogram",)
+    assert pk.KERNELS == ("pileup_histogram_events",)
     assert set(pk.BACKENDS) == {"numpy", "torch", "cuda"}
     assert pk.get_backend("cuda") is pk.accumulate_cuda
 
@@ -76,18 +78,92 @@ def test_backends_equal_jax_backends(n_events, n_rows):
 def test_empty_events():
     shape = (10, 26)
     empty = np.zeros(0, np.int32)
-    before = pk.pileup_histogram.launches
+    before = pk.pileup_histogram_events.launches
     for name, fn in _port_backends().items():
         out = fn(empty, empty, empty, shape)
         assert out.shape == shape and out.dtype == np.int64, name
         assert not out.any(), name
-    assert pk.pileup_histogram.launches == before
+    assert pk.pileup_histogram_events.launches == before
 
 
-def test_twin_equals_pallas_kernel_on_slabs():
-    """The tensor-level twin on the binned slabs equals the TPU kernel's
-    full padded (n_tiles * 256, 64) output, sentinel slots, out-of-range
-    rows and columns included."""
+def _ordered(events, order):
+    rows, cols, deltas = events
+    if order == "row_sorted":
+        idx = np.argsort(rows, kind="stable")
+    elif order == "reversed":
+        idx = np.arange(len(rows))[::-1]
+    else:
+        idx = np.arange(len(rows))
+    return rows[idx], cols[idx], deltas[idx]
+
+
+def _events_twin(rows, cols, deltas, shape):
+    out = pk.pileup_histogram_events_reference(
+        *(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+          for a in (rows, cols, deltas)), *shape)
+    assert out.dtype == torch.int32 and tuple(out.shape) == shape
+    return out.numpy()
+
+
+@pytest.mark.parametrize("order", ["drawn", "row_sorted", "reversed"])
+@pytest.mark.parametrize("n_events", [0, 1, 3, 4097])
+def test_events_twin_equals_jax(n_events, order):
+    """The flat-event twin in the order drawn, sorted by row and reversed
+    equals JAX's numpy golden and its Pallas kernel (which bins them)."""
+    n_rows = 300
+    rows, cols, deltas = _ordered(
+        random_events(n_events, n_rows, 26, seed=n_events + 11), order)
+    shape = (n_rows, 26)
+    ours = _events_twin(rows, cols, deltas, shape)
+    np.testing.assert_array_equal(
+        ours, jpk.accumulate_numpy(rows, cols, deltas, shape))
+    np.testing.assert_array_equal(
+        ours, jpk.accumulate_pallas(rows, cols, deltas, shape))
+
+
+@pytest.mark.parametrize("order", ["drawn", "row_sorted"])
+def test_events_outside_image_add_nothing(order):
+    """Events with a row or column outside the image add nothing: against
+    the numpy golden of the events inside it and, for the rows that JAX's
+    binning takes (below the last tile's end), its Pallas kernel."""
+    n_rows, shape = 300, (300, 26)
+    inside = random_events(2000, n_rows, 26, seed=5)
+    rng = np.random.RandomState(6)
+    outside_cols = (rng.randint(0, 512, 300).astype(np.int32),
+                    rng.choice([-7, -1, 26, 63, 64, 1000], 300)
+                    .astype(np.int32),
+                    rng.choice([-1, 1], 300).astype(np.int32))
+    outside_rows = (rng.randint(n_rows, 512, 300).astype(np.int32),
+                    rng.randint(0, 26, 300).astype(np.int32),
+                    rng.choice([-1, 1], 300).astype(np.int32))
+    admissible = _ordered(tuple(np.concatenate(p) for p in zip(
+        inside, outside_cols, outside_rows)), order)
+    golden = jpk.accumulate_numpy(*inside, shape)
+    np.testing.assert_array_equal(_events_twin(*admissible, shape), golden)
+    np.testing.assert_array_equal(jpk.accumulate_pallas(*admissible, shape),
+                                  golden)
+    far = (np.array([-1, -300, 2 ** 20, 2 ** 31 - 1], np.int32),
+           np.array([0, 3, 5, 25], np.int32), np.ones(4, np.int32))
+    everything = _ordered(tuple(np.concatenate(p) for p in zip(
+        admissible, far)), order)
+    np.testing.assert_array_equal(_events_twin(*everything, shape), golden)
+
+
+def test_events_twin_rejects_bad_events():
+    good = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        pk.pileup_histogram_events(good, good.long(), good, 3, 26)
+    with pytest.raises(ValueError, match="one length"):
+        pk.pileup_histogram_events(good, good[:3], good, 3, 26)
+    with pytest.raises(ValueError, match="empty"):
+        pk.pileup_histogram_events(good, good, good, 0, 26)
+
+
+def _slab_case():
+    """Binned slabs with a few slots the kernel must skip (rows and columns
+    out of range), as the TPU kernel's (n_tiles * n_chunks, 8, 256)
+    blocks, and the TPU kernel's full padded (n_tiles * 256, 64) output on
+    them (interpret mode)."""
     import jax
     import jax.experimental.pallas as pl
     import jax.numpy as jnp
@@ -95,7 +171,6 @@ def test_twin_equals_pallas_kernel_on_slabs():
     rows, cols, deltas = random_events(9000, 700, 64, seed=3)
     rel, bc, bd, n_tiles, capacity = jpk._bin_events(rows, cols, deltas, 701)
     n_chunks = capacity // jpk.CHUNK_E
-    # a few slots the kernel must skip: rows and columns out of range
     rel[0, -3:] = [-5, 256, 300]
     bc[1, :2] = [-1, 64]
 
@@ -111,11 +186,32 @@ def test_twin_equals_pallas_kernel_on_slabs():
         out_shape=jax.ShapeDtypeStruct((n_tiles * jpk.TILE_R, jpk.COL_PAD),
                                        jnp.float32),
         interpret=True)(to_blocks(rel), to_blocks(bc), to_blocks(bd)))
-    ours = pk.pileup_histogram(*(torch.from_numpy(to_blocks(a))
-                                 for a in (rel, bc, bd)), n_tiles, n_chunks)
+    slabs = [torch.from_numpy(to_blocks(a)) for a in (rel, bc, bd)]
+    return slabs, n_tiles, n_chunks, theirs.astype(np.int32)
+
+
+def test_twin_equals_pallas_kernel_on_slabs():
+    """The tensor-level twin on the binned slabs equals the TPU kernel's
+    full padded (n_tiles * 256, 64) output, sentinel slots, out-of-range
+    rows and columns included."""
+    slabs, n_tiles, n_chunks, theirs = _slab_case()
+    ours = pk.pileup_histogram(*slabs, n_tiles, n_chunks)
     assert ours.dtype == torch.int32
     assert ours.shape == (n_tiles * pk.TILE_R, pk.COL_PAD)
-    np.testing.assert_array_equal(ours.numpy(), theirs.astype(np.int32))
+    np.testing.assert_array_equal(ours.numpy(), theirs)
+
+
+def test_slab_events_equal_pallas_kernel_on_slabs():
+    """What the slab wrapper hands the kernel on the card: the slots as
+    flat events (the sentinel and out-of-range rows become -1) give the
+    TPU kernel's padded image through the flat-event twin."""
+    slabs, n_tiles, n_chunks, theirs = _slab_case()
+    rows, cols, deltas = pk.slab_events(*slabs, n_tiles)
+    assert rows.dtype == torch.int32 and rows.shape == cols.shape
+    assert int((rows < 0).sum()) >= int((slabs[0] < 0).sum())
+    ours = pk.pileup_histogram_events_reference(
+        rows, cols, deltas, n_tiles * pk.TILE_R, pk.COL_PAD)
+    np.testing.assert_array_equal(ours.numpy(), theirs)
 
 
 def test_histogram_rejects_bad_slabs():

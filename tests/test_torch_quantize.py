@@ -235,6 +235,29 @@ def test_recurrence_twin_matches_jax_kernel(T, B, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,B", [(33, 8), (7, 16)])
+def test_recurrence_twin_reverse_matches_jax_flipped_kernel(T, B, dtype):
+    """reverse=True steps t = T-1..0: what the JAX package's callers get
+    from flipping xw, running lstm_recurrence_pallas forward and flipping
+    its output back."""
+    jdtype, tdtype, atol = DTYPES[dtype]
+    rng = np.random.RandomState(T * B)
+    xw = rng.randn(T, B, 4 * H).astype(np.float32)
+    w_hh = rng.uniform(-0.2, 0.2, (H, 4 * H)).astype(np.float32)
+    expected = jnp.flip(jk.lstm_recurrence_pallas(
+        jnp.flip(jnp.asarray(xw, jdtype), 0), jnp.asarray(w_hh, jdtype),
+        interpret=True), 0)
+    actual = lstm_kernel.lstm_recurrence_reference(
+        _torch(xw, tdtype), _torch(w_hh, tdtype), reverse=True)
+    assert actual.dtype == tdtype and actual.shape == (T, B, H)
+    np.testing.assert_allclose(actual.float().numpy(),
+                               np.asarray(expected, np.float32), atol=atol)
+    flipped = lstm_kernel.lstm_recurrence_reference(
+        _torch(xw[::-1], tdtype), _torch(w_hh, tdtype)).flip(0)
+    assert torch.equal(actual, flipped)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("parts", [(26,), (H, H)], ids=["encoder",
                                                         "decoder"])
 def test_dual_twin_matches_jax_kernel(parts, dtype):
