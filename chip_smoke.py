@@ -29,7 +29,13 @@ Phases, each printing one JSON line:
                bfloat16 and float32) and decoder (the encoder's int8 codes,
                2x256), static and static_rec, B=4096 and B=37, both
                directions; codes within 1 and at least 99.9% (static) /
-               99.5% (static_rec) equal; per-launch times beside the bound
+               99.5% (static_rec) equal; per-launch times in bfloat16 at
+               B=4096 (queued, and unqueued beside them) beside the bound,
+               the decoder's int8 projection and recurrence apart through
+               the library's entries (xw equal to the exact int32 product,
+               the two launches' codes equal to the kernel's), the core's
+               launch plan, row 1's bfloat16 kernel at the same shapes, and
+               ptxas's registers and spills of the library's entries
   6 kernel_recurrence
                lstm_recurrence against its twin, xw (33, B, 1024) in
                bfloat16 (atol 2e-2) and float32 (atol 1e-5), B=4096, 37 and
@@ -78,12 +84,14 @@ Phases, each printing one JSON line:
                gru_direction_fused_static with codes within 1 and at least
                99.9% equal and hT within 1e-5 (float32 mode) or 2e-2
                (bfloat16 W_hh); per-launch times at B=32, 128, 512 and 4096
-               (the static kernel at 128 and 4096) beside the bound, and
+               (the static kernel at 128, 4096 and 37) beside the bound, and
                cuDNN's torch.nn.GRU (for the recurrence: with W_ih = I on
-               xw, checked against the twin); the fused kernel's input
-               projection and recurrence timed apart; ptxas's registers,
-               static shared memory and spills of each entry of the two
-               redesigned kernels
+               xw, checked against the twin); both fused kernels' input
+               projection and recurrence timed apart (the static one's
+               int8 projection equal to the exact int32 product, its two
+               launches' codes and hT equal to the kernel's); ptxas's
+               registers, static shared memory and spills of each entry of
+               the three kernels on gru_core.cuh
  11 consensus  512 chunks through the consensus scan at the CLI's batch of
                128 in the float, static and recurrence modes, kernels
                against the twin path on the card (votes within the stated
@@ -679,19 +687,103 @@ def phase_kernel_static(device, card):
         dec = static_weights(gen, "decoder", dtype, rec_int8, device)
         for layer, xs, w in (("encoder", (x,), enc),
                              ("decoder", streams, dec)):
-            timings[f"{layer}_{mode}_bfloat16"] = {
-                "kernel_ms": cuda_ms(lambda: run(kernel, xs, w,
-                                                 out_int8=True)),
+            entry = {
+                "kernel_ms": device_ms(lambda: run(kernel, xs, w,
+                                                   out_int8=True)),
+                "kernel_ms_unqueued": cuda_ms(lambda: run(kernel, xs, w,
+                                                          out_int8=True)),
                 "plain_ms": cuda_ms(lambda: run(twin, xs, w, out_int8=True),
                                     iters=5),
                 "bound_ms": static_bound_ms(layer, B_SERVE, dtype, rec_int8),
+                "plan": static_plan(device, B_SERVE, layer == "encoder",
+                                    rec_int8),
             }
+            if layer == "decoder":
+                entry.update(static_split(device, xs, w, B_SERVE, rec_int8,
+                                          run(kernel, xs, w, out_int8=True)))
+            else:
+                # the encoder's features join the step: one launch
+                entry.update(projection_ms=0.0,
+                             recurrence_ms=entry["kernel_ms"])
+            timings[f"{layer}_{mode}_bfloat16"] = entry
+    # row 1's bfloat16 kernel at the same shapes, in the same run
+    for layer in ("encoder", "decoder"):
+        xs, ws, b, w_hh = lstm_inputs(gen, layer, B_SERVE, dtype, device)
+        timings[f"{layer}_float_bfloat16"] = {"kernel_ms": device_ms(
+            lambda: lstm_kernel.lstm_direction_fused(xs, ws, b, w_hh))}
     emit({"phase": "kernel_static",
           "kernel_names": ["lstm_direction_fused_static"], "card": card,
           "max_code_diff": max_code_diff, "equal_share": codes,
           "float_output_max_abs_err": float_err, "B": B_SERVE,
+          "ptxas": ptxas_entries("lstm_direction_fused_static"),
           "per_launch": timings})
     return max_code_diff, codes, timings
+
+
+def static_plan(device, B, fused, rec_int8):
+    """The LSTM core's plan for a static launch, as the static library
+    reports it (launches nothing)."""
+    import ctypes
+
+    from pepper_tpu_torch.ops import cuda_build
+
+    out = (ctypes.c_int * 4)()
+    cuda_build.launch("lstm_direction_fused_static_plan", device, B, H,
+                      int(fused), int(rec_int8), ctypes.addressof(out))
+    return dict(zip(("rows", "cluster_ctas", "clusters", "max_clusters"),
+                    out))
+
+
+def static_split(device, xs, w, B, rec_int8, codes):
+    """The static decoder's two launches through the library's entries: the
+    int8 projection into a float32 xw (checked against the exact int32
+    product) and the core's recurrence over it (its codes must equal the
+    kernel's), timed apart, with each launch's bound: the projection's the
+    f32 xw it writes, the recurrence's xw in and codes out against its
+    products."""
+    import torch
+    from pepper_tpu_torch.ops import cuda_build
+    from pepper_tpu_torch.ops.int8_matmul import int8_matmul
+
+    G = 4 * H
+    w_t = cuda_build.int8_kmajor(torch.cat(w["w_ih"]))
+    w_rec = cuda_build.int8_kmajor(w["w_hh"]) if rec_int8 else w["w_hh"]
+    xw = torch.empty((T, B, G), device=device)
+    out = torch.empty((T, B, H), dtype=torch.int8, device=device)
+
+    def project():
+        cuda_build.launch("lstm_direction_fused_static_projection", device,
+                          xs[0].data_ptr(), xs[1].data_ptr(), H, H,
+                          w_t.data_ptr(), w["acc_scale"].data_ptr(),
+                          w["b"].data_ptr(), xw.data_ptr(), T, B, H)
+
+    def recur():
+        cuda_build.launch("lstm_direction_fused_static_recurrence", device,
+                          2 if rec_int8 else 1, xw.data_ptr(),
+                          w_rec.data_ptr(),
+                          w["rec_scale"].data_ptr() if rec_int8 else None,
+                          out.data_ptr(), T, B, H, 0)
+
+    project()
+    recur()
+    acc = sum(int8_matmul(x.reshape(T * B, H), part)
+              for x, part in zip(xs, w["w_ih"]))
+    torch.cuda.synchronize()
+    check(torch.equal(xw.reshape(T * B, G),
+                      w["b"] + acc.float() * w["acc_scale"]),
+          "static projection entry: xw differs from the exact product")
+    check(torch.equal(out, codes),
+          "static projection + recurrence differ from the kernel")
+    rec_ops = 2 * T * B * H * G
+    return {
+        "projection_ms": device_ms(project),
+        "recurrence_ms": device_ms(recur),
+        "projection_bound_ms": bound_ms(2 * T * B * 2 * H * G,
+                                        T * B * 2 * H + 2 * H * G
+                                        + 4 * T * B * G, PEAK_INT8_OPS),
+        "recurrence_bound_ms": bound_ms(
+            rec_ops, 4 * T * B * G + H * G * (1 if rec_int8 else 2)
+            + T * B * H, PEAK_INT8_OPS if rec_int8 else PEAK_BF16_FLOPS)}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1565,16 +1657,89 @@ def phase_kernel_gru(device, card):
                     *args, acc_scale=acc_scale)),
                 "plain_ms": device_ms(lambda: static_twin(
                     *args, acc_scale=acc_scale), iters=3),
-                "bound_ms": max(seconds, s_bytes / PEAK_BYTES) * 1e3}
+                "bound_ms": max(seconds, s_bytes / PEAK_BYTES) * 1e3,
+                **gru_static_split(device, args, acc_scale,
+                                   static(*args, acc_scale=acc_scale),
+                                   device_ms)}
     emit({"phase": "kernel_gru", "kernel_names": list(gru_kernel.KERNELS),
           "card": card, "max_abs_err": err, "max_code_diff": max_code_diff,
           "code_equal_share": code_share,
           "saturated_share_float32": {k: n / total for k, (n, total)
                                       in saturated.items()},
           "ptxas": {name: ptxas_entries(name)
-                    for name in ("gru_direction_fused", "gru_recurrence")},
+                    for name in ("gru_direction_fused", "gru_recurrence",
+                                 "gru_direction_fused_static")},
           "per_launch_float32": timings})
     return err, max_code_diff, timings
+
+
+def gru_static_split(device, args, acc_scale, result, device_ms):
+    """The static GRU kernel's two launches through its library's entries:
+    the input projection into a float32 xw (int8 x on the tensor cores,
+    checked against the exact int32 product; float x the f32 product) and
+    the core's recurrence over it (codes and hT must equal the kernel's),
+    timed apart, with each launch's bound."""
+    import torch
+    from pepper_tpu_torch.ops import cuda_build
+    from pepper_tpu_torch.ops.int8_matmul import int8_matmul
+
+    xs, ws, b_ih, w_hh, b_hh, h0 = args
+    B, G = xs[0].shape[1], 3 * GRU_H
+    x_int8 = xs[0].dtype == torch.int8
+    two = len(xs) > 1
+    w0 = cuda_build.int8_kmajor(torch.cat(ws)) if x_int8 else ws[0]
+    w1 = ws[1] if two and not x_int8 else None
+    xw = torch.empty((GRU_T, B, G), device=device)
+    out = torch.empty((GRU_T, B, GRU_H), dtype=torch.int8, device=device)
+    h_out = torch.empty((B, GRU_H), device=device)
+
+    def project():
+        cuda_build.launch(
+            "gru_direction_fused_static_projection", device,
+            cuda_build.DTYPE_CODE[xs[0].dtype], xs[0].data_ptr(),
+            xs[1].data_ptr() if two else None, w0.data_ptr(),
+            w1.data_ptr() if w1 is not None else None, xs[0].shape[2],
+            xs[1].shape[2] if two else 0,
+            acc_scale.data_ptr() if x_int8 else None, b_ih.data_ptr(),
+            xw.data_ptr(), GRU_T, B, GRU_H)
+
+    def recur():
+        cuda_build.launch(
+            "gru_direction_fused_static_recurrence", device,
+            cuda_build.DTYPE_CODE[w_hh.dtype], xw.data_ptr(),
+            w_hh.float().data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+            out.data_ptr(), h_out.data_ptr(), GRU_T, B, GRU_H, 0)
+
+    project()
+    recur()
+    M = GRU_T * B
+    if x_int8:
+        acc = sum(int8_matmul(x.reshape(M, -1), w) for x, w in zip(xs, ws))
+        exact = acc.float() * acc_scale + b_ih
+        torch.cuda.synchronize()
+        check(torch.equal(xw.reshape(M, G), exact),
+              f"static GRU projection entry B={B}: xw differs from the "
+              "exact product")
+    else:
+        exact = (torch.cat(xs, -1).double().reshape(M, -1)
+                 @ torch.cat(ws).double() + b_ih.double())
+        torch.cuda.synchronize()
+        check((xw.reshape(M, G).double() - exact).abs().max().item() <= 1e-4,
+              f"static GRU projection entry B={B}")
+    check(torch.equal(out, result[0]) and torch.equal(h_out, result[1]),
+          f"static GRU projection + recurrence B={B} differ from the kernel")
+    F = sum(x.shape[2] for x in xs)
+    proj_ops, rec_ops = 2 * M * F * G, 2 * M * GRU_H * G
+    x_item = xs[0].element_size()
+    return {
+        "projection_ms": device_ms(project),
+        "recurrence_ms": device_ms(recur),
+        "projection_bound_ms": bound_ms(
+            proj_ops, M * F * x_item + F * G * x_item + 4 * M * G,
+            PEAK_INT8_OPS if x_int8 else PEAK_F32_FLOPS),
+        "recurrence_bound_ms": bound_ms(
+            rec_ops, 4 * M * G + 4 * GRU_H * G + 8 * B * GRU_H + M * GRU_H,
+            PEAK_F32_FLOPS)}
 
 
 # ---------------------------------------------------------------- phase 11
@@ -1600,8 +1765,8 @@ def polish_trees(device):
     host = {name: {k: v.numpy() for k, v in group.items()}
             for name, group in params.items()}
     return host, {None: params_from_jax(host, device),
-                  "static": params_from_jax(
-                      quantize.polish_quantize_params_static(host), device)}
+                  "static": quantize.polish_prepare_static(params_from_jax(
+                      quantize.polish_quantize_params_static(host), device))}
 
 
 def vote_margin(votes):
@@ -2394,8 +2559,14 @@ def main(argv=()) -> int:
     static_batch = {mode: batch(
         [static_launch[f"encoder_{mode}_bfloat16"],
          static_launch[f"decoder_{mode}_bfloat16"]],
-        ("kernel_ms", "plain_ms", "bound_ms"))
+        ("kernel_ms", "plain_ms", "bound_ms", "projection_ms",
+         "recurrence_ms"))
         for mode in ("static", "static_rec")}
+    # row 1's kernel at phase 5's shapes, in the same phase
+    float_same_run = batch(
+        [static_launch["encoder_float_bfloat16"],
+         static_launch["decoder_float_bfloat16"]], ("kernel_ms",))[
+        "kernel_ms"]
     rec_batch = {key: 4 * rec_launch[key]
                  for key in ("kernel_ms", "plain_ms", "bound_ms", "cudnn_ms")}
     # a GRU kernel's work on one consensus batch of B_POLISH chunks, with
@@ -2451,7 +2622,16 @@ def main(argv=()) -> int:
         "bound_by": "operations", "library_ms": None,
         "library_note": "no PyTorch call runs an LSTM on int8 input codes "
                         "with int8 weights and emits int8 codes",
+        "projection_ms": static_batch["static"]["projection_ms"],
+        "recurrence_ms": static_batch["static"]["recurrence_ms"],
         "static_rec": static_batch["static_rec"],
+        "row_1_ms_same_phase": float_same_run,
+        "status": "redesigned: the bfloat16 and int8 combinations with int8 "
+                  "codes out on lstm_core.cuh (the decoder's int8 "
+                  "projection and static_rec's int8 recurrence on the "
+                  "tensor cores, mma.sync m16n8k32), int8 weights relaid "
+                  "once per tree; float32 and the float epilogue keep the "
+                  "first body; earlier design: PERF.md section 6, row 2",
         "work": f"one batch of {B_SERVE} windows in the static mode, "
                 "bfloat16: encoder and decoder, forward and backward (4 "
                 "launches)",
@@ -2518,7 +2698,14 @@ def main(argv=()) -> int:
             "gru_direction_fused_static"],
         "max_abs_err": gru_code_diff, "max_abs_err_unit": "int8 code",
         "max_abs_err_hT": gru_err["static_hT"]["float32"],
-        **polish_batch("static", ("kernel_ms", "plain_ms", "bound_ms")),
+        **polish_batch("static", ("kernel_ms", "plain_ms", "bound_ms",
+                                  "projection_ms", "recurrence_ms")),
+        "row_5_ms_same_phase": polish_batch("fused", ("kernel_ms",))["ms"],
+        "status": "redesigned: on gru_core.cuh (one row a block at B=128, "
+                  "W_hh on chip) with int8 codes and the f32 hT out, the "
+                  "input projection out of the loop (int8 x on the tensor "
+                  "cores, mma.sync m16n8k32); earlier design: PERF.md "
+                  "section 6, row 6",
         "bound_by": "operations", "library_ms": None,
         "library_note": "no PyTorch call runs a GRU on int8 input codes "
                         "with int8 weights and emits int8 codes",

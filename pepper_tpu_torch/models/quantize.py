@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import gru_kernel, lstm_kernel
-from ..ops.cuda_build import int8_codes, split_rows
+from ..ops.cuda_build import int8_codes, keep_relaid, split_rows
 from ..ops.int8_matmul import int8_matmul
 
 QUANTIZE_MODES = ("static", "static_rec", "dynamic")
@@ -142,7 +142,11 @@ def prepare_static(q, compute_dtype, device):
     """The static tree on `device` with the dtypes the kernels take: the
     encoder's w_ih, every float w_hh and the head after linear_1 in the
     compute dtype; int8 leaves, biases and rescales as they are (float32
-    biases feed the kernels and linear_1).  A no-op on a prepared tree."""
+    biases feed the kernels and linear_1).  Each int8 weight of the two
+    biLSTMs is relaid once, into the layout its kernel body reads
+    (lstm_kernel.static_layout), and the copy kept beside it
+    (cuda_build.keep_relaid) for every launch.  A no-op on a prepared
+    tree."""
 
     def leaf(layer, key, value):
         value = torch.as_tensor(value).to(device)
@@ -151,9 +155,21 @@ def prepare_static(q, compute_dtype, device):
                       or layer in _HEAD)
         return (value.to(compute_dtype) if to_compute else value).contiguous()
 
-    return {layer: {key: leaf(layer, key, value)
+    tree = {layer: {key: leaf(layer, key, value)
                     for key, value in node.items()}
             for layer, node in q.items()}
+    for layer in ("encoder", "decoder"):
+        node = tree[layer]
+        # transducer_infer_static's two launches: the encoder reads the
+        # windows in compute_dtype, the decoder the encoder's int8 codes;
+        # both emit int8 codes
+        x_dtype = compute_dtype if layer == "encoder" else torch.int8
+        layout = lstm_kernel.static_layout(
+            x_dtype, node["w_hh_f"].dtype, True, node["w_ih_f"].shape[0])
+        for key in ("w_ih_f", "w_ih_b", "w_hh_f", "w_hh_b"):
+            if node[key].dtype == torch.int8:
+                keep_relaid(node[key], layout)
+    return tree
 
 
 @torch.inference_mode()
@@ -291,6 +307,17 @@ def polish_quantize_params_static(params):
     return tree
 
 
+def polish_prepare_static(q):
+    """The static polish tree (tensors, as params_from_jax gives them), its
+    decoder's int8 W_ih relaid once, k-major (what
+    gru_direction_fused_static's int8 projection reads), and the copies
+    kept beside them (cuda_build.keep_relaid) for every launch.  Returns q;
+    a no-op on a prepared tree."""
+    for key in ("w_ih_f", "w_ih_b"):
+        keep_relaid(q["decoder"][key], "kmajor")
+    return q
+
+
 def _gru_recurrence_xw(xw, w_hh, b_hh, h0, reverse):
     """GRU recurrence from precomputed float32 input projections, f32
     state (the unfused static path).  Returns (ys (T, B, H), hT)."""
@@ -349,7 +376,8 @@ def polish_forward_static(q, xt, hidden, compute_dtype=torch.float32,
     """Static-int8 polish forward, time-major.
 
     q: the static tree as tensors on xt's device (params_from_jax of
-    polish_quantize_params_static).  xt: (T, B, F) float window; hidden:
+    polish_quantize_params_static, relaid by polish_prepare_static on the
+    served path).  xt: (T, B, F) float window; hidden:
     (B, 2, H) float carry.  Returns (logits (T, B, C) float32,
     hidden_final (B, 2, H) float32).  use_kernel=None takes the kernel
     path where use_fused_gru says so: there the encoder's W_ih and W_hh

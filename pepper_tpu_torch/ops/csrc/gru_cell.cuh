@@ -1,7 +1,8 @@
 // Device code shared by the port's GRU kernels for Hopper (sm_90a): the
-// three-gate staged-row products, the int8 k-quad products and the GRU
-// cell.  Included by gru_direction_fused.cu, gru_direction_fused_static.cu
-// and gru_recurrence.cu; each builds into a library of its own.  The dtype
+// three-gate staged-row products and the GRU cell, which gru_core.cuh's
+// L2-streaming body runs.  Included by gru_core.cuh, and so by
+// gru_direction_fused.cu, gru_direction_fused_static.cu and
+// gru_recurrence.cu; each builds into a library of its own.  The dtype
 // conversions, the sigmoid and the staging of x rows come from
 // lstm_cell.cuh.
 //
@@ -16,7 +17,7 @@
 // one by one (__fmul_rn/__fadd_rn): no multiply-add is contracted, so the
 // update rounds as the plain version's separate operations do.
 //
-// Layout every kernel shares (that of lstm_cell.cuh): a block owns kRows
+// Layout of that body (that of lstm_cell.cuh): a block owns kRows
 // batch rows for all T steps and has H threads; thread j owns hidden unit j
 // and accumulates the three gate columns j, H+j, 2H+j of its rows in f32
 // registers, for xw and hw apart, and keeps its rows' f32 h in registers.
@@ -54,49 +55,6 @@ __device__ __forceinline__ void accumulate(float (&acc)[kRows][3],
         acc[4 * v + 1][q] += x.y * wq[q];
         acc[4 * v + 2][q] += x.z * wq[q];
         acc[4 * v + 3][q] += x.w * wq[q];
-      }
-    }
-  }
-}
-
-// Stage rows [b0, b0+kRows) of the int8 x[t] (F_part features, a multiple
-// of 4) into s[k/4][r] as words of four features; zeros past the batch.
-__device__ __forceinline__ void stage_quads(int* __restrict__ s,
-                                            const int8_t* __restrict__ x,
-                                            int F_part, int t, int B,
-                                            int b0) {
-  const int FQ = F_part / 4;
-  const int* xq = reinterpret_cast<const int*>(x);
-  const size_t base = static_cast<size_t>(t) * B;
-  for (int idx = threadIdx.x; idx < kRows * FQ; idx += blockDim.x) {
-    const int r = idx / FQ;
-    const int kq = idx - r * FQ;
-    const int row = b0 + r;
-    s[kq * kRows + r] = row < B ? xq[(base + row) * FQ + kq] : 0;
-  }
-}
-
-// acc[r][q] += sum over k-quads of dp4a(s[kq][r], w[kq][q*H + j]), where w
-// holds the int8 weight packed into words of four consecutive k.
-__device__ __forceinline__ void accumulate_quads(int (&acc)[kRows][3],
-                                                 const int* __restrict__ s,
-                                                 const int* __restrict__ w,
-                                                 int KQ, int H, int j) {
-  const int G = 3 * H;
-#pragma unroll 2
-  for (int kq = 0; kq < KQ; ++kq) {
-    const int* wk = w + static_cast<size_t>(kq) * G + j;
-    const int wq[3] = {wk[0], wk[H], wk[2 * H]};
-    const int4* sk = reinterpret_cast<const int4*>(s + kq * kRows);
-#pragma unroll
-    for (int v = 0; v < kRows / 4; ++v) {
-      const int4 x = sk[v];
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        acc[4 * v + 0][q] = __dp4a(x.x, wq[q], acc[4 * v + 0][q]);
-        acc[4 * v + 1][q] = __dp4a(x.y, wq[q], acc[4 * v + 1][q]);
-        acc[4 * v + 2][q] = __dp4a(x.z, wq[q], acc[4 * v + 2][q]);
-        acc[4 * v + 3][q] = __dp4a(x.w, wq[q], acc[4 * v + 3][q]);
       }
     }
   }

@@ -4,13 +4,16 @@
 //   hw = bf(h) @ W_hh + b_hh                                    (f32 sums)
 //   r = sigmoid(xw_r + hw_r) ;  z = sigmoid(xw_z + hw_z)
 //   n = tanh(xw_n + r * hw_n) ;  h = (1 - z) * n + z * h       (f32 state)
-//   out[t] = h rounded to TO
+//   out[t] = h rounded to TO ;  h_out = h after the last step (f32)
 //
 // over a precomputed xw (T, B, 3H) of type TW, with t running T-1..0 when
 // `reverse`.  bf(h) is h rounded to TH before the recurrent product (TH =
 // float leaves it unrounded).  h starts from the float32 h0 (B, H).  The
 // cell is gru_cell.cuh's: b_hh inside r * (...), the bias added after the
-// whole sum, the update's products and sums rounded one by one.
+// whole sum, the update's products and sums rounded one by one.  TO is
+// float, bfloat16 or int8_t (the static kernel's codes round(h * 127), ties
+// to even); h_out, where not null, takes the f32 state after the last step
+// (the static kernel's carry, which must stay exact).
 //
 // Two bodies, chosen by H:
 //
@@ -24,7 +27,11 @@
 // threads; thread c owns gate column c,
 // reads W_hh[k][c] (neighbouring threads, neighbouring banks) and h[r][k]
 // as a 16-byte broadcast, and sums its column in f32 (two chains a row
-// below 4 rows, so the FMAs are not all in one dependent line).  The r and
+// below 4 rows, so the FMAs are not all in one dependent line; one chain,
+// in k order, where TO is int8: a code rounds the other way wherever h*127
+// lies within a sum's last bit of a half, and the codes of one chain in k
+// order equal those of the plain version's float32 product on the card,
+// at no cost in time at one row a block).  The r and
 // z threads apply their sigmoid and leave the gate in shared memory; after
 // one barrier the n thread of unit j runs the cell for its rows, keeps h
 // in registers and stages bf(h); a second barrier ends the step.  Each
@@ -39,12 +46,14 @@
 // gru_cell.cuh: a block owns 16 rows and has H threads, thread j the three
 // gate columns of unit j for all 16 rows, W_hh read from L2 on every step.
 //
-// Included by gru_direction_fused.cu and gru_recurrence.cu; the dtype
-// conversions and the cell come from gru_cell.cuh and lstm_cell.cuh.
+// Included by gru_direction_fused.cu, gru_direction_fused_static.cu and
+// gru_recurrence.cu; the dtype conversions and the cell come from
+// gru_cell.cuh and lstm_cell.cuh.
 
 #pragma once
 
 #include <atomic>
+#include <type_traits>
 
 #include "gru_cell.cuh"
 
@@ -78,10 +87,10 @@ __device__ __forceinline__ void load_xw(float (&x)[kR],
   }
 }
 
-// The kernels and their launchers have internal linkage: the two libraries
+// The kernels and their launchers have internal linkage: the three libraries
 // that include this header instantiate the same templates, and a launcher's
 // static "limit raised" flag with external linkage would be one object for
-// both (the loader unifies such statics across shared objects), so the
+// all (the loader unifies such statics across shared objects), so a
 // second library would launch without raising its kernel's limit.
 namespace {
 
@@ -93,7 +102,8 @@ __global__ void __launch_bounds__(3 * kSmemMaxHidden, 1)
                      const float* __restrict__ w_hh,
                      const float* __restrict__ b_hh,
                      const float* __restrict__ h0, TO* __restrict__ out,
-                     int steps, int B, int H, int reverse) {
+                     float* __restrict__ h_out, int steps, int B, int H,
+                     int reverse) {
   extern __shared__ __align__(16) float smem[];
   const int G = 3 * H;
   float* ws = smem;                  // [H - kRegK][G] W_hh rows kRegK..
@@ -133,8 +143,9 @@ __global__ void __launch_bounds__(3 * kSmemMaxHidden, 1)
       load_xw<TW, kR>(x_next, xw, reverse ? t - 1 : t + 1, B, G, b0, c);
     }
 
-    // two FMA chains a row where few rows leave the FMAs dependent
-    constexpr int kC = kR < 4 ? 2 : 1;
+    // two FMA chains a row where few rows leave the FMAs dependent, but
+    // for int8 codes out (see the design above)
+    constexpr int kC = kR < 4 && !std::is_same<TO, int8_t>::value ? 2 : 1;
     float acc[kC][kR];
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
@@ -188,6 +199,13 @@ __global__ void __launch_bounds__(3 * kSmemMaxHidden, 1)
 #pragma unroll
     for (int r = 0; r < kR; ++r) x[r] = x_next[r];
   }
+  if (q == 2 && h_out != nullptr) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int row = b0 + r;
+      if (row < B) h_out[static_cast<size_t>(row) * H + j] = h[r];
+    }
+  }
 }
 
 template <typename TW, typename TO, typename TH>
@@ -196,7 +214,8 @@ __global__ void __launch_bounds__(kMaxHidden)
                        const float* __restrict__ w_hh,
                        const float* __restrict__ b_hh,
                        const float* __restrict__ h0, TO* __restrict__ out,
-                       int steps, int B, int H, int reverse) {
+                       float* __restrict__ h_out, int steps, int B, int H,
+                       int reverse) {
   extern __shared__ __align__(16) float hs[];  // [H][kRows]
   const int j = threadIdx.x;
   const int b0 = static_cast<int>(blockIdx.x) * kRows;
@@ -235,6 +254,13 @@ __global__ void __launch_bounds__(kMaxHidden)
       if (row < B) out[(base + row) * H + j] = lstm::from_f32<TO>(h[r]);
     }
   }
+  if (h_out != nullptr) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = b0 + r;
+      if (row < B) h_out[static_cast<size_t>(row) * H + j] = h[r];
+    }
+  }
 }
 
 // Dynamic shared memory of the smem body: W_hh's rows past reg_k, bf(h)
@@ -245,8 +271,8 @@ inline size_t core_smem_bytes(int H, int rows, int reg_k) {
 
 template <typename TW, typename TO, typename TH, int kR, int kRegK>
 cudaError_t launch_smem(const TW* xw, const float* w_hh, const float* b_hh,
-                        const float* h0, TO* out, int steps, int B, int H,
-                        int reverse, cudaStream_t stream) {
+                        const float* h0, TO* out, float* h_out, int steps,
+                        int B, int H, int reverse, cudaStream_t stream) {
   auto kernel = core_smem_kernel<TW, TO, TH, kR, kRegK>;
   // raise the kernel's dynamic shared-memory limit to the device's opt-in
   // maximum, the first time a launch on that device asks
@@ -267,7 +293,7 @@ cudaError_t launch_smem(const TW* xw, const float* w_hh, const float* b_hh,
   }
   const dim3 grid((B + kR - 1) / kR);
   kernel<<<grid, 3 * H, core_smem_bytes(H, kR, kRegK), stream>>>(
-      xw, w_hh, b_hh, h0, out, steps, B, H, reverse);
+      xw, w_hh, b_hh, h0, out, h_out, steps, B, H, reverse);
   return cudaGetLastError();
 }
 
@@ -282,15 +308,15 @@ inline int smem_rows(int B, int sms) {
 
 // The recurrence over xw with the body H calls for: the smem body for
 // H <= kSmemMaxHidden with smem_rows rows a block, else the stream body with
-// kRows.  w_hh must be 16-byte aligned.
+// kRows.  w_hh must be 16-byte aligned; h_out may be null.
 template <typename TW, typename TO, typename TH>
 cudaError_t launch_core(const TW* xw, const float* w_hh, const float* b_hh,
-                        const float* h0, TO* out, int steps, int B, int H,
-                        int reverse, cudaStream_t stream) {
+                        const float* h0, TO* out, float* h_out, int steps,
+                        int B, int H, int reverse, cudaStream_t stream) {
   if (H > kSmemMaxHidden) {
     core_stream_kernel<TW, TO, TH>
         <<<(B + kRows - 1) / kRows, H, H * kRows * sizeof(float), stream>>>(
-            xw, w_hh, b_hh, h0, out, steps, B, H, reverse);
+            xw, w_hh, b_hh, h0, out, h_out, steps, B, H, reverse);
     return cudaGetLastError();
   }
   if (reinterpret_cast<uintptr_t>(w_hh) % 16 != 0) {
@@ -304,8 +330,8 @@ cudaError_t launch_core(const TW* xw, const float* w_hh, const float* b_hh,
   // rows of W_hh in registers: as many as the thread's 168 registers
   // leave room for (96 at one row a block, 64 at two), at most H
 #define GRU_LAUNCH(R, K)                                                   \
-  return launch_smem<TW, TO, TH, R, K>(xw, w_hh, b_hh, h0, out, steps, B, \
-                                       H, reverse, stream)
+  return launch_smem<TW, TO, TH, R, K>(xw, w_hh, b_hh, h0, out, h_out,   \
+                                       steps, B, H, reverse, stream)
   switch (smem_rows(B, sms)) {
     case 1:
       if (H >= 96) GRU_LAUNCH(1, 96);

@@ -52,13 +52,13 @@ int gru_recurrence_launch(int dtype, const void* xw, const float* w_hh,
   if (dtype == 0) {
     return static_cast<int>(gru::launch_core<float, float, float>(
         static_cast<const float*>(xw), w_hh, b_hh, h0,
-        static_cast<float*>(out), steps, B, H, 0, s));
+        static_cast<float*>(out), nullptr, steps, B, H, 0, s));
   }
   if (dtype == 1) {
     using bf16 = __nv_bfloat16;
     return static_cast<int>(gru::launch_core<bf16, bf16, bf16>(
         static_cast<const bf16*>(xw), w_hh, b_hh, h0,
-        static_cast<bf16*>(out), steps, B, H, 0, s));
+        static_cast<bf16*>(out), nullptr, steps, B, H, 0, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -36,6 +36,13 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);  // round to nearest even, as astype does
 }
+// the int8 code of a value in (-1, 1): round(v * 127), ties to even
+// (__float2int_rn, as jnp.round and torch.round), the product rounded
+// apart so it is not contracted into anything
+template <>
+__device__ __forceinline__ int8_t from_f32<int8_t>(float v) {
+  return static_cast<int8_t>(__float2int_rn(__fmul_rn(v, 127.0f)));
+}
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.0f / (1.0f + expf(-v));

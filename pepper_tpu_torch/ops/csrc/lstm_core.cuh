@@ -1,5 +1,6 @@
-// The bfloat16 LSTM core that lstm_direction_fused.cu, bilstm_dual_fused.cu
-// and lstm_recurrence.cu share, for Hopper (sm_90a).  Together with the
+// The bfloat16 LSTM core that lstm_direction_fused.cu, bilstm_dual_fused.cu,
+// lstm_recurrence.cu and lstm_direction_fused_static.cu share, for Hopper
+// (sm_90a).  Together with the
 // input projection below it replaces the bf16 path of the TPU kernels
 // pepper_tpu/ops/lstm_kernel.py::lstm_direction_fused (body
 // _make_fused_kernel) and ::bilstm_dual_fused (body _make_dual_kernel), and
@@ -67,9 +68,28 @@
 //   e^2v), e^v by ex2 on the special-function unit and the reciprocal by
 //   Newton steps on the FMA pipe, within 2e-7 of the library functions.
 //
-// The kernels and launchers have internal linkage, as in gru_core.cuh: both
-// libraries instantiate the same templates, and a launcher's static with
-// external linkage would be one object for both.
+// * The static kernels (lstm_direction_fused_static.cu) run the same core
+//   with int8 codes out (TO = int8_t: round(h * 127), ties to even) and a
+//   float32 bias (Kind).  static keeps the bf16 W_hh above.  static_rec's
+//   int8 W_hh arrives k-major (4H, H); each CTA holds its slice (4U x H
+//   codes, 64 KB at H=256) in shared memory, the A tile holds the codes of
+//   h, exchanged as bf(h) is (in 8-byte pieces), the product is mma.sync
+//   m16n8k32 s8 -> s32 into accumulators of its own, and once the sum is
+//   whole gates = (bias + the bf16 x-part, or xw) + f32(sum) * rec_scale,
+//   JAX's order.  Fused x then takes a bf16 tile of its own.  Codes move
+//   with a gate's last bit, so these kinds also sum every bf16 product
+//   apart from zero, each k16 step's tensor-core sum added with a rounded
+//   add (the tensor cores' running sum does not round to nearest), and
+//   take the library's expf and tanhf, as the plain version does.  With
+//   the fast forms, or with the tensor cores' running sums, one near-tied
+//   site of chip_smoke.py phase 9's static call set differed from the CPU
+//   run's; with both, all but about one code in 1e5 equal the plain
+//   version's.
+//
+// The kernels and launchers have internal linkage, as in gru_core.cuh: the
+// four libraries that include this header instantiate the same templates,
+// and a launcher's static with external linkage would be one object for
+// all.
 
 #pragma once
 
@@ -84,6 +104,7 @@
 #include <type_traits>
 
 #include "lstm_cell.cuh"
+#include "mma_ptx.cuh"
 
 namespace lstm {
 
@@ -91,32 +112,59 @@ namespace {
 
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
+using ptx::cp_async16;
+using ptx::cp_async16_zfill;
+using ptx::cp_async_commit;
+using ptx::cp_async_wait;
+using ptx::cp_async_wait_all;
+using ptx::ldmatrix_x4;
+using ptx::ldmatrix_x4_trans;
+using ptx::mma_bf16;
+using ptx::mma_s8;
 
 constexpr int kXMax = 32;          // input features that join the step's K
 constexpr int kPad = 8;            // bf16 elements past each shared row
+constexpr int kCodePad = 16;       // bytes past each int8 shared row
 constexpr int kMaxCluster = 4;
 constexpr int kCoreMaxThreads = 256;  // 8 warps: U = 64 units
 constexpr int kCoreDevices = 64;
 
-// One direction's operands.  Fused x: w_x0/w_x1 and bias; hoisted: xw, of
-// element type XW (float or bf16).
-template <typename XW = float>
+// What a core instance reads and writes.  XW: the hoisted body's xw element
+// type (float or bf16).  TO: out's, bf16 (the float kernels, whose bias is
+// bf16) or int8_t, the codes round(h * 127) of the static kernels, whose
+// bias is float32.  kIntRec: an int8 W_hh, k-major (4H, H), fed the codes
+// of h and rescaled by rec_scale (static_rec).
+template <typename XW_ = float, typename TO_ = bf16, bool kIntRec_ = false>
+struct Kind {
+  using XW = XW_;
+  using TO = TO_;
+  static constexpr bool kCodes = std::is_same<TO_, int8_t>::value;
+  static constexpr bool kIntRec = kIntRec_;
+  using Bias = typename std::conditional<kCodes, float, bf16>::type;
+  static_assert(kCodes || !kIntRec_, "an int8 W_hh emits int8 codes");
+};
+
+using FloatKind = Kind<>;
+
+// One direction's operands.  Fused x: w_x0/w_x1 and bias; hoisted: xw.
+template <typename K = FloatKind>
 struct Direction {
-  const bf16* w_hh;   // (H, 4H)
-  const bf16* w_x0;   // (F0, 4H)
-  const bf16* w_x1;   // (F1, 4H) or null
-  const bf16* bias;   // (4H,)
-  const XW* xw;       // (T, B, 4H)
-  bf16* out;          // (T, B, H)
+  const void* w_hh;              // (H, 4H) bf16, or (4H, H) int8 k-major
+  const bf16* w_x0;              // (F0, 4H)
+  const bf16* w_x1;              // (F1, 4H) or null
+  const typename K::Bias* bias;  // (4H,)
+  const typename K::XW* xw;      // (T, B, 4H)
+  typename K::TO* out;           // (T, B, H)
+  const float* rec_scale;        // (4H,), an int8 W_hh's
   int reverse;
 };
 
-template <typename XW = float>
+template <typename K = FloatKind>
 struct CoreArgs {
   const bf16* x0;     // (T, B, F0), read by the fused-x body
   const bf16* x1;     // (T, B, F1) or null
   int F0, F1, steps, B, H;
-  Direction<XW> dir[2];  // blockIdx.y picks one
+  Direction<K> dir[2];  // blockIdx.y picks one
 };
 
 // xw[0..1] of one thread's two adjacent units, widened to f32
@@ -126,17 +174,6 @@ __device__ __forceinline__ float2 load_pair(const float* p) {
 
 __device__ __forceinline__ float2 load_pair(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
 }
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -164,37 +201,22 @@ __device__ __forceinline__ void st_cluster_v4(unsigned addr, uint4 v) {
                : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
-                                            const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// d += a (16x16, row) @ b (16x8, col), bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void st_cluster_v2(unsigned addr, uint2 v) {
+  asm volatile("st.shared::cluster.v2.u32 [%0], {%1, %2};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y)
+               : "memory");
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// the int8 codes of two adjacent units, the first in the low byte
+__device__ __forceinline__ unsigned pack_codes(float lo, float hi) {
+  return static_cast<uint8_t>(from_f32<int8_t>(lo)) |
+         (static_cast<unsigned>(static_cast<uint8_t>(from_f32<int8_t>(hi)))
+          << 8);
 }
 
 __device__ __forceinline__ float ex2(float v) {
@@ -227,35 +249,61 @@ __device__ __forceinline__ float tanh_fast(float v) {
       1.0f);
 }
 
+// The cell's nonlinearities: the fast forms above for bf16 out; for int8
+// codes out, where a gate's last bit moves a code wherever h * 127 lies
+// near a half, and a code that rounds the other way feeds the next step
+// (static_rec) and the next layer, the plain versions' own: 1 / (1 + expf(-v))
+// (its reciprocal rounded to nearest, as the division rounds it) and tanhf.
+template <typename Kd>
+__device__ __forceinline__ float gate_sigmoid(float v) {
+  return Kd::kCodes ? __frcp_rn(__fadd_rn(1.0f, expf(-v)))
+                    : sigmoid_fast(v);
+}
+
+template <typename Kd>
+__device__ __forceinline__ float gate_tanh(float v) {
+  return Kd::kCodes ? tanhf(v) : tanh_fast(v);
+}
+
 inline int cluster_size(int H) { return H <= 64 ? 1 : H <= 128 ? 2 : 4; }
 
-// shared memory of the core: W_hh's slice [H][4U + kPad] and the A tile
-// [R][K + kPad] (bf(h), then x[t] when fused), K = H (+ kXMax when fused)
-inline size_t core_smem_bytes(int H, int rows, bool fused_x) {
-  const int K = H + (fused_x ? kXMax : 0);
+// Shared memory of the core.  A bf16 W_hh: its slice [H][4U + kPad] and
+// the A tile [R][K + kPad] (bf(h), then x[t] when fused), K = H (+ kXMax
+// when fused), bf16.  An int8 W_hh: its slice k-major [4U][H + kCodePad]
+// and the codes of h [R][H + kCodePad], bytes, then for fused x a tile of
+// its own, [R][kXMax + kPad] bf16.
+inline size_t core_smem_bytes(int H, int rows, bool fused_x, bool int_rec) {
   const int U = H / cluster_size(H);
+  if (int_rec) {
+    return static_cast<size_t>(4 * U + rows) * (H + kCodePad) +
+           (fused_x ? static_cast<size_t>(rows) * (kXMax + kPad) *
+                          sizeof(bf16)
+                    : 0);
+  }
+  const int K = H + (fused_x ? kXMax : 0);
   return (static_cast<size_t>(H) * (4 * U + kPad) +
           static_cast<size_t>(rows) * (K + kPad)) *
          sizeof(bf16);
 }
 
 // A cluster's R = 16 * kMT * kChunks rows, in kChunks chunks of kMT m16
-// tiles (see the design above); XW, the hoisted body's xw element type.
-template <int kMT, int kChunks, bool kFusedX, typename XW>
+// tiles (see the design above).
+template <int kMT, int kChunks, bool kFusedX, typename Kd>
 __global__ void __launch_bounds__(kCoreMaxThreads, 1)
-    core_kernel(const CoreArgs<XW> a) {
+    core_kernel(const CoreArgs<Kd> a) {
+  using XW = typename Kd::XW;
+  using TO = typename Kd::TO;
+  constexpr bool kIntRec = Kd::kIntRec;
   constexpr int R = 16 * kMT * kChunks;
   cg::cluster_group cluster = cg::this_cluster();
   const int n = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   // the parameters as locals: lambdas below capture these, not `a`
-  const Direction<XW> d = blockIdx.y ? a.dir[1] : a.dir[0];
+  const Direction<Kd> d = blockIdx.y ? a.dir[1] : a.dir[0];
   const bf16* x0 = a.x0;
   const bf16* x1 = a.x1;
   const int F0 = a.F0, F1 = a.F1, B = a.B, steps = a.steps, H = a.H;
   const int U = H / n, G = 4 * H;
-  const int K = H + (kFusedX ? kXMax : 0);
-  const int ldw = 4 * U + kPad, ldh = K + kPad;
   const int b0 = static_cast<int>(blockIdx.x) / n * R;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -264,22 +312,50 @@ __global__ void __launch_bounds__(kCoreMaxThreads, 1)
   const int unit = rank * U + warp * 8 + pair;
   const bool early = warp < 4;  // see the xw prefetch below
 
+  // The shared tiles (core_smem_bytes).  A bf16 W_hh: ws [H][ldw] and the
+  // A tile hs [R][ldh], whose columns H.. hold x[t] when fused.  An int8
+  // W_hh: wq [4U][ldq] and the codes hq [R][ldq], bytes, and x[t] in a tile
+  // of its own.  xs/ldx: x[t]'s columns, wherever they are.
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ws = reinterpret_cast<bf16*>(smem_raw);  // [H][ldw]
-  bf16* hs = ws + H * ldw;                        // [R][ldh]
+  const int ldw = 4 * U + kPad;
+  const int ldh = H + (kFusedX ? kXMax : 0) + kPad;
+  const int ldq = H + kCodePad;
+  bf16* ws = reinterpret_cast<bf16*>(smem_raw);
+  bf16* hs = ws + H * ldw;
+  uint8_t* wq = smem_raw;
+  uint8_t* hq = wq + 4 * U * ldq;
+  bf16* xs = kIntRec ? reinterpret_cast<bf16*>(hq + R * ldq) : hs + H;
+  const int ldx = kIntRec ? kXMax + kPad : ldh;
 
   // W_hh's slice: local column warp'*32 + q*8 + j is gate q of unit
-  // rank*U + warp'*8 + j
-  const int row_chunks = 4 * U / 8;
-  for (int i = tid; i < H * row_chunks; i += nthreads) {
-    const int k = i / row_chunks, c = i - k * row_chunks;
-    cp_async16(ws + k * ldw + c * 8,
-               d.w_hh + static_cast<size_t>(k) * G + (c % 4) * H + rank * U +
-                   (c / 4) * 8);
-  }
-  // h0 = 0, and zeros in every pad and in the x columns past F
-  for (int i = tid; i < R * ldh / 8; i += nthreads) {
-    reinterpret_cast<uint4*>(hs)[i] = make_uint4(0, 0, 0, 0);
+  // rank*U + warp'*8 + j (a row of wq, a column of ws)
+  if constexpr (kIntRec) {
+    const uint8_t* w = static_cast<const uint8_t*>(d.w_hh);
+    const int row_chunks = H / 16;
+    for (int i = tid; i < 4 * U * row_chunks; i += nthreads) {
+      const int lc = i / row_chunks, c = i - lc * row_chunks;
+      const int col = (lc % 32) / 8 * H + rank * U + lc / 32 * 8 + lc % 8;
+      cp_async16(wq + lc * ldq + c * 16,
+                 w + static_cast<size_t>(col) * H + c * 16);
+    }
+    // h0 = 0, and zeros in every pad and in the x columns past F
+    const int zero_chunks =
+        (R * ldq + (kFusedX ? R * ldx * 2 : 0)) / 16;
+    for (int i = tid; i < zero_chunks; i += nthreads) {
+      reinterpret_cast<uint4*>(hq)[i] = make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    const bf16* w = static_cast<const bf16*>(d.w_hh);
+    const int row_chunks = 4 * U / 8;
+    for (int i = tid; i < H * row_chunks; i += nthreads) {
+      const int k = i / row_chunks, c = i - k * row_chunks;
+      cp_async16(ws + k * ldw + c * 8,
+                 w + static_cast<size_t>(k) * G + (c % 4) * H + rank * U +
+                     (c / 4) * 8);
+    }
+    for (int i = tid; i < R * ldh / 8; i += nthreads) {
+      reinterpret_cast<uint4*>(hs)[i] = make_uint4(0, 0, 0, 0);
+    }
   }
 
   // The fused W_ih slice stays in registers as this warp's B fragments:
@@ -306,12 +382,21 @@ __global__ void __launch_bounds__(kCoreMaxThreads, 1)
       }
     }
   }
+  // an int8 W_hh's rescale of the thread's gate columns
+  float rs[4][2];
+  if constexpr (kIntRec) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) rs[q][j] = d.rec_scale[q * H + unit + j];
+    }
+  }
 
-  // x[t] of the cluster's rows into the A tile's columns H..H+F-1: element
-  // idx is row idx / kXMax, feature idx % kXMax.  A thread loads kXRegs of
-  // them (all of them at 8 warps) into registers after the step's last
-  // product and stores them after the step's exchange; with fewer warps it
-  // loads the rest at the store.
+  // x[t] of the cluster's rows into the x columns: element idx is row
+  // idx / kXMax, feature idx % kXMax.  A thread loads kXRegs of them (all
+  // of them at 8 warps) into registers after the step's last product and
+  // stores them after the step's exchange; with fewer warps it loads the
+  // rest at the store.
   constexpr int kXRegs = R * kXMax / kCoreMaxThreads;
   auto x_at = [&](int t, int idx) -> unsigned short {
     const int r = idx / kXMax, k = idx % kXMax, row = b0 + r;
@@ -332,22 +417,24 @@ __global__ void __launch_bounds__(kCoreMaxThreads, 1)
     }
   };
   auto store_x = [&](int t) {
-    unsigned short* xs = reinterpret_cast<unsigned short*>(hs) + H;
+    unsigned short* xd = reinterpret_cast<unsigned short*>(xs);
 #pragma unroll
     for (int i = 0; i < kXRegs; ++i) {
       int idx = tid + i * nthreads;
       asm volatile("" : "+r"(idx));
-      if (idx % kXMax < F) xs[idx / kXMax * ldh + idx % kXMax] = xv[i];
+      if (idx % kXMax < F) xd[idx / kXMax * ldx + idx % kXMax] = xv[i];
     }
     for (int idx = kXRegs * nthreads + tid; idx < R * kXMax;
          idx += nthreads) {
-      if (idx % kXMax < F) xs[idx / kXMax * ldh + idx % kXMax] = x_at(t, idx);
+      if (idx % kXMax < F) xd[idx / kXMax * ldx + idx % kXMax] = x_at(t, idx);
     }
   };
 
   // A chunk's accumulators, acc[mt][q][2e+j]: gate q of unit `unit + j`,
   // row (ch*kMT + mt)*16 + quad + 8e of the cluster.  They start from the
-  // bias (fused) or from xw[t] (hoisted: loaded into `nxt` one chunk ahead)
+  // bias (fused) or from xw[t] (hoisted: loaded into `nxt` one chunk ahead);
+  // the code-emitting kinds sum the recurrent part apart, in racc (same
+  // layout), and join the parts once each is whole.
   float acc[kMT][4][4];
   float nxt[kMT][4][4];
   auto load_xw = [&](int t, int ch) {
@@ -382,7 +469,9 @@ __global__ void __launch_bounds__(kCoreMaxThreads, 1)
   __syncthreads();  // W_hh's slice, h0 and x[t] in place
 
   float c[kChunks][kMT][4];
-  unsigned hw[kChunks][kMT][2];  // bf(h) of the thread's two units, by row
+  // the thread's two units of h by row, as the A tile holds them: bf(h)
+  // (two bf16) or, for an int8 W_hh, the two codes
+  unsigned hw[kChunks][kMT][2];
 #pragma unroll
   for (int ch = 0; ch < kChunks; ++ch) {
 #pragma unroll
@@ -392,11 +481,19 @@ __global__ void __launch_bounds__(kCoreMaxThreads, 1)
     }
   }
 
-  // ldmatrix addresses: A rows by lane, B rows k by lane
+  // ldmatrix addresses: A rows by lane, B rows k (bf16 W_hh) or columns
+  // (int8 W_hh) by lane
   const bf16* a_base = hs + (lane & 15) * ldh + (lane >> 4) * 8;
   const bf16* b_base =
       ws + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldw + warp * 32 +
       (lane >> 4) * 8;
+  const uint8_t* qa_base = hq + (lane & 15) * ldq + (lane >> 4) * 16;
+  const uint8_t* qb_base =
+      wq + (warp * 32 + (lane & 7) + (lane >> 4) * 8) * ldq +
+      ((lane >> 3) & 1) * 16;
+  // the fused x columns' A rows: their own tile beside an int8 W_hh, else
+  // the A tile's columns H.. (a_base + H, no pointer of their own)
+  const bf16* qx_base = xs + (lane & 15) * ldx + (lane >> 4) * 8;
 
   for (int s = 0; s < steps; ++s) {
     const int t = d.reverse ? steps - 1 - s : s;
@@ -405,15 +502,27 @@ __global__ void __launch_bounds__(kCoreMaxThreads, 1)
     const size_t base = static_cast<size_t>(t) * B;
 #pragma unroll
     for (int ch = 0; ch < kChunks; ++ch) {
+      // The float kinds sum bias (or xw) and every product into acc on
+      // the tensor cores.  The code-emitting kinds keep each part apart,
+      // from zero, and join them with rounded adds in the plain version's
+      // order, gates = (b + x-part, or xw) + recurrent part: the tensor
+      // cores do not round their running sum to nearest, and a code moves
+      // with a gate's last bit.  A bf16 W_hh's part is then the
+      // round-to-nearest sum of each k16 step's product (tsum); an int8
+      // W_hh's is exact (s32).
+      using RecSum = typename std::conditional<kIntRec, int, float>::type;
+      RecSum racc[kMT][4][4];
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
 #pragma unroll
           for (int v = 0; v < 4; ++v) {
-            if (kFusedX) {  // the bias, from L1
-              acc[mt][q][v] =
-                  __bfloat162float(d.bias[q * H + unit + (v & 1)]);
+            if (Kd::kCodes) {
+              acc[mt][q][v] = 0.0f;
+              racc[mt][q][v] = 0;
+            } else if (kFusedX) {  // the bias, from L1
+              acc[mt][q][v] = to_f32(d.bias[q * H + unit + (v & 1)]);
             } else {
               acc[mt][q][v] = nxt[mt][q][v];
             }
@@ -423,7 +532,9 @@ __global__ void __launch_bounds__(kCoreMaxThreads, 1)
       // the next chunk's xw, this step's or the next's.  Issuing them
       // stalls a warp until the memory system takes them, so the warps of
       // one scheduler take turns: the lower half issues them before its
-      // product, the upper half after it.
+      // product, the upper half after it.  (The code-emitting kinds issue
+      // them after their product, whose sums then join the current xw
+      // still in `nxt`.)
       auto prefetch = [&]() {
         if (ch + 1 < kChunks) {
           load_xw(t, ch + 1);
@@ -431,38 +542,99 @@ __global__ void __launch_bounds__(kCoreMaxThreads, 1)
           load_xw(t_next, 0);
         }
       };
-      if (!kFusedX && early) prefetch();
-      const bf16* a_chunk = a_base + ch * kMT * 16 * ldh;
-      for (int kk = 0; kk < H; kk += 16) {
-        unsigned bf[2][4];  // gates (0, 1) and (2, 3): b0, b1 of each
-        ldmatrix_x4_trans(bf[0], b_base + kk * ldw);
-        ldmatrix_x4_trans(bf[1], b_base + kk * ldw + 16);
+      // d += a @ b over one k16 step: onto d on the tensor cores, or as a
+      // sum of its own added to d with a rounded add
+      auto mma_into = [&](float (&dst)[4], const unsigned (&af)[4],
+                          unsigned b0, unsigned b1) {
+        if constexpr (Kd::kCodes) {
+          float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_bf16(part, af, b0, b1);
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          unsigned af[4];
-          ldmatrix_x4(af, a_chunk + mt * 16 * ldh + kk);
+          for (int v = 0; v < 4; ++v) dst[v] = __fadd_rn(dst[v], part[v]);
+        } else {
+          mma_bf16(dst, af, b0, b1);
+        }
+      };
+      if (!kFusedX && !Kd::kCodes && early) prefetch();
+      if constexpr (kIntRec) {
+        const uint8_t* a_chunk = qa_base + ch * kMT * 16 * ldq;
+        for (int kk = 0; kk < H; kk += 32) {
+          unsigned bq[2][4];  // gates (0, 1) and (2, 3): b0, b1 of each
+          ldmatrix_x4(bq[0], qb_base + kk);
+          ldmatrix_x4(bq[1], qb_base + 16 * ldq + kk);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            mma_bf16(acc[mt][q], af, bf[q / 2][2 * (q % 2)],
-                     bf[q / 2][2 * (q % 2) + 1]);
+          for (int mt = 0; mt < kMT; ++mt) {
+            unsigned af[4];
+            ldmatrix_x4(af, a_chunk + mt * 16 * ldq + kk);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              mma_s8(racc[mt][q], af, bq[q / 2][2 * (q % 2)],
+                     bq[q / 2][2 * (q % 2) + 1]);
+            }
+          }
+        }
+      } else {
+        const bf16* a_chunk = a_base + ch * kMT * 16 * ldh;
+        for (int kk = 0; kk < H; kk += 16) {
+          unsigned bf[2][4];  // gates (0, 1) and (2, 3): b0, b1 of each
+          ldmatrix_x4_trans(bf[0], b_base + kk * ldw);
+          ldmatrix_x4_trans(bf[1], b_base + kk * ldw + 16);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            unsigned af[4];
+            ldmatrix_x4(af, a_chunk + mt * 16 * ldh + kk);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              if constexpr (Kd::kCodes) {
+                mma_into(racc[mt][q], af, bf[q / 2][2 * (q % 2)],
+                         bf[q / 2][2 * (q % 2) + 1]);
+              } else {
+                mma_into(acc[mt][q], af, bf[q / 2][2 * (q % 2)],
+                         bf[q / 2][2 * (q % 2) + 1]);
+              }
+            }
           }
         }
       }
       if constexpr (kFusedX) {
+        const bf16* x_chunk = kIntRec ? qx_base + ch * kMT * 16 * ldx
+                                      : a_base + ch * kMT * 16 * ldh + H;
 #pragma unroll
         for (int kx = 0; kx < 2; ++kx) {
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt) {
             unsigned af[4];
-            ldmatrix_x4(af, a_chunk + mt * 16 * ldh + H + 16 * kx);
+            ldmatrix_x4(af, x_chunk + mt * 16 * ldx + 16 * kx);
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
-              mma_bf16(acc[mt][q], af, wx[kx][q][0], wx[kx][q][1]);
+              mma_into(acc[mt][q], af, wx[kx][q][0], wx[kx][q][1]);
             }
           }
         }
       }
-      if (!kFusedX && !early) prefetch();
+      if constexpr (Kd::kCodes) {
+        // gates = (b + x-part, or xw) + the recurrent part (an int8 W_hh's
+        // rescaled once), JAX's order
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              const float rec =
+                  kIntRec ? __fmul_rn(static_cast<float>(racc[mt][q][v]),
+                                      rs[q][v & 1])
+                          : static_cast<float>(racc[mt][q][v]);
+              const float first =
+                  kFusedX ? __fadd_rn(to_f32(d.bias[q * H + unit + (v & 1)]),
+                                      acc[mt][q][v])
+                          : nxt[mt][q][v];
+              acc[mt][q][v] = __fadd_rn(first, rec);
+            }
+          }
+        }
+      }
+      if (!kFusedX && (Kd::kCodes || !early)) prefetch();
       if (ch + 1 == kChunks) {
         cluster_arrive();  // done reading the A tile
         // the next x[t] lands during the last cell and the barrier
@@ -477,19 +649,26 @@ __global__ void __launch_bounds__(kCoreMaxThreads, 1)
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int v = 2 * e + j;
-            const float ig = sigmoid_fast(acc[mt][0][v]);
-            const float fg = sigmoid_fast(acc[mt][1][v]);
-            const float gg = tanh_fast(acc[mt][2][v]);
-            const float og = sigmoid_fast(acc[mt][3][v]);
+            const float ig = gate_sigmoid<Kd>(acc[mt][0][v]);
+            const float fg = gate_sigmoid<Kd>(acc[mt][1][v]);
+            const float gg = gate_tanh<Kd>(acc[mt][2][v]);
+            const float og = gate_sigmoid<Kd>(acc[mt][3][v]);
             float& cv = c[ch][mt][v];
             cv = __fadd_rn(__fmul_rn(fg, cv), __fmul_rn(ig, gg));
-            h[j] = __fmul_rn(og, tanh_fast(cv));
+            h[j] = __fmul_rn(og, gate_tanh<Kd>(cv));
           }
-          hw[ch][mt][e] = pack_bf16(h[0], h[1]);
+          const unsigned codes =
+              Kd::kCodes ? pack_codes(h[0], h[1]) : 0u;
+          hw[ch][mt][e] = kIntRec ? codes : pack_bf16(h[0], h[1]);
           const int row = b0 + (ch * kMT + mt) * 16 + quad + 8 * e;
           if (row < B) {
-            *reinterpret_cast<unsigned*>(d.out + (base + row) * H + unit) =
-                hw[ch][mt][e];
+            TO* dst = d.out + (base + row) * H + unit;
+            if constexpr (Kd::kCodes) {
+              *reinterpret_cast<unsigned short*>(dst) =
+                  static_cast<unsigned short>(codes);
+            } else {
+              *reinterpret_cast<unsigned*>(dst) = hw[ch][mt][e];
+            }
           }
         }
       }
@@ -497,33 +676,52 @@ __global__ void __launch_bounds__(kCoreMaxThreads, 1)
     if (!more) break;
     cluster_wait();  // every CTA of the cluster is done with its A tile
 
-    // this CTA's slice of bf(h) into its own tile, then into the peers'
+    // this CTA's slice of h into its own tile, then into the peers'
 #pragma unroll
     for (int ch = 0; ch < kChunks; ++ch) {
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          *reinterpret_cast<unsigned*>(
-              hs + ((ch * kMT + mt) * 16 + quad + 8 * e) * ldh + unit) =
-              hw[ch][mt][e];
+          const int r = (ch * kMT + mt) * 16 + quad + 8 * e;
+          if constexpr (kIntRec) {
+            *reinterpret_cast<unsigned short*>(hq + r * ldq + unit) =
+                static_cast<unsigned short>(hw[ch][mt][e]);
+          } else {
+            *reinterpret_cast<unsigned*>(hs + r * ldh + unit) =
+                hw[ch][mt][e];
+          }
         }
       }
     }
     if (kFusedX) store_x(t_next);
     __syncthreads();  // the slice is whole
-    const int slice_chunks = U / 8;
-    for (int i = tid; i < R * slice_chunks; i += nthreads) {
-      const int r = i / slice_chunks;
-      const int off = r * ldh + rank * U + (i - r * slice_chunks) * 8;
-      const uint4 v = *reinterpret_cast<const uint4*>(hs + off);
+    if constexpr (kIntRec) {
+      // U codes a row, in 8-byte pieces (U is a multiple of 8)
+      const int slice_chunks = U / 8;
+      for (int i = tid; i < R * slice_chunks; i += nthreads) {
+        const int r = i / slice_chunks;
+        const int off = r * ldq + rank * U + (i - r * slice_chunks) * 8;
+        const uint2 v = *reinterpret_cast<const uint2*>(hq + off);
 #pragma unroll
-      for (int p = 0; p < kMaxCluster; ++p) {
-        if (p < n && p != rank) st_cluster_v4(map_rank(hs + off, p), v);
+        for (int p = 0; p < kMaxCluster; ++p) {
+          if (p < n && p != rank) st_cluster_v2(map_rank(hq + off, p), v);
+        }
+      }
+    } else {
+      const int slice_chunks = U / 8;
+      for (int i = tid; i < R * slice_chunks; i += nthreads) {
+        const int r = i / slice_chunks;
+        const int off = r * ldh + rank * U + (i - r * slice_chunks) * 8;
+        const uint4 v = *reinterpret_cast<const uint4*>(hs + off);
+#pragma unroll
+        for (int p = 0; p < kMaxCluster; ++p) {
+          if (p < n && p != rank) st_cluster_v4(map_rank(hs + off, p), v);
+        }
       }
     }
     cluster_arrive();
-    cluster_wait();  // every slice of bf(h) and x[t+1] in place
+    cluster_wait();  // every slice of h and x[t+1] in place
   }
   cluster_wait();  // pairs the last step's arrive
 }
@@ -550,17 +748,18 @@ cudaError_t ensure_smem_limit(const void* kernel, int device) {
   return cudaSuccess;
 }
 
-template <int kMT, int kChunks, bool kFusedX, typename XW>
+template <int kMT, int kChunks, bool kFusedX, typename Kd>
 struct CoreTag {};
 
-template <int kMT, int kChunks, bool kFusedX>
+template <int kMT, int kChunks, bool kFusedX, typename Kd>
 void fill_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int H,
                  int clusters, int dirs, cudaStream_t stream) {
   const int n = cluster_size(H);
   cfg = cudaLaunchConfig_t{};
   cfg.gridDim = dim3(clusters * n, dirs, 1);
   cfg.blockDim = dim3(32 * (H / n / 8), 1, 1);
-  cfg.dynamicSmemBytes = core_smem_bytes(H, 16 * kMT * kChunks, kFusedX);
+  cfg.dynamicSmemBytes =
+      core_smem_bytes(H, 16 * kMT * kChunks, kFusedX, Kd::kIntRec);
   cfg.stream = stream;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = n;
@@ -573,7 +772,7 @@ void fill_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int H,
 // How many clusters of a core kernel at width H run at once on `device`
 // (cudaOccupancyMaxActiveClusters, asked once per device and H; 30 of 4
 // CTAs on an H100 SXM at H=256, so 120 of its 132 SMs).
-template <int kMT, int kChunks, bool kFusedX, typename XW>
+template <int kMT, int kChunks, bool kFusedX, typename Kd>
 cudaError_t max_clusters(int device, int H, int* count) {
   static std::mutex mu;
   static std::map<std::tuple<int, int>, int> memo;
@@ -584,31 +783,32 @@ cudaError_t max_clusters(int device, int H, int* count) {
     *count = found->second;
     return cudaSuccess;
   }
-  auto kernel = core_kernel<kMT, kChunks, kFusedX, XW>;
-  cudaError_t err = ensure_smem_limit<CoreTag<kMT, kChunks, kFusedX, XW>>(
+  auto kernel = core_kernel<kMT, kChunks, kFusedX, Kd>;
+  cudaError_t err = ensure_smem_limit<CoreTag<kMT, kChunks, kFusedX, Kd>>(
       reinterpret_cast<const void*>(kernel), device);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  fill_config<kMT, kChunks, kFusedX>(cfg, attr, H, 1, 1, nullptr);
+  fill_config<kMT, kChunks, kFusedX, Kd>(cfg, attr, H, 1, 1, nullptr);
   err = cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
   if (err != cudaSuccess) return err;
   memo[key] = *count;
   return cudaSuccess;
 }
 
-template <int kMT, int kChunks, bool kFusedX, typename XW>
-cudaError_t launch_rows(const CoreArgs<XW>& a, int dirs, int device,
+template <int kMT, int kChunks, bool kFusedX, typename Kd>
+cudaError_t launch_rows(const CoreArgs<Kd>& a, int dirs, int device,
                         cudaStream_t stream) {
-  auto kernel = core_kernel<kMT, kChunks, kFusedX, XW>;
-  cudaError_t err = ensure_smem_limit<CoreTag<kMT, kChunks, kFusedX, XW>>(
+  auto kernel = core_kernel<kMT, kChunks, kFusedX, Kd>;
+  cudaError_t err = ensure_smem_limit<CoreTag<kMT, kChunks, kFusedX, Kd>>(
       reinterpret_cast<const void*>(kernel), device);
   if (err != cudaSuccess) return err;
   const int rows = 16 * kMT * kChunks;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  fill_config<kMT, kChunks, kFusedX>(cfg, attr, a.H,
-                                     (a.B + rows - 1) / rows, dirs, stream);
+  fill_config<kMT, kChunks, kFusedX, Kd>(cfg, attr, a.H,
+                                         (a.B + rows - 1) / rows, dirs,
+                                         stream);
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -618,12 +818,12 @@ cudaError_t launch_rows(const CoreArgs<XW>& a, int dirs, int device,
 // the fewest of 16, 32, 48, 96 and 144 whose clusters all run in one wave,
 // else 144 (in more waves where B asks for them).  *count: how many
 // clusters of that plan run at once.
-template <bool kFusedX, typename XW>
+template <bool kFusedX, typename Kd>
 cudaError_t pick_rows(int B, int H, int dirs, int device, int* rows,
                       int* count) {
   cudaError_t err;
 #define LSTM_TRY(MT, CH)                                                    \
-  err = max_clusters<MT, CH, kFusedX, XW>(device, H, count);              \
+  err = max_clusters<MT, CH, kFusedX, Kd>(device, H, count);              \
   if (err != cudaSuccess) return err;                                     \
   *rows = 16 * (MT) * (CH);                                               \
   if (static_cast<long long>(dirs) * ((B + *rows - 1) / *rows) <= *count) { \
@@ -635,15 +835,15 @@ cudaError_t pick_rows(int B, int H, int dirs, int device, int* rows,
   LSTM_TRY(3, 2)
 #undef LSTM_TRY
   *rows = 144;
-  return max_clusters<3, 3, kFusedX, XW>(device, H, count);
+  return max_clusters<3, 3, kFusedX, Kd>(device, H, count);
 }
 
-template <bool kFusedX, typename XW>
-cudaError_t launch_plan(const CoreArgs<XW>& a, int dirs, int device,
+template <bool kFusedX, typename Kd>
+cudaError_t launch_plan(const CoreArgs<Kd>& a, int dirs, int device,
                         cudaStream_t stream) {
   int rows = 0, count = 0;
   const cudaError_t err =
-      pick_rows<kFusedX, XW>(a.B, a.H, dirs, device, &rows, &count);
+      pick_rows<kFusedX, Kd>(a.B, a.H, dirs, device, &rows, &count);
   if (err != cudaSuccess) return err;
   switch (rows) {
     case 16:
@@ -661,31 +861,35 @@ cudaError_t launch_plan(const CoreArgs<XW>& a, int dirs, int device,
 
 // The fused-x body exists for a float xw only (it reads no xw), so a
 // library that runs the core over a bf16 xw builds the hoisted body alone.
-template <typename XW>
-constexpr bool kHasFused = std::is_same<XW, float>::value;
+template <typename Kd>
+constexpr bool kHasFused = std::is_same<typename Kd::XW, float>::value;
 
 // The recurrence of dirs directions (a.dir[0..dirs-1]): with fused_x
 // (F0 + F1 <= kXMax) x[t] joins the step's product, else it runs over each
 // direction's xw, whose rows must start on two elements.  W_hh must be
 // 16-byte aligned.
-template <typename XW>
-cudaError_t launch_core(const CoreArgs<XW>& a, int dirs, bool fused_x,
+template <typename Kd>
+cudaError_t launch_core(const CoreArgs<Kd>& a, int dirs, bool fused_x,
                         cudaStream_t stream) {
-  if (fused_x && !kHasFused<XW>) return cudaErrorInvalidValue;
+  if (fused_x && !kHasFused<Kd>) return cudaErrorInvalidValue;
   for (int i = 0; i < dirs; ++i) {
     if (reinterpret_cast<uintptr_t>(a.dir[i].w_hh) % 16 != 0) {
       return cudaErrorMisalignedAddress;
     }
+    if (Kd::kIntRec && a.dir[i].rec_scale == nullptr) {
+      return cudaErrorInvalidValue;
+    }
     if (!fused_x && a.dir[i].xw == nullptr) return cudaErrorInvalidValue;
-    if (!fused_x &&
-        reinterpret_cast<uintptr_t>(a.dir[i].xw) % (2 * sizeof(XW)) != 0) {
+    if (!fused_x && reinterpret_cast<uintptr_t>(a.dir[i].xw) %
+                            (2 * sizeof(typename Kd::XW)) !=
+                        0) {
       return cudaErrorMisalignedAddress;
     }
   }
   int device = 0;
   const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  if constexpr (kHasFused<XW>) {
+  if constexpr (kHasFused<Kd>) {
     if (fused_x) return launch_plan<true>(a, dirs, device, stream);
   }
   return launch_plan<false>(a, dirs, device, stream);
@@ -761,22 +965,6 @@ __device__ __forceinline__ uint4 w_chunk(const bf16* w0, const bf16* w1,
     e[i] = reinterpret_cast<const unsigned short*>(row)[n + i];
   }
   return v;
-}
-
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
-                                                 bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // one pipeline stage: the x tile [kPM][kPK + kPad] and the W tile
@@ -954,18 +1142,18 @@ inline bool valid_shape(int F0, int F1, int steps, int B, int H) {
 // The plan launch_core takes for dirs directions of B rows at width H:
 // out[0] rows a cluster, out[1] CTAs a cluster, out[2] clusters a
 // direction, out[3] clusters that run at once.
-template <typename XW = float>
-cudaError_t core_plan(int B, int H, int dirs, bool fused_x, int* out) {
-  if (fused_x && !kHasFused<XW>) return cudaErrorInvalidValue;
+template <typename Kd>
+cudaError_t plan_of(int B, int H, int dirs, bool fused_x, int* out) {
+  if (fused_x && !kHasFused<Kd>) return cudaErrorInvalidValue;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   int rows = 0, count = 0;
-  if constexpr (kHasFused<XW>) {
-    err = fused_x ? pick_rows<true, XW>(B, H, dirs, device, &rows, &count)
-                  : pick_rows<false, XW>(B, H, dirs, device, &rows, &count);
+  if constexpr (kHasFused<Kd>) {
+    err = fused_x ? pick_rows<true, Kd>(B, H, dirs, device, &rows, &count)
+                  : pick_rows<false, Kd>(B, H, dirs, device, &rows, &count);
   } else {
-    err = pick_rows<false, XW>(B, H, dirs, device, &rows, &count);
+    err = pick_rows<false, Kd>(B, H, dirs, device, &rows, &count);
   }
   if (err != cudaSuccess) return err;
   out[0] = rows;
@@ -973,6 +1161,12 @@ cudaError_t core_plan(int B, int H, int dirs, bool fused_x, int* out) {
   out[2] = (B + rows - 1) / rows;
   out[3] = count;
   return cudaSuccess;
+}
+
+// The float kernels' plan over a bf16 recurrence with an xw of type XW.
+template <typename XW = float>
+cudaError_t core_plan(int B, int H, int dirs, bool fused_x, int* out) {
+  return plan_of<Kind<XW>>(B, H, dirs, fused_x, out);
 }
 
 // The bfloat16 recurrence of dirs directions over their xw (float32 from
@@ -983,12 +1177,12 @@ template <typename XW>
 cudaError_t launch_recurrence(const XW* const* xw, const void* const* w_hh,
                               void* const* out, const int* reverse, int dirs,
                               int steps, int B, int H, cudaStream_t stream) {
-  CoreArgs<XW> a{};
+  CoreArgs<Kind<XW>> a{};
   a.steps = steps;
   a.B = B;
   a.H = H;
   for (int i = 0; i < dirs; ++i) {
-    a.dir[i].w_hh = static_cast<const bf16*>(w_hh[i]);
+    a.dir[i].w_hh = w_hh[i];
     a.dir[i].xw = xw[i];
     a.dir[i].out = static_cast<bf16*>(out[i]);
     a.dir[i].reverse = reverse[i];
@@ -1035,7 +1229,7 @@ inline cudaError_t launch_directions(
     return launch_recurrence(xws, w_hh, out, reverse, dirs, steps, B, H,
                              stream);
   }
-  CoreArgs<> a{};
+  CoreArgs<FloatKind> a{};
   a.x0 = static_cast<const bf16*>(x0);
   a.x1 = static_cast<const bf16*>(x1);
   a.F0 = F0;
@@ -1044,13 +1238,67 @@ inline cudaError_t launch_directions(
   a.B = B;
   a.H = H;
   for (int i = 0; i < dirs; ++i) {
-    a.dir[i] = {static_cast<const bf16*>(w_hh[i]),
+    a.dir[i] = {w_hh[i],
                 static_cast<const bf16*>(w0[i]),
                 static_cast<const bf16*>(w1[i]),
-                static_cast<const bf16*>(bias[i]), nullptr,
-                static_cast<bf16*>(out[i]), reverse[i]};
+                static_cast<const bf16*>(bias[i]),
+                nullptr,
+                static_cast<bf16*>(out[i]),
+                nullptr,
+                reverse[i]};
   }
   return launch_core(a, dirs, true, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The static kernels' recurrence (lstm_direction_fused_static.cu): one
+// direction with int8 codes out and a float32 bias, over bf16 x of at most
+// kXMax features (fused: bias, w0, w1 read) or over the float32 xw of the
+// int8 projection (xw read); W_hh bf16 (H, 4H), or with int_rec int8
+// k-major (4H, H) and its rescale rec_scale (4H,).
+
+template <bool kIntRec>
+cudaError_t launch_static_kind(const bf16* x0, const bf16* x1, int F0,
+                               int F1, const bf16* w0, const bf16* w1,
+                               const float* bias, const float* xw,
+                               const void* w_hh, const float* rec_scale,
+                               int8_t* out, int reverse, int steps, int B,
+                               int H, cudaStream_t stream) {
+  using Kd = Kind<float, int8_t, kIntRec>;
+  CoreArgs<Kd> a{};
+  a.x0 = x0;
+  a.x1 = x1;
+  a.F0 = F0;
+  a.F1 = F1;
+  a.steps = steps;
+  a.B = B;
+  a.H = H;
+  a.dir[0] = {w_hh, w0, w1, bias, xw, out, rec_scale, reverse};
+  return launch_core(a, 1, xw == nullptr, stream);
+}
+
+inline cudaError_t launch_static(const bf16* x0, const bf16* x1, int F0,
+                                 int F1, const bf16* w0, const bf16* w1,
+                                 const float* bias, const float* xw,
+                                 const void* w_hh, bool int_rec,
+                                 const float* rec_scale, int8_t* out,
+                                 int reverse, int steps, int B, int H,
+                                 cudaStream_t stream) {
+  if (xw == nullptr && F0 + F1 > kXMax) return cudaErrorInvalidValue;
+  return int_rec ? launch_static_kind<true>(x0, x1, F0, F1, w0, w1, bias,
+                                            xw, w_hh, rec_scale, out,
+                                            reverse, steps, B, H, stream)
+                 : launch_static_kind<false>(x0, x1, F0, F1, w0, w1, bias,
+                                             xw, w_hh, rec_scale, out,
+                                             reverse, steps, B, H, stream);
+}
+
+// The static recurrence's plan (see plan_of), fused or over xw.
+inline cudaError_t static_plan(int B, int H, bool fused_x, bool int_rec,
+                               int* out) {
+  return int_rec ? plan_of<Kind<float, int8_t, true>>(B, H, 1, fused_x, out)
+                 : plan_of<Kind<float, int8_t, false>>(B, H, 1, fused_x,
+                                                       out);
 }
 
 }  // namespace

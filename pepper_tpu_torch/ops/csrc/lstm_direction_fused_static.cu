@@ -23,28 +23,48 @@
 // use __fmul_rn/__fadd_rn, so no multiply-add is contracted: those steps
 // round exactly as the plain version's separate multiply and add.
 //
-// Design.  The layout of lstm_cell.cuh: a block owns kRows batch rows for
-// all T steps, thread j owns hidden unit j and its four gate columns, c
-// stays in registers.  Float streams take the float path of lstm_cell.cuh.
-// The int8 products run on __dp4a, four k at a time: the int8 x rows are
-// staged in shared memory as 32-bit words of four consecutive features
-// ([k/4][row]), the h codes likewise, and the wrapper hands int8 weights
-// over packed into k-quads ([k/4][4H] words, byte i = row 4*(k/4)+i), so
-// thread j reads one word per gate column and k-quad, coalesced across the
-// warp.
+// Design.  Two bodies, by combination.
+// (a) lstm_core.cuh, for every combination with int8 codes out, bf16 or
+// int8 x and a bf16 or int8 W_hh (the static and static_rec serving modes
+// in bfloat16): the tensor-core recurrence with W_hh split over a cluster
+// of up to 4 CTAs, with int8 codes out and a float32 bias.  bf16 x of at
+// most kXMax (32) features (the encoder's 26) joins the step's product as
+// the float kernel's does; int8 x (the decoder's 2 x 256 codes) is first
+// projected for all T*B rows by int8_projection.cuh (mma.sync m16n8k32 s8
+// on the tensor cores) into a float32 xw scratch the caller allocates,
+// xw = b + f32(acc) * acc_scale (f32, as the TPU kernel's gates: bf16
+// would change the math), and the core's hoisted body runs over it.  An
+// int8 W_hh (static_rec) is held k-major in the cluster's shared memory
+// and multiplied by the codes of h on the s8 tensor cores
+// (lstm_core.cuh).  int8 weights arrive k-major ((N, K), relaid once per
+// weight tree: ops/cuda_build.py:int8_kmajor), W_ih as one (4H, F0 + F1)
+// matrix for both parts.
+// (b) The first body, for the rest: float32 x or a float32 W_hh, a float
+// epilogue (out_int8=False), or bf16 x of more than kXMax features, none
+// of which the served modes run in bfloat16.  The layout of lstm_cell.cuh:
+// a block owns kRows batch rows for all T steps, thread j owns hidden unit
+// j and its four gate columns, c stays in registers.  Float streams take
+// the float path of lstm_cell.cuh.  The int8 products run on __dp4a, four
+// k at a time: the int8 x rows are staged in shared memory as 32-bit words
+// of four consecutive features ([k/4][row]), the h codes likewise, and the
+// wrapper hands int8 weights over packed into k-quads ([k/4][4H] words,
+// byte i = row 4*(k/4)+i), so thread j reads one word per gate column and
+// k-quad, coalesced across the warp.
 //
 // Bound.  At B=4096, T=33, H=256 the work is far above the card's ridge
-// point, so operations bound it: the static decoder does 141.7 GOP of int8
-// and 70.9 GFLOP of bf16 products (0.143 ms on the tensor cores).  This
-// first version runs them on the CUDA cores (dp4a and f32 FMA), so it is
-// far above that bound; int8 mma/wgmma is later work.
+// point for the products: the static decoder does 141.7 GOP of int8 (0.072
+// ms at 1,979 TOP/s) and 70.9 GFLOP of bf16 products (0.072 ms at 989
+// TFLOP/s).  Its projection is bound by the f32 xw it writes instead (553
+// MB, 0.165 ms); the recurrence, as the float kernel's, by its serial chain
+// of 33 steps, each ending in an exchange of h across the cluster.
 //
 // Binding: a plain C launcher (no PyTorch headers) loaded with ctypes; it
 // launches on the caller's stream and returns cudaGetLastError().
 
-#include "lstm_cell.cuh"
-
 #include <type_traits>
+
+#include "int8_projection.cuh"
+#include "lstm_core.cuh"
 
 namespace {
 
@@ -106,10 +126,6 @@ __device__ __forceinline__ void add_rescaled(float (&gates)[kRows][4],
           gates[r][q], __fmul_rn(static_cast<float>(acc[r][q]), scale[q]));
     }
   }
-}
-
-__device__ __forceinline__ int8_t code(float h) {
-  return static_cast<int8_t>(__float2int_rn(__fmul_rn(h, 127.0f)));
 }
 
 constexpr int kOutF32 = 0;
@@ -231,7 +247,8 @@ __global__ void __launch_bounds__(kMaxHidden)
       const float h = og * tanhf(c[r]);
       if constexpr (kIntRec) {
         // unit j is byte j%4 of word [j/4][r]
-        hq_bytes[((j >> 2) * kRows + r) * 4 + (j & 3)] = code(h);
+        hq_bytes[((j >> 2) * kRows + r) * 4 + (j & 3)] =
+            lstm::from_f32<int8_t>(h);
       } else {
         hs[j * kRows + r] = lstm::to_f32(lstm::from_f32<TW>(h));
       }
@@ -239,7 +256,7 @@ __global__ void __launch_bounds__(kMaxHidden)
       if (row < B) {
         const size_t o = (base + row) * H + j;
         if (out_kind == kOutInt8) {
-          static_cast<int8_t*>(out)[o] = code(h);
+          static_cast<int8_t*>(out)[o] = lstm::from_f32<int8_t>(h);
         } else if (out_kind == kOutBf16) {
           static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(h);
         } else {
@@ -278,28 +295,78 @@ constexpr int kF32 = 0;
 constexpr int kBf16 = 1;
 constexpr int kInt8 = 2;
 
+using bf16 = __nv_bfloat16;
+
+bool valid_args(int x_dtype, int whh_dtype, int out_kind, int F0, int F1,
+                const float* acc_scale, const float* rec_scale, int steps,
+                int B, int H) {
+  const bool int_x = x_dtype == kInt8;
+  return lstm::valid_shape(F0, F1, steps, B, H) && out_kind >= kOutF32 &&
+         out_kind <= kOutInt8 && x_dtype >= kF32 && x_dtype <= kInt8 &&
+         whh_dtype >= kF32 && whh_dtype <= kInt8 &&
+         (!int_x || (F0 % 4 == 0 && F1 % 4 == 0 && acc_scale != nullptr)) &&
+         (whh_dtype != kInt8 || rec_scale != nullptr);
+}
+
+// Whether a combination runs on lstm_core.cuh (body (a)); the wrapper
+// (ops/lstm_kernel.py:static_on_core) applies the same rule to pick the
+// weights' layout.
+bool on_core(int x_dtype, int whh_dtype, int out_kind, int F) {
+  return out_kind == kOutInt8 && x_dtype != kF32 && whh_dtype != kF32 &&
+         (x_dtype == kInt8 || F <= lstm::kXMax);
+}
+
+// xw = b + f32([x0 x1] @ W) * acc_scale for all steps * B rows; w_t is W
+// k-major, (4H, F0 + F1)
+cudaError_t project(const void* x0, const void* x1, int F0, int F1,
+                    const void* w_t, const float* acc_scale,
+                    const float* bias, float* xw, int steps, int B, int H,
+                    cudaStream_t stream) {
+  return i8::launch_projection(
+      static_cast<const int8_t*>(x0), static_cast<const int8_t*>(x1), F0, F1,
+      static_cast<const int8_t*>(w_t), acc_scale, bias, xw, steps * B,
+      4 * H, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// x_dtype, whh_dtype: 0 = float32, 1 = bfloat16, 2 = int8 (w0/w1 resp.
-// w_hh then in k-quad words); out_kind: 0 = float32, 1 = bfloat16,
-// 2 = int8 codes.  acc_scale is read for int8 x, rec_scale for an int8
-// W_hh; bias is float32.  x1/w1 may be null with F1 == 0.  Returns a
-// cudaError_t value (0 on success).
+// x_dtype, whh_dtype: 0 = float32, 1 = bfloat16, 2 = int8; out_kind:
+// 0 = float32, 1 = bfloat16, 2 = int8 codes.  acc_scale is read for int8
+// x, rec_scale for an int8 W_hh; bias is float32.  x1/w1 may be null with
+// F1 == 0.  On the core (on_core: int8 codes out, bf16 or int8 x and
+// W_hh): an int8 W_ih is w0, k-major (4H, F0 + F1), w1 unused; an int8 W_hh
+// is k-major (4H, H); int8 x is projected into xw, a float32 scratch of
+// steps * B * 4H values.  Otherwise int8 weights are in k-quad words (w0,
+// w1 a part each) and xw is unused.  Returns a cudaError_t value (0 on
+// success).
 int lstm_direction_fused_static_launch(
     int x_dtype, int whh_dtype, int out_kind, const void* x0, const void* x1,
     const void* w0, const void* w1, int F0, int F1, const float* acc_scale,
-    const float* rec_scale, const float* bias, const void* w_hh, void* out,
-    int steps, int B, int H, int reverse, void* stream) {
-  const bool int_x = x_dtype == kInt8;
-  if (H <= 0 || H > kMaxHidden || H % 32 != 0 || F0 <= 0 || F1 < 0 ||
-      steps <= 0 || B <= 0 || out_kind < kOutF32 || out_kind > kOutInt8 ||
-      (int_x && (F0 % 4 != 0 || F1 % 4 != 0 || acc_scale == nullptr)) ||
-      (whh_dtype == kInt8 && rec_scale == nullptr)) {
+    const float* rec_scale, const float* bias, const void* w_hh, float* xw,
+    void* out, int steps, int B, int H, int reverse, void* stream) {
+  if (!valid_args(x_dtype, whh_dtype, out_kind, F0, F1, acc_scale, rec_scale,
+                  steps, B, H)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool int_rec = whh_dtype == kInt8;
+  if (on_core(x_dtype, whh_dtype, out_kind, F0 + F1)) {
+    int8_t* codes = static_cast<int8_t*>(out);
+    if (x_dtype == kInt8) {
+      const cudaError_t err = project(x0, x1, F0, F1, w0, acc_scale, bias, xw,
+                                      steps, B, H, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      return static_cast<int>(lstm::launch_static(
+          nullptr, nullptr, 0, 0, nullptr, nullptr, nullptr, xw, w_hh,
+          int_rec, rec_scale, codes, reverse, steps, B, H, s));
+    }
+    return static_cast<int>(lstm::launch_static(
+        static_cast<const bf16*>(x0), static_cast<const bf16*>(x1), F0, F1,
+        static_cast<const bf16*>(w0), static_cast<const bf16*>(w1), bias,
+        nullptr, w_hh, int_rec, rec_scale, codes, reverse, steps, B, H, s));
+  }
 #define PEPPER_STATIC_LAUNCH(TX, TW)                                       \
   launch<TX, TW>(x0, x1, w0, w1, F0, F1, acc_scale, rec_scale, bias, w_hh, \
                  out, out_kind, steps, B, H, reverse, s)
@@ -310,22 +377,67 @@ int lstm_direction_fused_static_launch(
     return PEPPER_STATIC_LAUNCH(float, int8_t);
   }
   if (x_dtype == kBf16 && whh_dtype == kBf16) {
-    return PEPPER_STATIC_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+    return PEPPER_STATIC_LAUNCH(bf16, bf16);
   }
   if (x_dtype == kBf16 && whh_dtype == kInt8) {
-    return PEPPER_STATIC_LAUNCH(__nv_bfloat16, int8_t);
+    return PEPPER_STATIC_LAUNCH(bf16, int8_t);
   }
   if (x_dtype == kInt8 && whh_dtype == kF32) {
     return PEPPER_STATIC_LAUNCH(int8_t, float);
   }
   if (x_dtype == kInt8 && whh_dtype == kBf16) {
-    return PEPPER_STATIC_LAUNCH(int8_t, __nv_bfloat16);
+    return PEPPER_STATIC_LAUNCH(int8_t, bf16);
   }
   if (x_dtype == kInt8 && whh_dtype == kInt8) {
     return PEPPER_STATIC_LAUNCH(int8_t, int8_t);
   }
 #undef PEPPER_STATIC_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The int8 projection of the core's path alone (its first launch): xw =
+// b + f32([x0 x1] @ W) * acc_scale, w_t k-major (4H, F0 + F1).
+int lstm_direction_fused_static_projection_launch(
+    const void* x0, const void* x1, int F0, int F1, const void* w_t,
+    const float* acc_scale, const float* bias, float* xw, int steps, int B,
+    int H, void* stream) {
+  if (!lstm::valid_shape(F0, F1, steps, B, H)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(project(x0, x1, F0, F1, w_t, acc_scale, bias, xw,
+                                  steps, B, H,
+                                  static_cast<cudaStream_t>(stream)));
+}
+
+// The core's recurrence over a float32 xw alone (its second launch):
+// whh_dtype 1 = bfloat16 (H, 4H), 2 = int8 k-major (4H, H) with rec_scale;
+// int8 codes out.
+int lstm_direction_fused_static_recurrence_launch(
+    int whh_dtype, const float* xw, const void* w_hh, const float* rec_scale,
+    void* out, int steps, int B, int H, int reverse, void* stream) {
+  if (!lstm::valid_steps(steps, B, H) ||
+      (whh_dtype != kBf16 && whh_dtype != kInt8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(lstm::launch_static(
+      nullptr, nullptr, 0, 0, nullptr, nullptr, nullptr, xw, w_hh,
+      whh_dtype == kInt8, rec_scale, static_cast<int8_t*>(out), reverse,
+      steps, B, H, static_cast<cudaStream_t>(stream)));
+}
+
+// The core's plan for one direction of B rows (fused: bf16 x joins the
+// step; int_rec: an int8 W_hh): out[0] rows a cluster, out[1] CTAs a
+// cluster, out[2] clusters, out[3] clusters that run at once.  Launches
+// nothing.
+int lstm_direction_fused_static_plan_launch(int B, int H, int fused,
+                                            int int_rec, int* out,
+                                            void* stream) {
+  (void)stream;
+  if (!lstm::valid_steps(1, B, H)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(
+      lstm::static_plan(B, H, fused != 0, int_rec != 0, out));
 }
 
 const char* lstm_direction_fused_static_error_string(int err) {

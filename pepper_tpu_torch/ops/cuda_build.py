@@ -13,8 +13,8 @@ and may export further launchers beside it (ENTRIES).
 KERNELS lists every kernel with the headers that go into its build stamp
 and the argument types of its launcher; the wrappers that call them live
 in lstm_kernel.py, gru_kernel.py and pileup_kernel.py, and the dtype
-codes, the H limit and the int8 layouts both RNN families share are here.  A failed build or launch
-raises: there is no fallback.
+codes, the H limit and the int8 weight layouts both RNN families read are
+here.  A failed build or launch raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import shutil
 import subprocess
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..build import BUILD_DIR, ensure_built, source_digest
 
@@ -34,7 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _LSTM = ("lstm_cell.cuh",)
-_LSTM_CORE = ("lstm_core.cuh",) + _LSTM
+_LSTM_CORE = ("lstm_core.cuh", "mma_ptx.cuh") + _LSTM
+_INT8 = ("int8_projection.cuh", "mma_ptx.cuh")
 _GRU = ("gru_cell.cuh", "lstm_cell.cuh")
 _GRU_CORE = ("gru_core.cuh",) + _GRU
 # name -> (headers it includes, argument types of <name>_launch, the
@@ -45,15 +47,18 @@ KERNELS = {
     "bilstm_dual_fused": (_LSTM_CORE, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                                        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _P]),
-    "lstm_direction_fused_static": (_LSTM, [_I, _I, _I, _P, _P, _P, _P, _I,
-                                            _I, _P, _P, _P, _P, _P, _I, _I,
-                                            _I, _I, _P]),
+    "lstm_direction_fused_static": (
+        _LSTM_CORE + ("int8_projection.cuh",),
+        [_I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+         _I, _I, _P]),
     "lstm_recurrence": (_LSTM_CORE, [_I, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "gru_direction_fused": (_GRU_CORE, [_I, _P, _P, _P, _P, _I, _I, _P, _P,
-                                        _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "gru_direction_fused_static": (_GRU, [_I, _I, _P, _P, _P, _P, _I, _I, _P,
-                                          _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                          _I, _P]),
+    "gru_direction_fused": (_GRU_CORE + ("gru_projection.cuh",),
+                            [_I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                             _P, _I, _I, _I, _I, _P]),
+    "gru_direction_fused_static": (
+        _GRU_CORE + ("gru_projection.cuh",) + _INT8,
+        [_I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+         _I, _I, _I, _P]),
     "gru_recurrence": (_GRU_CORE, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "pileup_histogram": ((), [_P, _P, _P, _L, _P, _I, _I, _P]),
 }
@@ -82,6 +87,24 @@ ENTRIES = {
     "gru_direction_fused_projection": (
         "gru_direction_fused", [_I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
                                 _I, _P]),
+    # the static kernels' two launches apart: the input projection (int8 x
+    # on the tensor cores; the GRU's also float x) and the recurrence over
+    # its float32 xw, and the LSTM core's plan for them (B, H, fused,
+    # int_rec, int out[4]; launches nothing)
+    "lstm_direction_fused_static_projection": (
+        "lstm_direction_fused_static", [_P, _P, _I, _I, _P, _P, _P, _P, _I,
+                                        _I, _I, _P]),
+    "lstm_direction_fused_static_recurrence": (
+        "lstm_direction_fused_static", [_I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _P]),
+    "lstm_direction_fused_static_plan": (
+        "lstm_direction_fused_static", [_I, _I, _I, _I, _P, _P]),
+    "gru_direction_fused_static_projection": (
+        "gru_direction_fused_static", [_I, _P, _P, _P, _P, _I, _I, _P, _P,
+                                       _P, _I, _I, _I, _P]),
+    "gru_direction_fused_static_recurrence": (
+        "gru_direction_fused_static", [_I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _P]),
 }
 _libs: dict = {}
 
@@ -214,7 +237,85 @@ def int8_codes(h: torch.Tensor) -> torch.Tensor:
 
 def pack_quads(w: torch.Tensor) -> torch.Tensor:
     """(K, N) int8 -> (K/4, N, 4) int8: the 32-bit words of four
-    consecutive k that the kernels' dp4a products read, byte i of word
-    [k/4][n] being w[4*(k/4) + i][n]."""
+    consecutive k that the first static LSTM body's dp4a products read,
+    byte i of word [k/4][n] being w[4*(k/4) + i][n]."""
     K, N = w.shape
     return w.reshape(K // 4, 4, N).transpose(1, 2).contiguous()
+
+
+def int8_kmajor(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 -> (N, K) int8, k-major: row n holds output column n's K
+    codes.  That is the B operand of mma.sync m16n8k32 s8 as the tensor-core
+    kernels read it (csrc/mma_ptx.cuh): each 4 bytes of a row are one B
+    register, four consecutive k of one column, and 8 rows of 16 bytes one
+    ldmatrix matrix.  Its inverse is the same transpose."""
+    return w.t().contiguous()
+
+
+# the int8 weight layouts the kernels read, by name
+INT8_LAYOUTS = {"kmajor": int8_kmajor, "quads": pack_quads}
+
+
+def relayout_int8(w: torch.Tensor, layout: str) -> torch.Tensor:
+    """w (K, N) int8 in `layout` (INT8_LAYOUTS), counted in
+    relayout_int8.count."""
+    relayout_int8.count += 1
+    return INT8_LAYOUTS[layout](w)
+
+
+relayout_int8.count = 0
+
+# weight -> {layout: (the weight's version, its relaid copy)}, for as long
+# as the weight lives
+_KEPT = WeakIdKeyDictionary()
+
+
+def _version(w):
+    """w's version counter, which every write in place moves; an inference
+    tensor (torch.inference_mode) keeps none, and -1 stands for it."""
+    return -1 if w.is_inference() else w._version
+
+
+def _kept(w, layout):
+    """The copy kept for w in `layout`, unless w was written since."""
+    version, copy = _KEPT.get(w, {}).get(layout, (None, None))
+    return copy if version == _version(w) else None
+
+
+def keep_relaid(w: torch.Tensor, layout: str) -> torch.Tensor:
+    """Relay the int8 weight w (K, N) into `layout` once and keep the copy
+    for as long as w lives unwritten: every later launch handed w, or row
+    slices of it that cover it in order, reads the copy.  The served paths
+    call it once per weight tree (models/quantize.py)."""
+    copy = _kept(w, layout)
+    if copy is None:
+        copy = relayout_int8(w, layout)
+        _KEPT.setdefault(w, {})[layout] = (_version(w), copy)
+    return copy
+
+
+def _covers(w, parts):
+    """Whether the row slices `parts` make up the 2-D tensor w, in order
+    (views of its storage; under torch.inference_mode a view keeps no
+    _base, so the storage is what tells)."""
+    storage, offset = w.untyped_storage(), w.storage_offset()
+    for part in parts:
+        if (part.untyped_storage() is not storage
+                or part.storage_offset() != offset
+                or part.stride() != w.stride()
+                or part.shape[1:] != w.shape[1:]):
+            return False
+        offset += part.shape[0] * w.stride(0)
+    return offset == w.storage_offset() + w.shape[0] * w.stride(0)
+
+
+def relaid(parts, layout: str) -> torch.Tensor:
+    """The int8 weight that the row slices `parts` make up (one part: the
+    weight itself), in `layout`: the copy keep_relaid kept for it, or a
+    relayout made now."""
+    for w in list(_KEPT.keys()):
+        copy = _kept(w, layout) if _covers(w, parts) else None
+        if copy is not None:
+            return copy
+    return relayout_int8(parts[0] if len(parts) == 1 else torch.cat(parts),
+                         layout)

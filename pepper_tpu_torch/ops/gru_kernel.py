@@ -19,10 +19,13 @@ runs its `*_reference` twin, which does the same math in plain PyTorch.
 There is no fallback from one to the other: a failed build or launch
 raises.
 
-gru_direction_fused and gru_recurrence share one recurrence core
-(csrc/gru_core.cuh), which picks its body and the batch rows a block from
-B, H and the card's SM count; gru_direction_fused hands its kernel a
-float32 scratch for the input projection of all steps.
+All three share one recurrence core (csrc/gru_core.cuh), which picks its
+body and the batch rows a block from B, H and the card's SM count; the two
+fused kernels hand theirs a float32 scratch for the input projection of
+all steps, which runs first (an f32 product for float x, an int8
+tensor-core product for the static kernel's int8 x, whose int8 W_ih it
+reads k-major: relaid once per weight tree on the served path,
+models/quantize.py:polish_prepare_static, else at each launch).
 
 The cell is torch.nn.GRU's (gru_cell, which models/rnn.py shares), with
 f32 state and f32 sums; h is rounded to W_hh's dtype before the recurrent
@@ -40,7 +43,7 @@ import os
 import torch
 
 from .cuda_build import (DTYPE_CODE, FLOATS, aligned, check_contiguous,
-                         check_hidden, int8_codes, launch, pack_quads, ptr,
+                         check_hidden, int8_codes, launch, ptr, relaid,
                          require_cuda, split_rows)
 from .int8_matmul import int8_matmul
 
@@ -284,7 +287,9 @@ def gru_direction_fused_static(x_parts, w_ih_parts, b_ih, w_hh, b_hh, h0,
     (w_scale/127) applied once to the summed int32 accumulator, and w_hh
     is float32 or bfloat16; for float x, w_ih_parts and w_hh share its
     dtype.  b_ih, b_hh: (3H,) float32.  h0: (B, H) float carry.  Returns
-    (ys (T, B, H) int8 codes in natural order, hT (B, H) float32)."""
+    (ys (T, B, H) int8 codes in natural order, hT (B, H) float32).  An
+    int8 W_ih reaches the kernel k-major: the copy cuda_build.keep_relaid
+    kept, or relaid at this launch."""
     x0 = x_parts[0]
     if x0.device.type == "cpu":
         return gru_direction_fused_static_reference(
@@ -294,28 +299,34 @@ def gru_direction_fused_static(x_parts, w_ih_parts, b_ih, w_hh, b_hh, h0,
     _check_common("gru_direction_fused_static", x_parts, w_ih_parts, b_ih,
                   w_hh, b_hh, h0)
     _check_static(x_parts, w_ih_parts, w_hh, acc_scale)
-    x_int8 = x0.dtype == torch.int8
-    w_parts = (tuple(pack_quads(w) for w in w_ih_parts) if x_int8
-               else w_ih_parts)
+    T, B, F0 = x0.shape
+    H = w_hh.shape[0]
+    two = len(x_parts) > 1
+    if x0.dtype == torch.int8:
+        w0, w1 = relaid(w_ih_parts, "kmajor"), None
+    else:
+        w0 = aligned(w_ih_parts[0])
+        w1 = aligned(w_ih_parts[1]) if two else None
     h0 = h0.float().contiguous()
     scale = None if acc_scale is None else \
         acc_scale.reshape(-1).float().contiguous()
-    check_contiguous((*x_parts, *w_parts, b_ih, w_hh, b_hh, h0)
-                     + ((scale,) if x_int8 else ()), x0.device,
+    # the core reads a float32 W_hh; a bfloat16 one is widened (exactly),
+    # and h rounded to bfloat16 before the product, by whh_dtype
+    w_hh32 = aligned(w_hh.float().contiguous())
+    check_contiguous((*x_parts, w0, b_ih, w_hh32, b_hh, h0)
+                     + ((w1,) if w1 is not None else ())
+                     + ((scale,) if scale is not None else ()), x0.device,
                      "gru_direction_fused_static")
-    T, B, F0 = x0.shape
-    H = w_hh.shape[0]
     out = torch.empty((T, B, H), dtype=torch.int8, device=x0.device)
     h_out = torch.empty((B, H), dtype=torch.float32, device=x0.device)
     if T == 0 or B == 0:
         return out, h0
-    two = len(x_parts) > 1
+    xw = torch.empty((T, B, 3 * H), dtype=torch.float32, device=x0.device)
     launch("gru_direction_fused_static", x0.device, DTYPE_CODE[x0.dtype],
            DTYPE_CODE[w_hh.dtype], ptr(x0), ptr(x_parts[1] if two else None),
-           ptr(w_parts[0]), ptr(w_parts[1] if two else None), F0,
-           x_parts[1].shape[2] if two else 0, ptr(scale), ptr(b_ih),
-           ptr(w_hh), ptr(b_hh), ptr(h0), ptr(out), ptr(h_out), T, B, H,
-           int(bool(reverse)))
+           ptr(w0), ptr(w1), F0, x_parts[1].shape[2] if two else 0,
+           ptr(scale), ptr(b_ih), ptr(w_hh32), ptr(b_hh), ptr(h0), ptr(xw),
+           ptr(out), ptr(h_out), T, B, H, int(bool(reverse)))
     gru_direction_fused_static.launches += 1
     return out, h_out
 

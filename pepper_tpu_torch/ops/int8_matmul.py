@@ -5,7 +5,14 @@ dot_general/einsum and preferred_element_type=int32; these are their
 counterparts.  Every sum is exact: the widest one (linear_1, K = 33*512)
 stays below 2**31, while float32 would round it above 2**24.
 
-On the CPU the product is an int32 torch.matmul.  On the card it is
+On the CPU the product is an int32 torch.matmul.  On the card, a small
+product (at most _FLOAT_MAX_MACS multiply-adds, tens of microseconds) with
+K up to _FLOAT_EXACT_K is a float32 torch.matmul: int8 values and their
+products are exact in float32 (and in TF32), and every partial sum of at
+most 1024 products of magnitude at most 128 * 128 stays within 2**24,
+where float32 holds every integer, so the sum is exact in any order.
+cuBLASLt's int8 kernels refuse some such shapes (33 x 32 @ 32 x 128, the
+static kernels' narrowest width, has no algorithm).  Other products run
 torch._int_mm (cuBLASLt int8 -> int32), whose shape rules (more than 16
 rows, K and N multiples of 8) are met by zero padding, which leaves every
 sum unchanged.
@@ -18,6 +25,8 @@ import torch.nn.functional as F
 
 _MIN_ROWS = 17      # torch._int_mm takes more than 16 rows
 _ALIGN = 8          # ... and K, N multiples of 8
+_FLOAT_EXACT_K = 2 ** 24 // (128 * 128)   # 1024
+_FLOAT_MAX_MACS = 2 ** 30
 
 
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -32,6 +41,8 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return a.to(torch.int32) @ b.to(torch.int32)
     M, K = a.shape
     N = b.shape[1]
+    if K <= _FLOAT_EXACT_K and M * K * N <= _FLOAT_MAX_MACS:
+        return (a.float() @ b.float()).to(torch.int32)
     pad_m = max(0, _MIN_ROWS - M)
     pad_k = -K % _ALIGN
     pad_n = -N % _ALIGN

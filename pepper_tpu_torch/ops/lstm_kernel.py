@@ -28,7 +28,14 @@ bfloat16 the two float kernels run on the tensor cores; inputs wider than
 FUSED_X_MAX features are first projected into a float32 xw scratch that
 the wrapper allocates (csrc/lstm_core.cuh).  The
 static kernel's int8 products are exact int32 sums with one float32
-rescale, and its int8 codes are round(h*127), round-half-to-even.
+rescale, and its int8 codes are round(h*127), round-half-to-even.  Its
+combinations with int8 codes out, bfloat16 or int8 x and a bfloat16 or
+int8 W_hh (static_on_core: the static and static_rec modes in bfloat16)
+run on the same core, on the tensor cores for the int8 products too; the
+rest keep the first, scalar body.  The two bodies read int8 weights in two
+layouts (cuda_build.INT8_LAYOUTS): the served path relays each weight once
+per weight tree (models/quantize.py:prepare_static, cuda_build.keep_relaid),
+and a launch handed a weight that has no kept copy relays it then.
 """
 
 from __future__ import annotations
@@ -40,8 +47,7 @@ import torch
 # build_kernel stays importable from here
 from .cuda_build import (  # noqa: F401
     DTYPE_CODE, FLOATS, aligned, build_kernel, check_contiguous,
-    check_hidden, int8_codes, launch, pack_quads, ptr, require_cuda,
-    split_rows)
+    check_hidden, int8_codes, launch, ptr, relaid, require_cuda, split_rows)
 from .int8_matmul import int8_matmul
 
 KERNELS = ("lstm_direction_fused", "bilstm_dual_fused",
@@ -322,6 +328,24 @@ def _check_static_args(x_parts, w_ih_parts, b, w_hh, acc_scale, rec_scale):
                      "lstm_direction_fused_static")
 
 
+def static_on_core(x_dtype, whh_dtype, out_int8, features) -> bool:
+    """Whether lstm_direction_fused_static runs a combination on the
+    tensor-core core (csrc/lstm_core.cuh): int8 codes out, bfloat16 or int8
+    x (bfloat16 of at most FUSED_X_MAX features) and a bfloat16 or int8
+    W_hh.  csrc/lstm_direction_fused_static.cu:on_core applies the same
+    rule."""
+    return (bool(out_int8) and x_dtype != torch.float32
+            and whh_dtype != torch.float32
+            and (x_dtype == torch.int8 or features <= FUSED_X_MAX))
+
+
+def static_layout(x_dtype, whh_dtype, out_int8, features) -> str:
+    """The int8 weight layout (cuda_build.INT8_LAYOUTS) the static body of
+    a combination reads: k-major on the core, k-quads on the first body."""
+    return ("kmajor" if static_on_core(x_dtype, whh_dtype, out_int8,
+                                       features) else "quads")
+
+
 def lstm_direction_fused_static(x_parts, w_ih_parts, b, w_hh, acc_scale=None,
                                 rec_scale=None, reverse=False, out_int8=False,
                                 out_dtype=torch.bfloat16):
@@ -334,7 +358,9 @@ def lstm_direction_fused_static(x_parts, w_ih_parts, b, w_hh, acc_scale=None,
     x they share its dtype.  b: (4H,), used in float32.  w_hh: (H, 4H) in
     the float dtype of x (or float32/bfloat16 beside int8 x), or int8 with
     rec_scale (4H,).  out_int8=True emits round(h*127) int8; else out_dtype
-    floats.  Returns (T, B, H) in natural order."""
+    floats.  Returns (T, B, H) in natural order.  The int8 weights reach
+    the kernel in the layout its body reads (static_layout): the copies
+    cuda_build.keep_relaid kept, or relaid at this launch."""
     x0 = x_parts[0]
     if x0.device.type == "cpu":
         return lstm_direction_fused_static_reference(
@@ -352,22 +378,32 @@ def lstm_direction_fused_static(x_parts, w_ih_parts, b, w_hh, acc_scale=None,
     out = torch.empty((T, B, H), dtype=out_kind, device=x0.device)
     if T == 0 or B == 0:
         return out
+    layout = static_layout(x0.dtype, w_hh.dtype, out_int8,
+                           sum(x.shape[2] for x in x_parts))
     x_int8 = x0.dtype == torch.int8
-    w_parts = (tuple(pack_quads(w) for w in w_ih_parts) if x_int8
-               else w_ih_parts)
-    w_rec = pack_quads(w_hh) if rec_scale is not None else w_hh
+    two = len(x_parts) > 1
+    w_parts = w_ih_parts
+    if x_int8:
+        w_ih = relaid(w_ih_parts, layout)
+        # k-major: one (4H, F) matrix for both parts; k-quads: a part each
+        w_parts = ((w_ih[:F0 // 4], w_ih[F0 // 4:])
+                   if layout == "quads" and two else (w_ih,))
+    w_rec = aligned(w_hh if rec_scale is None else relaid((w_hh,), layout))
 
     def f32(t):
         return None if t is None else t.reshape(-1).float().contiguous()
 
     acc, rec, bias = f32(acc_scale), f32(rec_scale), f32(b)
-    two = len(x_parts) > 1
+    # the core projects int8 x into a float32 xw first
+    xw = (torch.empty((T, B, 4 * H), dtype=torch.float32, device=x0.device)
+          if layout == "kmajor" and x_int8 else None)
     launch("lstm_direction_fused_static", x0.device, DTYPE_CODE[x0.dtype],
            DTYPE_CODE[w_hh.dtype], DTYPE_CODE[out_kind], ptr(x0),
            ptr(x_parts[1] if two else None), ptr(w_parts[0]),
-           ptr(w_parts[1] if two else None), F0,
+           ptr(w_parts[1] if len(w_parts) > 1 else None), F0,
            x_parts[1].shape[2] if two else 0, ptr(acc), ptr(rec),
-           ptr(bias), ptr(w_rec), ptr(out), T, B, H, int(bool(reverse)))
+           ptr(bias), ptr(w_rec), ptr(xw), ptr(out), T, B, H,
+           int(bool(reverse)))
     lstm_direction_fused_static.launches += 1
     return out
 

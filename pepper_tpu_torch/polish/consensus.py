@@ -23,6 +23,7 @@ from ..device import resolve_device
 from ..models.params import params_from_jax
 from ..models.polish_gru import polish_forward, polish_forward_fused
 from ..models.quantize import (polish_forward_static,
+                               polish_prepare_static,
                                polish_quantize_params_static)
 from ..ops.gru_kernel import use_fused_gru
 from ..options import PolishImageOptions
@@ -136,15 +137,17 @@ _tree_cache: list = []
 def _device_tree_cached(params, device, quantize_mode):
     """Single-entry memo of the serving tree on `device`, keyed on the host
     params' identity, so per-worker predict calls reuse one device tree:
-    the float tree, or the static-int8 one for quantize_mode="static"."""
+    the float tree, or the static-int8 one for quantize_mode="static", its
+    int8 weights relaid once for the kernels (polish_prepare_static)."""
     key = (str(device), quantize_mode)
     if _tree_cache and _tree_cache[0][1] is params \
             and _tree_cache[0][0] == key:
         return _tree_cache[0][2]
-    tree = params
     if quantize_mode == "static":
-        tree = polish_quantize_params_static(params)
-    tree = params_from_jax(tree, device)
+        tree = polish_prepare_static(params_from_jax(
+            polish_quantize_params_static(params), device))
+    else:
+        tree = params_from_jax(params, device)
     _tree_cache[:] = [(key, params, tree)]
     return tree
 

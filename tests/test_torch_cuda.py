@@ -329,6 +329,104 @@ def test_static_kernel_matches_twin(device, dtype, x_int8, rec_int8, B):
                                    rtol=0)
 
 
+def _static_core_case(device, layer, rec_int8, B, hidden, seed=0):
+    """One direction of a served bfloat16 static combination at width
+    hidden: the encoder's (26 window values in bfloat16) or the decoder's
+    (int8 codes of 2 x hidden features, int8 W_ih and acc_scale); W_hh int8
+    with rec_scale (static_rec) or bfloat16 (static); a float32 bias."""
+    gen = torch.Generator().manual_seed(seed)
+    s = 1.0 / hidden ** 0.5
+
+    def u(*size, scale=s):
+        return (torch.rand(size, generator=gen) * 2 - 1) * scale
+
+    G = 4 * hidden
+    if layer == "encoder":
+        xs = (torch.randint(-125, 126, (33, B, 26), generator=gen).to(
+            torch.bfloat16),)
+        ws, acc_scale = (u(26, G).to(torch.bfloat16),), None
+    else:
+        xs = tuple(torch.randint(-127, 128, (33, B, hidden), generator=gen,
+                                 dtype=torch.int8) for _ in range(2))
+        w_q, w_scale = _quantize_cols(u(2 * hidden, G))
+        ws, acc_scale = (w_q[:hidden], w_q[hidden:]), w_scale / 127.0
+    if rec_int8:
+        w_hh, r_scale = _quantize_cols(u(hidden, G))
+        rec_scale = r_scale / 127.0
+    else:
+        w_hh, rec_scale = u(hidden, G).to(torch.bfloat16), None
+
+    def move(t):
+        return None if t is None else t.to(device).contiguous()
+
+    return ([move(x) for x in xs], [move(w) for w in ws], move(u(G)),
+            move(w_hh), move(acc_scale), move(rec_scale))
+
+
+# batches across the core's rows-a-cluster plan (16 rows up to 512, 144 at
+# the serving batch) and widths of 1, 2 and 4 CTAs a cluster
+@pytest.mark.parametrize("layer", ["encoder", "decoder"])
+@pytest.mark.parametrize("rec_int8", [False, True],
+                         ids=["static", "static_rec"])
+@pytest.mark.parametrize("hidden", [32, 128, 256])
+@pytest.mark.parametrize("B", [1, 37, 128, 4096])
+def test_static_core_matches_twin(device, layer, rec_int8, hidden, B):
+    """The served bfloat16 static combinations run on lstm_core.cuh (the
+    int8 products on the tensor cores) and meet the twin at the code bars,
+    both directions."""
+    xs, ws, b, w_hh, acc_scale, rec_scale = _static_core_case(
+        device, layer, rec_int8, B, hidden)
+    assert lstm_kernel.static_on_core(xs[0].dtype, w_hh.dtype, True,
+                                      sum(x.shape[2] for x in xs))
+    kernel = lstm_kernel.lstm_direction_fused_static
+    for reverse in (False, True):
+        kw = dict(acc_scale=acc_scale, rec_scale=rec_scale, reverse=reverse,
+                  out_int8=True)
+        before = kernel.launches
+        out = kernel(xs, ws, b, w_hh, **kw)
+        assert kernel.launches == before + 1
+        ref = lstm_kernel.lstm_direction_fused_static_reference(
+            xs, ws, b, w_hh, **kw)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.int8 and out.shape == (33, B, hidden)
+        assert_codes_close(out, ref, rec_int8)
+
+
+@pytest.mark.parametrize("rec_int8", [False, True],
+                         ids=["static", "static_rec"])
+def test_static_core_entries_split_the_kernel(device, rec_int8):
+    """The library's projection entry writes xw = b + f32(acc) * acc_scale
+    exactly (the int32 sums are exact) and its recurrence entry over that
+    xw gives the kernel's codes bit for bit."""
+    from pepper_tpu_torch.ops import cuda_build
+
+    B = 300
+    xs, ws, b, w_hh, acc_scale, rec_scale = _static_core_case(
+        device, "decoder", rec_int8, B, H)
+    w_t = cuda_build.int8_kmajor(torch.cat(ws))
+    xw = torch.empty((33, B, 4 * H), device=device)
+    cuda_build.launch("lstm_direction_fused_static_projection", device,
+                      xs[0].data_ptr(), xs[1].data_ptr(), H, H,
+                      w_t.data_ptr(), acc_scale.data_ptr(), b.data_ptr(),
+                      xw.data_ptr(), 33, B, H)
+    acc = (int8_matmul(xs[0].reshape(33 * B, H), ws[0])
+           + int8_matmul(xs[1].reshape(33 * B, H), ws[1]))
+    exact = b + acc.float() * acc_scale
+    torch.cuda.synchronize()
+    assert torch.equal(xw.reshape(33 * B, -1), exact)
+    w_rec = cuda_build.int8_kmajor(w_hh) if rec_int8 else w_hh
+    codes = torch.empty((33, B, H), dtype=torch.int8, device=device)
+    cuda_build.launch("lstm_direction_fused_static_recurrence", device,
+                      2 if rec_int8 else 1, xw.data_ptr(), w_rec.data_ptr(),
+                      rec_scale.data_ptr() if rec_int8 else None,
+                      codes.data_ptr(), 33, B, H, 1)
+    out = lstm_kernel.lstm_direction_fused_static(
+        xs, ws, b, w_hh, acc_scale=acc_scale, rec_scale=rec_scale,
+        reverse=True, out_int8=True)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, out)
+
+
 @pytest.mark.parametrize("case", ["no_acc_scale", "mixed_whh", "unaligned"])
 def test_static_kernel_refuses_what_it_cannot_take(device, case):
     xs, ws, b, w_hh, acc_scale, _ = static_inputs(device, torch.float32,
@@ -408,6 +506,17 @@ def test_lstm_libraries_share_a_process_at_each_width(device, hidden):
                                    atol=BARS[dtype], rtol=0)
     _check_recurrence(*_lstm_recurrence_inputs(device, dtype, 37, hidden),
                       dtype)
+    # the static kernel's library, the fourth to instantiate the core: its
+    # fused body (static_rec encoder) and its hoisted one (static decoder)
+    for layer, rec_int8 in (("encoder", True), ("decoder", False)):
+        xs, ws, b, w_hh, acc_scale, rec_scale = _static_core_case(
+            device, layer, rec_int8, 37, hidden)
+        kw = dict(acc_scale=acc_scale, rec_scale=rec_scale, out_int8=True)
+        out = lstm_kernel.lstm_direction_fused_static(xs, ws, b, w_hh, **kw)
+        ref = lstm_kernel.lstm_direction_fused_static_reference(
+            xs, ws, b, w_hh, **kw)
+        torch.cuda.synchronize()
+        assert_codes_close(out, ref, rec_int8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -433,12 +542,17 @@ def test_dual_kernel_matches_twin(device, dtype, parts, B):
         torch.testing.assert_close(out, single, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("M,K,N", [(4, 26, 3), (37, 512, 1024),
+@pytest.mark.parametrize("M,K,N", [(4, 26, 3), (33, 32, 128),
+                                   (37, 512, 1024), (64, 1024, 512),
+                                   (64, 1032, 64), (4096, 512, 1024),
                                    (64, 16896, 512)])
 def test_int8_matmul_on_card_is_exact(device, M, K, N):
+    """Exact on either side of the float32 path's limits (K 1024, 2^30
+    multiply-adds), with -128 included, and at the static kernels'
+    narrowest shape."""
     gen = torch.Generator().manual_seed(M)
-    a = torch.randint(-127, 128, (M, K), generator=gen, dtype=torch.int8)
-    b = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8)
+    a = torch.randint(-128, 128, (M, K), generator=gen, dtype=torch.int8)
+    b = torch.randint(-128, 128, (K, N), generator=gen, dtype=torch.int8)
     out = int8_matmul(a.to(device), b.to(device))
     assert out.dtype == torch.int32 and out.shape == (M, N)
     assert torch.equal(out.cpu(), int8_matmul(a, b))
@@ -570,6 +684,138 @@ def test_gru_static_kernel_matches_twin(device, x_dtype, w_hh_dtype, B):
             assert (diff == 0).float().mean().item() >= 0.999
         torch.testing.assert_close(hT, ref_hT, atol=1e-5 if w_hh_dtype
                                    == torch.float32 else 2e-2, rtol=0)
+
+
+def _gru_static_case(device, x_dtype, w_hh_dtype, B, H, T=100, seed=0):
+    """One static GRU direction at width H: the encoder's float x (F=10)
+    with W_ih and W_hh of its dtype, or the decoder's int8 codes (2 x H)
+    with int8 W_ih, acc_scale and a float32 or bfloat16 W_hh; a non-zero
+    h0."""
+    parts = (H, H) if x_dtype == torch.int8 else (10,)
+    xs, ws, b_ih, w_hh, b_hh, h0 = gru_inputs(device, torch.float32, parts,
+                                              B, T=T, seed=seed, H=H)
+    acc_scale = None
+    if x_dtype == torch.int8:
+        xs = tuple(torch.round(x * 127).to(torch.int8) for x in xs)
+        w_q, w_scale = _quantize_cols(torch.cat(ws).cpu())
+        ws = (w_q[:H].to(device), w_q[H:].to(device))
+        acc_scale = (w_scale / 127.0).to(device)
+    else:
+        xs = tuple(x.to(x_dtype) for x in xs)
+        ws = tuple(w.to(x_dtype) for w in ws)
+    return xs, ws, b_ih, w_hh.to(w_hh_dtype), b_hh, h0, acc_scale
+
+
+def _check_gru_static(case, B, H, T=100):
+    """Both directions of gru_direction_fused_static against the twin:
+    codes within 1 (at least 99.9% equal on samples of 300k codes or more)
+    and hT within 1e-5 (float32 W_hh) or 2e-2 (bfloat16)."""
+    from pepper_tpu_torch.ops import gru_kernel
+
+    xs, ws, b_ih, w_hh, b_hh, h0, acc_scale = case
+    kernel = gru_kernel.gru_direction_fused_static
+    for reverse in (False, True):
+        before = kernel.launches
+        out, hT = kernel(xs, ws, b_ih, w_hh, b_hh, h0, acc_scale=acc_scale,
+                         reverse=reverse)
+        assert kernel.launches == before + 1
+        ref, ref_hT = gru_kernel.gru_direction_fused_static_reference(
+            xs, ws, b_ih, w_hh, b_hh, h0, acc_scale=acc_scale,
+            reverse=reverse)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.int8 and out.shape == (T, B, H)
+        assert hT.dtype == torch.float32 and hT.shape == (B, H)
+        diff = (out.int() - ref.int()).abs()
+        assert diff.max().item() <= 1
+        if diff.numel() >= 300_000:
+            assert (diff == 0).float().mean().item() >= 0.999
+        torch.testing.assert_close(hT, ref_hT, atol=1e-5 if w_hh.dtype
+                                   == torch.float32 else 2e-2, rtol=0)
+
+
+GRU_STATIC_COMBOS = [(torch.float32, torch.float32),
+                     (torch.bfloat16, torch.bfloat16),
+                     (torch.int8, torch.float32),
+                     (torch.int8, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("x_dtype,w_hh_dtype", GRU_STATIC_COMBOS,
+                         ids=["f32", "bf16", "int8_f32", "int8_bf16"])
+@pytest.mark.parametrize("H", [32, 128, 256])
+@pytest.mark.parametrize("B", [1, 37, 128, 4096])
+def test_gru_static_core_matches_twin(device, x_dtype, w_hh_dtype, H, B):
+    """Every combination on gru_core.cuh (its smem body to H=128, one row a
+    block at B=128; its L2-streaming body at 256), the projection out of
+    the loop, int8 codes and the f32 hT out."""
+    _check_gru_static(_gru_static_case(device, x_dtype, w_hh_dtype, B, H),
+                      B, H)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.int8],
+                         ids=["float_x", "int8_x"])
+def test_gru_static_entries_split_the_kernel(device, x_dtype):
+    """The library's projection entry gives the exact int8 product (or the
+    float one within 1e-4) and its recurrence entry over that xw the
+    kernel's codes and hT bit for bit."""
+    from pepper_tpu_torch.ops import cuda_build, gru_kernel
+
+    B, T = 128, 100
+    xs, ws, b_ih, w_hh, b_hh, h0, acc_scale = _gru_static_case(
+        device, x_dtype, torch.float32, B, GRU_H)
+    xw = torch.empty((T, B, 3 * GRU_H), device=device)
+    two = len(xs) > 1
+    w0, w1 = ((cuda_build.int8_kmajor(torch.cat(ws)), None) if two
+              else (ws[0], None))
+    cuda_build.launch("gru_direction_fused_static_projection", device,
+                      cuda_build.DTYPE_CODE[x_dtype], xs[0].data_ptr(),
+                      xs[1].data_ptr() if two else None, w0.data_ptr(),
+                      None, xs[0].shape[2], xs[1].shape[2] if two else 0,
+                      acc_scale.data_ptr() if two else None,
+                      b_ih.data_ptr(), xw.data_ptr(), T, B, GRU_H)
+    if two:
+        acc = (int8_matmul(xs[0].reshape(T * B, -1), ws[0])
+               + int8_matmul(xs[1].reshape(T * B, -1), ws[1]))
+        exact = acc.float() * acc_scale + b_ih
+        torch.cuda.synchronize()
+        assert torch.equal(xw.reshape(T * B, -1), exact)
+    else:
+        exact = xs[0].double() @ ws[0].double() + b_ih.double()
+        torch.cuda.synchronize()
+        assert (xw.double() - exact).abs().max().item() <= 1e-4
+    codes = torch.empty((T, B, GRU_H), dtype=torch.int8, device=device)
+    h_out = torch.empty((B, GRU_H), device=device)
+    cuda_build.launch("gru_direction_fused_static_recurrence", device, 0,
+                      xw.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                      h0.data_ptr(), codes.data_ptr(), h_out.data_ptr(), T,
+                      B, GRU_H, 0)
+    out, hT = gru_kernel.gru_direction_fused_static(
+        xs, ws, b_ih, w_hh, b_hh, h0, acc_scale=acc_scale)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, out) and torch.equal(h_out, hT)
+
+
+@pytest.mark.parametrize("H", GRU_WIDTHS)
+def test_gru_libraries_share_a_process_at_each_width(device, H):
+    """The three libraries that instantiate gru_core.cuh, loaded in one
+    process, each launch at every width (the smem body with 0, 64 and 96
+    rows of W_hh in registers, the streaming body at 256) and agree with
+    their twins: the core's launcher statics stay each library's own."""
+    from pepper_tpu_torch.ops import gru_kernel
+
+    xs, ws, b_ih, w_hh, b_hh, h0 = gru_inputs(device, torch.float32, (H, H),
+                                              37, T=20, H=H)
+    ys, hT = gru_kernel.gru_direction_fused(xs, ws, b_ih, w_hh, b_hh, h0)
+    ref, ref_hT = gru_kernel.gru_direction_fused_reference(
+        xs, ws, b_ih, w_hh, b_hh, h0)
+    torch.testing.assert_close(ys, ref, atol=BARS[torch.float32], rtol=0)
+    xw, w_hh, b_hh, h0 = _recurrence_inputs(device, torch.float32, 37, H)
+    out = gru_kernel.gru_recurrence(xw, w_hh, b_hh, h0)
+    torch.testing.assert_close(
+        out, gru_kernel.gru_recurrence_reference(xw, w_hh, b_hh, h0),
+        atol=BARS[torch.float32], rtol=0)
+    for x_dtype, w_hh_dtype in GRU_STATIC_COMBOS[1:3]:
+        _check_gru_static(_gru_static_case(device, x_dtype, w_hh_dtype, 37,
+                                           H, T=20), 37, H, T=20)
 
 
 def _recurrence_inputs(device, dtype, B, H):

@@ -108,13 +108,14 @@ def test_dual_twin_matches_jax_kernel_at_full_width(layer, dtype):
 @pytest.mark.parametrize("name", ["lstm_direction_fused",
                                   "bilstm_dual_fused", "lstm_recurrence"])
 def test_float_lstm_kernels_build_with_the_core(name):
-    """The float LSTM kernels include the bfloat16 core, so it enters their
-    build stamps; the library of lstm_direction_fused also exports the
+    """The float LSTM kernels include the bfloat16 core (and the PTX
+    wrappers it shares with the int8 projection), so it enters their build
+    stamps; the library of lstm_direction_fused also exports the
     projection alone."""
     from pepper_tpu_torch.ops import cuda_build
 
     headers, argtypes = cuda_build.KERNELS[name]
-    assert headers == ("lstm_core.cuh", "lstm_cell.cuh")
+    assert headers == ("lstm_core.cuh", "mma_ptx.cuh", "lstm_cell.cuh")
     # the xw scratch(es) sit before the outputs; lstm_recurrence takes
     # `reverse` before the stream
     assert len(argtypes) == {"lstm_direction_fused": 16,
