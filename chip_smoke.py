@@ -181,6 +181,25 @@ Phases, each printing one JSON line:
                card and at least 99.9% equal, labels equal where the twin's
                top-two margin exceeds 50; pairs/s, and the route's kernel
                time a pair batch beside the bound, the twin and cuDNN
+ 19 multi_device
+               the data-parallel paths over every local GPU (cuda:0 twice
+               where there is one, so that the split, the per-device trees
+               and the gather run with the kernels on the card), each
+               against one device with its kernel launches counted around
+               the run alone: InferenceRunner at B=4096 on the full-width
+               33x26 transducer in bfloat16, float32, static, static_rec
+               and dynamic at phase 4's and phase 8's bars; call_variant on
+               phase 9's scene in phase 9's cuda bfloat16 run, through the
+               CLI's --num_devices -1 and the library over the list (the
+               same call set, up to the ALT order within a site);
+               consensus_predict at B=128 and predict_hp on 128 pairs
+               (labels, phred and votes equal); polish on phase 12's scene
+               through --num_devices -1 and the library (the one-device
+               FASTA bytes); windows/s, chunks/s and pairs/s of each beside
+               one device's.  Where h5py is installed, also the staged
+               variant and polish flows and a two-process gloo --sharded
+               run on cuda:0 against their one-process runs; where it is
+               not, one {"phase": "staged", "skipped": ...} line first
 
 Then the kernel summary line (rows 1-4 with their HP figures, rows 5 and 7
 with their hp_votes_scan figures), the nvidia-smi line and, last, the
@@ -1945,7 +1964,7 @@ def scene_images(bam, fasta, threads=4):
     options = SimpleNamespace(bam=bam, fasta=fasta, threads=threads,
                               downsample_rate=1.0, realignment=True)
     return np.stack([record[4] for records in
-                     pipeline.make_polish_images(options, intervals)
+                     pipeline.polish_image_shares(options, intervals)
                      for record in records])
 
 
@@ -3269,18 +3288,431 @@ def vote_kernel_times(device, route):
     return {f"{key}_per_pair_batch": value for key, value in figures.items()}
 
 
+# ---------------------------------------------------------------- phase 19
+
+
+# the runner's modes: (CLI compute dtype, quantize mode or None, the kernel
+# each block launches 4 times, the bar against one device: phase 4's and
+# phase 8's)
+RUNNER_MODES = {
+    "bfloat16": ("bfloat16", None, "lstm_direction_fused",
+                 TRANSDUCER_BARS["bfloat16"]),
+    "float32": ("float32", None, "lstm_direction_fused",
+                TRANSDUCER_BARS["float32"]),
+    "static": ("bfloat16", "static", "lstm_direction_fused_static",
+               QUANTIZED_BARS["static"]),
+    "static_rec": ("bfloat16", "static_rec", "lstm_direction_fused_static",
+                   QUANTIZED_BARS["static_rec"]),
+    "dynamic": ("bfloat16", "dynamic", "lstm_recurrence",
+                QUANTIZED_BARS["dynamic"]),
+}
+
+
+def multi_devices():
+    """Every local GPU, or where there is one, cuda:0 twice: the split,
+    the per-device trees and the gather then run on the one card."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i) for i in (range(n) if n > 1 else (0, 0))]
+
+
+def counted(fn):
+    """fn() with every kernel's count set to 0 just before and read just
+    after: (its result, the non-zero counts by kernel)."""
+    import torch
+
+    wrappers = kernel_wrappers()
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in wrappers.items() if w.launches}
+
+
+def wall_s(fn, iters=5):
+    """Mean wall seconds of fn() after a warm-up call, the card idle
+    before and after: what a caller of the entry point waits."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters
+
+
+def multi_runner(device, devices):
+    """InferenceRunner at B=4096 on the 33x26 transducer at full width,
+    over `devices` against one device, in every mode of RUNNER_MODES:
+    probabilities within the mode's bar, each block's four launches, and
+    windows/s of each (predict_images' wall time: upload, forward and read
+    back)."""
+    import torch
+    from pepper_tpu_torch.infer.runner import InferenceRunner
+    from pepper_tpu_torch.models.transducer import init_transducer_params
+
+    params = init_transducer_params(torch.Generator().manual_seed(7))
+    host = {name: {k: v.numpy() for k, v in group.items()}
+            for name, group in params.items()}
+    images = np.random.RandomState(8).randint(
+        -125, 126, (B_SERVE, T, 26)).astype(np.int8)
+    result = {}
+    for mode, (dtype, quantize_mode, kernel, bar) in RUNNER_MODES.items():
+        kw = dict(batch_size=B_SERVE, compute_dtype=dtype,
+                  quantized=quantize_mode is not None,
+                  quantize_mode=quantize_mode or "static")
+        one = InferenceRunner(host, device=device, **kw)
+        multi = InferenceRunner(host, devices=devices, **kw)
+        expected = one.predict_images(images)
+        probs, launches = counted(lambda: multi.predict_images(images))
+        check(launches == {kernel: 4 * len(devices)},
+              f"multi-device runner {mode}: launches {launches}")
+        check(probs.shape == expected.shape and np.isfinite(probs).all(),
+              f"multi-device runner {mode}: {probs.shape}")
+        err = float(np.abs(probs - expected).max())
+        check(err <= bar, f"multi-device runner {mode}: max abs diff {err} "
+              "from one device")
+        one_s = wall_s(lambda: one.predict_images(images))
+        multi_s = wall_s(lambda: multi.predict_images(images))
+        result[mode] = {
+            "max_abs_diff_from_one_device": err, "bar": bar,
+            "argmax_agree": float((probs.argmax(1)
+                                   == expected.argmax(1)).mean()),
+            "launches": launches,
+            "one_device_windows_per_s": B_SERVE / one_s,
+            "multi_device_windows_per_s": B_SERVE / multi_s}
+    return result
+
+
+def multi_call(device, devices, workdir, scene, threads=4):
+    """call_variant on phase 9's scene with phase 9's weights and its
+    cuda_bfloat16 arguments: --num_devices 1, the CLI's --num_devices -1
+    (every local GPU), and the library call over `devices`; the call sets
+    equal (up to the ALT order within a site, counted, as phase 9 holds
+    bfloat16), each run launching only lstm_direction_fused, 4 a block."""
+    from pepper_tpu_torch.cli import main as cli
+    from pepper_tpu_torch.models.checkpoint import load_params
+    from pepper_tpu_torch.pipeline.call_variant import call_variant
+    from pepper_tpu_torch.presets import set_parameters
+
+    bam, fasta = scene[:2]
+    model = save_model(os.path.join(workdir, "model_multi.npz"),
+                       call_params())
+
+    def argv(name, *more):
+        return ["call_variant", "-b", bam, "-f", fasta, "-m", model,
+                "-o", os.path.join(workdir, name), "-t", str(threads),
+                "--region_size", "10000", "--ont_r9_guppy5_sup",
+                "--compute_dtype", "bfloat16", "--device", str(device),
+                *more]
+
+    def library():
+        args = cli.build_parser().parse_args(argv("library_devices"))
+        options = set_parameters(cli.options_from_args(args))
+        params, _ = load_params(model)
+        return call_variant(options, params=params, devices=devices)
+
+    runs = {"one_device": lambda: cli.main(argv("one_device",
+                                                "--num_devices", "1")),
+            "cli_num_devices_all": lambda: cli.main(argv(
+                "cli_num_devices_all", "--num_devices", "-1")),
+            "library_devices": library}
+    result = {}
+    with mock.patch.dict(os.environ, {"PEPPER_LSTM_DUAL": "0"}):
+        for name, run in runs.items():
+            t0 = time.time()
+            _, launches = counted(run)
+            n = launches.get("lstm_direction_fused", 0)
+            check(set(launches) == {"lstm_direction_fused"} and n % 4 == 0,
+                  f"call_variant {name}: launches {launches}")
+            result[name] = {"seconds": round(time.time() - t0, 3),
+                            "launches": launches,
+                            "calls": call_set(os.path.join(workdir, name))}
+    expected = result["one_device"]["calls"]
+    check(len(expected) > 0, "no calls on one device")
+    for name in ("cli_num_devices_all", "library_devices"):
+        calls = result[name]["calls"]
+        result[name]["alt_order_only"] = len(calls - expected)
+        check(canonical_calls(calls) == canonical_calls(expected),
+              f"call_variant {name}: calls differ from one device's: "
+              f"{sorted(canonical_calls(calls) ^ canonical_calls(expected))[:10]}")
+    for run in result.values():
+        run["calls"] = len(run["calls"])
+    return result
+
+
+def multi_polish(device, devices, workdir, scene, threads=4):
+    """consensus_predict on B_POLISH chunks and predict_hp on HP_PAIRS
+    pairs (phase 18's inputs) over `devices` against one device: labels,
+    phred and x10000 votes equal, 76 launches a block of a batch; chunks/s
+    and pairs/s of each; and the polish CLI with --num_devices -1 and the
+    library polish over `devices` on phase 12's scene: phase 12's cuda
+    float32 FASTA bytes (a --num_devices 1 run here)."""
+    import torch
+    from pepper_tpu_torch.cli import polish_main
+    from pepper_tpu_torch.infer import hp_sliding
+    from pepper_tpu_torch.models.checkpoint import load_params, save_params
+    from pepper_tpu_torch.models.polish_gru import init_polish_params
+    from pepper_tpu_torch.options import PepperOptions
+    from pepper_tpu_torch.polish import consensus, pipeline
+
+    result = {}
+    host, _ = polish_trees("cpu")
+    chunks = np.random.RandomState(17).randint(
+        0, 41, (B_POLISH, 1000, GRU_F)).astype(np.uint8)
+
+    def predict(**where):
+        return consensus.consensus_predict(host, chunks, batch_size=B_POLISH,
+                                           **where)
+
+    expected = predict(device=device)
+    (labels, phred), launches = counted(lambda: predict(devices=devices))
+    check(launches == {"gru_direction_fused":
+                       LAUNCHES_PER_BATCH * len(devices)},
+          f"multi-device consensus: launches {launches}")
+    check(np.array_equal(labels, expected[0]),
+          f"multi-device consensus: {(labels != expected[0]).sum()} labels "
+          "differ from one device's")
+    phred_diff = float(np.abs(phred - expected[1]).max())
+    check(phred_diff == 0.0, f"multi-device consensus: phred {phred_diff}")
+    result["consensus"] = {
+        "chunks": B_POLISH, "launches": launches,
+        "one_device_chunks_per_s": B_POLISH / wall_s(
+            lambda: predict(device=device), iters=3),
+        "multi_device_chunks_per_s": B_POLISH / wall_s(
+            lambda: predict(devices=devices), iters=3)}
+
+    hp_host = {name: {k: v.numpy() for k, v in group.items()}
+               for name, group in init_polish_params(
+                   torch.Generator().manual_seed(19)).items()}
+    rng = np.random.RandomState(29)
+    pair = [rng.randint(0, 41, (HP_PAIRS, 1000, GRU_F)).astype(np.float32)
+            for _ in range(2)]
+    one_votes = hp_sliding.predict_hp(hp_host, *pair, device=device)
+    votes, launches = counted(lambda: hp_sliding.predict_hp(
+        hp_host, *pair, devices=devices))
+    check(launches == {"gru_direction_fused":
+                       2 * LAUNCHES_PER_BATCH * len(devices)},
+          f"multi-device predict_hp: launches {launches}")
+    for ours, theirs in zip(votes, one_votes):
+        check(np.array_equal(ours, theirs),
+              "multi-device predict_hp: votes differ from one device's")
+    result["hp_votes"] = {
+        "pairs": HP_PAIRS, "launches": launches,
+        "one_device_pairs_per_s": HP_PAIRS / wall_s(
+            lambda: hp_sliding.predict_hp(hp_host, *pair, device=device),
+            iters=3),
+        "multi_device_pairs_per_s": HP_PAIRS / wall_s(
+            lambda: hp_sliding.predict_hp(hp_host, *pair, devices=devices),
+            iters=3)}
+
+    bam, fasta = scene[:2]
+    model = os.path.join(workdir, "polish_multi.npz")
+    save_params(model, host, {})
+
+    def cli_run(name, *more):
+        return lambda: polish_main.main(
+            ["polish", "-b", bam, "-f", fasta, "-m", model,
+             "-o", os.path.join(workdir, name), "-t", str(threads),
+             "--batch_size", str(B_POLISH), "--device", str(device), *more])
+
+    def library():
+        # one worker: its one share of every chunk splits over the devices
+        # (several shares of fewer chunks than a block would fill only the
+        # first device's block)
+        options = PepperOptions(
+            bam=bam, fasta=fasta, output_dir=os.path.join(
+                workdir, "polish_library_devices"), threads=1,
+            batch_size=B_POLISH)
+        return pipeline.polish(options, load_params(model)[0],
+                               devices=devices)
+
+    runs = {"polish_one_device": cli_run("polish_one_device",
+                                         "--num_devices", "1"),
+            "polish_cli_num_devices_all": cli_run(
+                "polish_cli_num_devices_all", "--num_devices", "-1"),
+            "polish_library_devices": library}
+    fastas = {}
+    for name, run in runs.items():
+        t0 = time.time()
+        _, launches = counted(run)
+        n = launches.get("gru_direction_fused", 0)
+        check(set(launches) == {"gru_direction_fused"}
+              and n % LAUNCHES_PER_BATCH == 0,
+              f"{name}: launches {launches}")
+        with open(os.path.join(workdir, name,
+                               "consensus_pepper_polished.fa"), "rb") as f:
+            fastas[name] = f.read()
+        result[name] = {"seconds": round(time.time() - t0, 3),
+                        "launches": launches}
+    for name in ("polish_cli_num_devices_all", "polish_library_devices"):
+        check(fastas[name] == fastas["polish_one_device"],
+              f"{name}: FASTA differs from the one-device run's")
+    launched = result["polish_library_devices"]["launches"][
+        "gru_direction_fused"]
+    check(launched % (LAUNCHES_PER_BATCH * len(devices)) == 0,
+          f"polish over {len(devices)} devices: {launched} launches, not a "
+          "block on each device")
+    return result
+
+
+def staged_and_sharded(device, workdir, scene, polish_scene, threads=4):
+    """Where h5py is installed: the staged variant flow (make_images ->
+    run_inference -> find_candidates, the CLI's float32 runner as the JAX
+    package's) and the staged polish flow (make_images -> call_consensus
+    -> stitch) against their one-process runs, and call_variant --sharded
+    in two gloo processes, both on cuda:0, against the one-process float32
+    call set."""
+    import socket
+
+    from pepper_tpu_torch.cli import main as cli
+    from pepper_tpu_torch.cli import polish_main
+
+    bam, fasta = scene[:2]
+    model = save_model(os.path.join(workdir, "model_staged.npz"),
+                       call_params())
+    d = str(device)
+    common = ["-f", fasta, "-t", str(threads), "--ont_r9_guppy5_sup"]
+    region = ["-b", bam, "--region_size", "10000"]
+    out = {name: os.path.join(workdir, name)
+           for name in ("images", "predictions", "staged", "one_f32",
+                        "sharded", "polish_images", "polish_predictions",
+                        "polish_staged", "polish_one")}
+    result = {}
+    t0 = time.time()
+    check(cli.main(["make_images", *region, *common,
+                    "-o", out["images"]]) == 0, "make_images failed")
+    _, launches = counted(lambda: cli.main(
+        ["run_inference", "-i", out["images"], "-o", out["predictions"],
+         "-m", model, "--device", d]))
+    check(set(launches) == {"lstm_direction_fused"},
+          f"run_inference: launches {launches}")
+    check(cli.main(["find_candidates", "-i", out["predictions"],
+                    "-o", out["staged"], *common]) == 0,
+          "find_candidates failed")
+    check(cli.main(["call_variant", *region, *common, "-m", model,
+                    "-o", out["one_f32"], "--compute_dtype", "float32",
+                    "--num_devices", "1", "--device", d]) == 0,
+          "call_variant float32 failed")
+    expected = call_set(out["one_f32"])
+    check(len(expected) > 0 and call_set(out["staged"]) == expected,
+          "the staged variant flow's calls differ from one process's")
+    result["staged_variant"] = {"seconds": round(time.time() - t0, 3),
+                                "calls": len(expected),
+                                "run_inference_launches": launches}
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.time()
+    argv = [sys.executable, "-m", "pepper_tpu_torch.cli.main",
+            "call_variant", "--sharded", *region, *common, "-m", model,
+            "-o", out["sharded"], "--num_devices", "1", "--device", d]
+    procs = [subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT,
+                              env=dict(os.environ, RANK=str(rank),
+                                       WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                                       MASTER_ADDR="127.0.0.1",
+                                       MASTER_PORT=str(port),
+                                       OMP_NUM_THREADS="1"))
+             for rank in (0, 1)]
+    try:
+        logs = [proc.communicate(timeout=300)[0].decode() for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0,
+              f"--sharded rank {rank} failed: {log[-2000:]}")
+    files = sorted(os.listdir(os.path.join(out["sharded"], "predictions")))
+    check(files == ["pepper_prediction_0.hdf", "pepper_prediction_1.hdf"],
+          f"--sharded prediction files {files}")
+    check(call_set(out["sharded"]) == expected,
+          "--sharded calls differ from one process's")
+    result["sharded_two_processes"] = {
+        "seconds": round(time.time() - t0, 3), "calls": len(expected)}
+
+    bam, fasta = polish_scene[:2]
+    host, _ = polish_trees("cpu")
+    from pepper_tpu_torch.models.checkpoint import save_params
+
+    pmodel = os.path.join(workdir, "polish_staged.npz")
+    save_params(pmodel, host, {})
+    pcommon = ["-b", bam, "-f", fasta, "-t", str(threads), "--batch_size",
+               str(B_POLISH)]
+    t0 = time.time()
+    check(polish_main.main(["make_images", *pcommon,
+                            "-o", out["polish_images"]]) == 0,
+          "polish make_images failed")
+    _, launches = counted(lambda: polish_main.main(
+        ["call_consensus", *pcommon, "-i", out["polish_images"],
+         "-o", out["polish_predictions"], "-m", pmodel, "--device", d]))
+    check(set(launches) == {"gru_direction_fused"},
+          f"call_consensus: launches {launches}")
+    check(polish_main.main(["stitch", "-i", out["polish_predictions"],
+                            "-o", out["polish_staged"]]) == 0,
+          "stitch failed")
+    check(polish_main.main(["polish", *pcommon, "-m", pmodel,
+                            "-o", out["polish_one"], "--num_devices", "1",
+                            "--device", d]) == 0, "polish failed")
+    fastas = []
+    for name in ("polish_staged", "polish_one"):
+        with open(os.path.join(out[name], "consensus_pepper_polished.fa"),
+                  "rb") as f:
+            fastas.append(f.read())
+    check(fastas[0] == fastas[1],
+          "the staged polish FASTA differs from one process's")
+    result["staged_polish"] = {"seconds": round(time.time() - t0, 3),
+                               "call_consensus_launches": launches}
+    return result
+
+
+def phase_multi_device(device, card):
+    """Every data-parallel path of the port over all local GPUs (cuda:0
+    twice where there is one): the runner, call_variant, the consensus,
+    predict_hp and polish against one device, with the kernels launched on
+    the card; and, where h5py is installed, the staged and sharded flows
+    (decided before the phase: without it one skip line is printed)."""
+    import importlib.util
+
+    import torch
+
+    devices = multi_devices()
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    if not has_h5py:
+        emit({"phase": "staged", "skipped": "h5py not installed"})
+    result = {"devices": [str(d) for d in devices],
+              "device_count": torch.cuda.device_count(),
+              "runner": multi_runner(device, devices)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        scene = write_scene(workdir)
+        polish_scene = write_polish_scene(workdir)
+        result["call"] = multi_call(device, devices, workdir, scene)
+        result.update(multi_polish(device, devices, workdir, polish_scene))
+        result["staged"] = (
+            staged_and_sharded(device, workdir, scene, polish_scene)
+            if has_h5py else "skipped: h5py not installed")
+    emit({"phase": "multi_device", "card": card, **result})
+    return result
+
+
 # ---------------------------------------------------------------- main
 
 
 def run_phases(device, smi, only):
-    """Some of phases 3-18 alone (after phases 1 and 2), for a short run:
+    """Some of phases 3-19 alone (after phases 1 and 2), for a short run:
     no kernel summary and no result line.  Phases 13, 14 and 17 walk phase
     9's scene without running phase 9."""
     simple = {3: phase_kernel, 4: phase_transducer, 5: phase_kernel_static,
               6: phase_kernel_recurrence, 7: phase_kernel_dual,
               8: phase_transducer_quantized, 10: phase_kernel_gru,
               15: phase_kernel_hp, 16: phase_transducer_hp,
-              18: phase_hp_votes}
+              18: phase_hp_votes, 19: phase_multi_device}
     for number in sorted(set(simple) & only):
         simple[number](device, smi)
     if only & {9, 13, 14, 17}:
@@ -3306,14 +3738,14 @@ def run_phases(device, smi, only):
 
 
 def parse_phases(argv):
-    """`--phases 6,13`: the phases to run (3-18), or None for all."""
+    """`--phases 6,13`: the phases to run (3-19), or None for all."""
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases N[,N...]]")
     only = {int(n) for n in argv[1].split(",")}
-    if not only or not only <= set(range(3, 19)):
-        raise SystemExit(f"--phases takes numbers 3-18, got {argv[1]}")
+    if not only or not only <= set(range(3, 20)):
+        raise SystemExit(f"--phases takes numbers 3-19, got {argv[1]}")
     return only
 
 
@@ -3391,6 +3823,7 @@ def main(argv=()) -> int:
         polish_launches = timed("polish", phase_polish, device, workdir,
                                 scene)
     votes = timed("hp_votes", phase_hp_votes, device, smi)
+    timed("multi_device", phase_multi_device, device, smi)
     emit({"phase": "done", "seconds_total": round(time.time() - t0, 3),
           "phase_seconds": seconds})
 

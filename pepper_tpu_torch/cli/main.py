@@ -1,16 +1,20 @@
 """pepper_tpu_torch command-line interface.
 
-The JAX package's subcommand surface, so far for call_variant, version and
+The JAX package's subcommand surface, so far for call_variant, the staged
+make_images / run_inference / find_candidates, merge_variants, version and
 backend_stat:
 
   python -m pepper_tpu_torch.cli.main call_variant -b reads.bam -f ref.fa \\
       -m model.npz|model.pkl -o out/ -t 8 --ont_r9_guppy5_sup \\
-      [--use_hp_info] [--device cuda]
+      [--use_hp_info] [--num_devices -1] [--sharded] [--device cuda]
 
-Inference runs on --device (default cuda; `--device cpu` runs on the CPU).
-Options the port does not serve yet raise NotImplementedError, and so do
-the JAX package's other subcommands, whatever follows them, naming their
-ROADMAP.md item.
+Inference runs on --device (default cuda; `--device cpu` runs on the CPU),
+data parallel over --num_devices local GPUs (-1, the default: all of
+them).  --sharded, or a process group of more than one process (torchrun's
+environment, parallel/dist.py), runs the region-manifest sharded path.
+The staged subcommands and --sharded pass HDF5 files and need h5py.  The
+JAX package's training subcommands and download_models raise
+NotImplementedError, whatever follows them, naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -22,9 +26,8 @@ from ..options import PepperOptions
 from ..presets import set_parameters
 
 _NOT_PORTED = {
-    "make_images": 14, "run_inference": 14, "find_candidates": 14,
-    "merge_variants": 16, "make_train_images": 11, "train_model": 11,
-    "test_model": 11, "run_hyperband": 11, "download_models": 12,
+    "make_train_images": 11, "train_model": 11, "test_model": 11,
+    "run_hyperband": 11, "download_models": 12,
 }
 
 
@@ -97,8 +100,9 @@ def _add_inference_args(parser):
                              "region batch).")
     parser.add_argument("--device_region_batch", type=int, default=32)
     parser.add_argument("--num_devices", type=int, default=-1,
-                        help="-1 (default) resolves to 1 device; more than "
-                             "one is not ported yet (raises).")
+                        help="Split inference batches over N local GPUs "
+                             "(data parallel). -1 (default) = all local "
+                             "GPUs; 1 = one device. On the CPU it is 1.")
     parser.add_argument("--device", default="cuda",
                         help="torch device for inference (default cuda; "
                              "cpu runs on the CPU).")
@@ -137,8 +141,39 @@ def build_parser():
     _add_candidate_args(p)
     _add_preset_args(p)
     p.add_argument("--sharded", action="store_true", default=False,
-                   help="Region-manifest sharded mode; not ported yet "
-                        "(raises).")
+                   help="Region-manifest sharded/resumable mode (automatic "
+                        "in a process group of more than one process, as "
+                        "torchrun starts it); needs h5py.")
+
+    p = sub.add_parser("make_images", help="Generate candidate images "
+                       "(HDF5; needs h5py).")
+    _add_common_io(p)
+    _add_region_args(p)
+    _add_image_args(p)
+    _add_preset_args(p)
+
+    p = sub.add_parser("run_inference", help="Classify stored images "
+                       "(HDF5; needs h5py).")
+    _add_common_io(p, need_model=True)
+    p.add_argument("-i", "--image_dir", required=True)
+    _add_inference_args(p)
+    p.add_argument("--use_hp_info", action="store_true", default=False)
+
+    p = sub.add_parser("find_candidates", help="Decode predictions to VCFs "
+                       "(HDF5; needs h5py).")
+    _add_common_io(p)
+    p.add_argument("-i", "--input_dir", required=True)
+    _add_candidate_args(p)
+    _add_preset_args(p)
+    p.add_argument("--use_hp_info", action="store_true", default=False)
+
+    p = sub.add_parser("merge_variants", help="Merge PEPPER + DeepVariant "
+                       "VCFs.")
+    p.add_argument("-vp", "--vcf_pepper", required=True)
+    p.add_argument("-vd", "--vcf_deepvariant", default=None)
+    p.add_argument("-vds", "--vcf_deepvariant_snps", default=None)
+    p.add_argument("-vdi", "--vcf_deepvariant_indels", default=None)
+    p.add_argument("-o", "--output_dir", default="./output")
 
     for name, item in _NOT_PORTED.items():
         sub.add_parser(name, add_help=False,
@@ -165,26 +200,31 @@ def _validate_inputs(options, args):
         sys.stderr.write(f"ERROR: {message}\n")
         raise SystemExit(1)
 
-    if not options.bam or not os.path.isfile(options.bam):
-        fail(f"CAN NOT LOCATE BAM FILE: {options.bam!r}")
-    if not (os.path.isfile(options.bam + ".bai")
-            or os.path.isfile(options.bam.rsplit(".", 1)[0] + ".bai")):
-        fail(f"CAN NOT LOCATE BAM INDEX (.bai) FOR: {options.bam!r}")
-    if not options.fasta or not os.path.isfile(options.fasta):
-        fail(f"CAN NOT LOCATE FASTA FILE: {options.fasta!r}")
-    if not os.path.isfile(options.fasta + ".fai"):
-        fail(f"CAN NOT LOCATE FASTA INDEX (.fai) FOR: {options.fasta!r}")
-    if not options.dry:
+    if args.sub_command in ("call_variant", "make_images"):
+        if not options.bam or not os.path.isfile(options.bam):
+            fail(f"CAN NOT LOCATE BAM FILE: {options.bam!r}")
+        if not (os.path.isfile(options.bam + ".bai")
+                or os.path.isfile(options.bam.rsplit(".", 1)[0] + ".bai")):
+            fail(f"CAN NOT LOCATE BAM INDEX (.bai) FOR: {options.bam!r}")
+        if not options.fasta or not os.path.isfile(options.fasta):
+            fail(f"CAN NOT LOCATE FASTA FILE: {options.fasta!r}")
+        if not os.path.isfile(options.fasta + ".fai"):
+            fail(f"CAN NOT LOCATE FASTA INDEX (.fai) FOR: {options.fasta!r}")
+    if args.sub_command == "call_variant" and not options.dry:
         if not options.model_path or not os.path.isfile(options.model_path):
             fail(f"CAN NOT LOCATE MODEL FILE: {options.model_path!r}")
     if options.threads <= 0:
         fail("THREAD NEEDS TO BE >0.")
-    if options.batch_size <= 0:
+    if getattr(options, "batch_size", 1) <= 0:
         fail("batch_size NEEDS TO BE >0.")
 
 
 def _backend_stat() -> None:
+    import os
+
     import torch
+
+    from ..parallel.mesh import resolve_num_devices
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda})")
     available = torch.cuda.is_available()
@@ -193,6 +233,22 @@ def _backend_stat() -> None:
         for index in range(torch.cuda.device_count()):
             print(f"device {index}: {torch.cuda.get_device_name(index)}")
     print(f"device count: {torch.cuda.device_count() if available else 0}")
+    print("--num_devices -1 resolves to: "
+          f"{resolve_num_devices(-1, 'cuda' if available else 'cpu')}")
+    print(f"process {os.environ.get('RANK', '0')}/"
+          f"{os.environ.get('WORLD_SIZE', '1')}")
+
+
+def _load_model(options):
+    """The checkpoint's params (None for --dry); sets options.model_type
+    from its metadata."""
+    if options.dry:
+        return None
+    from ..models.checkpoint import load_params
+
+    params, meta = load_params(options.model_path)
+    options.model_type = meta.get("model_type", "lstm")
+    return params
 
 
 def main(argv=None):
@@ -215,23 +271,45 @@ def main(argv=None):
         _backend_stat()
         return 0
 
+    if args.sub_command == "merge_variants":
+        from ..decode.merge_variants import merge_vcf_records
+
+        merge_vcf_records(args)
+        return 0
+
     options = options_from_args(args)
     _validate_inputs(options, args)
     options = set_parameters(options)
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded (region-manifest sharded call_variant) is not ported "
-            "yet: ROADMAP.md queue A, item 7")
 
-    from ..pipeline.call_variant import call_variant
+    if args.sub_command == "call_variant":
+        from ..parallel.dist import init_distributed, shutdown_distributed
+        from ..pipeline.call_variant import (call_variant,
+                                             call_variant_sharded)
 
-    params = None
-    if not options.dry:
-        from ..models.checkpoint import load_params
+        params = _load_model(options)
+        _, world = init_distributed()
+        try:
+            if args.sharded or world > 1:
+                call_variant_sharded(options, params=params,
+                                     device=args.device)
+            else:
+                call_variant(options, params=params, device=args.device)
+        finally:
+            if world > 1:
+                shutdown_distributed()
+    elif args.sub_command == "make_images":
+        from ..pipeline.stages import make_images
 
-        params, meta = load_params(options.model_path)
-        options.model_type = meta.get("model_type", "lstm")
-    call_variant(options, params=params, device=args.device)
+        make_images(options, options.output_dir)
+    elif args.sub_command == "run_inference":
+        from ..pipeline.stages import run_inference
+
+        run_inference(options, args.image_dir, options.output_dir,
+                      params=_load_model(options), device=args.device)
+    elif args.sub_command == "find_candidates":
+        from ..pipeline.stages import process_candidates
+
+        process_candidates(options, args.input_dir, options.output_dir)
     return 0
 
 

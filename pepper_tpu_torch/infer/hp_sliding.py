@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.params import params_from_jax
 from ..models.polish_gru import polish_forward
+from ..parallel.mesh import replicate, split_rows
 
 TRAIN_WINDOW = 100     # TrainOptions.TRAIN_WINDOW (Options.py:84)
 WINDOW_JUMP = 50       # TrainOptions.WINDOW_JUMP (Options.py:85)
@@ -62,20 +62,27 @@ def hp_votes_scan(params, images, allow_kernel=True):
 
 
 def predict_hp(params, images_hp1, images_hp2, allow_kernel=True,
-               mesh=None, device=None):
+               device=None, devices=None):
     """Both haplotype image stacks through the shared model (the reference
     runs one ONNX session for both, predict_hp_distributed_cpu.py:63-73).
     params: a polish tree (numpy arrays as load_params gives them, or
     tensors); images: (B, L, F) arrays.  Runs on `device` (cuda unless
-    given).  Returns (votes_hp1, votes_hp2) int32 (B, L, C) numpy arrays.
-    A mesh (the JAX package's multi-device fan-out) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "predict_hp over a device mesh is not ported yet: ROADMAP.md "
-            "queue A, item 7")
-    device = resolve_device(device)
-    params = params_from_jax(params, device)
-    return tuple(
-        hp_votes_scan(params, torch.as_tensor(np.asarray(images)).to(device),
-                      allow_kernel=allow_kernel).cpu().numpy()
-        for images in (images_hp1, images_hp2))
+    given), or data parallel over the list `devices` (the JAX package's
+    mesh branch, the fan-out of predict_hp_distributed_gpu.py): each
+    haplotype batch is padded to a multiple of the device count and split
+    into contiguous row blocks, one a device, with the params replicated;
+    exact, because the hidden carry is per sequence and the votes are
+    integers.  Returns (votes_hp1, votes_hp2) int32 (B, L, C) numpy
+    arrays."""
+    devices = [resolve_device(d) for d in (devices or [device])]
+    trees = replicate(params, devices)
+    pending = []
+    # every block of both haplotypes is enqueued before any is read back
+    for images in (images_hp1, images_hp2):
+        blocks, n = split_rows(images, len(devices))
+        pending.append(([hp_votes_scan(tree, torch.as_tensor(block).to(d),
+                                       allow_kernel=allow_kernel)
+                         for block, d, tree in zip(blocks, devices, trees)],
+                        n))
+    return tuple(np.concatenate([v.cpu().numpy() for v in votes])[:n]
+                 for votes, n in pending)

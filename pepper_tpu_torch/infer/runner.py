@@ -1,4 +1,5 @@
-"""Batched inference over candidate windows on one torch device.
+"""Batched inference over candidate windows on one torch device or, data
+parallel, on several.
 
 Windows stream in-process into padded batches through the transducer, in
 float or in one of the int8 serving modes of models/quantize.py: the int8
@@ -6,9 +7,18 @@ window images are uploaded as int8 from pinned host memory and cast to
 the compute dtype on the device; `dispatch` enqueues a batch and returns at
 once, `resolve` waits for it, so the streaming pipeline overlaps batch k's
 device work with host window generation for batch k+1.
+
+With a list of devices (the JAX package's mesh runner), the parameters are
+replicated once on every device, the batch and every bucket are rounded up
+to a multiple of the device count, and each padded batch is split into
+contiguous row blocks, one a device in list order: each block is uploaded
+and enqueued on its own device's current stream before any is waited on,
+and `resolve` waits on each block's event and concatenates in order.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -18,6 +28,7 @@ from ..device import resolve_device
 from ..models import quantize
 from ..models.transducer import map_params, params_from_jax
 from ..options import ImageOptions
+from ..parallel.mesh import round_up
 
 
 class InferenceRunner:
@@ -26,14 +37,20 @@ class InferenceRunner:
                  window: int = ImageOptions.CANDIDATE_WINDOW_SIZE + 1,
                  features: int = ImageOptions.IMAGE_HEIGHT,
                  quantized: bool = False, model_type: str = "lstm",
-                 quantize_mode: str = "static", device=None):
+                 quantize_mode: str = "static", device=None, devices=None):
+        """device: the one torch device (cuda unless given); devices: a
+        list of more than one to run data parallel over (it overrides
+        device)."""
         if quantize_mode not in quantize.QUANTIZE_MODES:
             raise ValueError(f"unknown quantize_mode {quantize_mode!r}")
         if quantized and model_type != "lstm":
             raise ValueError("quantized serving is only supported for "
                              "the lstm family")
-        self.device = resolve_device(device)
-        self.batch_size = batch_size
+        self.devices = [resolve_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
+        self.num_devices = len(self.devices)
+        # every bucket splits into equal blocks, one a device (see _bucket)
+        self.batch_size = round_up(batch_size, self.num_devices)
         self.window = window
         self.features = features
         self.compute_dtype = (torch.bfloat16 if compute_dtype == "bfloat16"
@@ -41,39 +58,41 @@ class InferenceRunner:
         self.model_type = model_type
         self.quantized = quantized
         self.quantize_mode = quantize_mode
-        # one device; a multi-device runner must keep every bucket divisible
-        # by this count (see _bucket)
-        self.num_devices = 1
-        # every tree is made device-resident once, its dtypes set once, so
-        # a dispatch moves only the windows
+        # every tree is made resident on each device once, its dtypes set
+        # once, so a dispatch moves only the windows: (params, scales) a
+        # device
         if not quantized:
             from ..models.registry import make_family
 
             self._family_infer = make_family(
                 model_type, image_features=features, window=window).infer
-            self.params = map_params(
-                lambda p: p.to(self.compute_dtype),
-                params_from_jax(params, self.device))
+            self._trees = [(map_params(lambda p: p.to(self.compute_dtype),
+                                       params_from_jax(params, d)), None)
+                           for d in self.devices]
         elif quantize_mode == "dynamic":
             q, scales = quantize.quantize_params(params)
-            self.params = params_from_jax(q, self.device)
-            self._scales = params_from_jax(scales, self.device)
+            self._trees = [(params_from_jax(q, d), params_from_jax(scales, d))
+                           for d in self.devices]
         else:
-            self.params = quantize.prepare_static(
-                quantize.quantize_params_static(
-                    params, rec_int8=quantize_mode == "static_rec"),
-                self.compute_dtype, self.device)
+            # quantized once; each device's copy has its int8 weights
+            # relaid once (prepare_static -> cuda_build.keep_relaid)
+            q = quantize.quantize_params_static(
+                params, rec_int8=quantize_mode == "static_rec")
+            self._trees = [(quantize.prepare_static(q, self.compute_dtype, d),
+                            None) for d in self.devices]
+        self.params = self._trees[0][0]
 
-    def _forward(self, padded: torch.Tensor) -> torch.Tensor:
+    def _forward(self, padded: torch.Tensor, tree) -> torch.Tensor:
+        """One device's forward over its block, with that device's
+        (params, scales)."""
+        params, scales = tree
         if not self.quantized:
-            return self._family_infer(self.params, padded,
-                                      self.compute_dtype)
+            return self._family_infer(params, padded, self.compute_dtype)
         if self.quantize_mode == "dynamic":
             # the recurrences run in bfloat16 whatever compute_dtype says,
             # as in the JAX package's runner
-            return quantize.transducer_infer_quantized(
-                self.params, self._scales, padded)
-        return quantize.transducer_infer_static(self.params, padded,
+            return quantize.transducer_infer_quantized(params, scales, padded)
+        return quantize.transducer_infer_static(params, padded,
                                                 self.compute_dtype)
 
     def _upload_dtype(self, images: np.ndarray):
@@ -87,30 +106,58 @@ class InferenceRunner:
 
     def _bucket(self, n: int) -> int:
         """Pad size for an n-window chunk: the next power of two (floor
-        256), capped at batch_size, so partial batches do not carry
-        full-size zero padding."""
+        256), capped at batch_size and rounded up to the device count, so
+        partial batches do not carry full-size zero padding and every
+        device gets an equal block."""
         b = 256
         while b < n:
             b <<= 1
-        b = max(min(b, self.batch_size), n)
-        assert b % self.num_devices == 0, (b, self.num_devices)
-        return b
+        return max(round_up(min(b, self.batch_size), self.num_devices), n)
 
-    def _upload(self, chunk: np.ndarray, dtype) -> torch.Tensor:
-        """Zero-padded (bucket, window, features) batch on the device."""
-        shape = (self._bucket(len(chunk)), self.window, self.features)
-        torch_dtype = torch.int8 if dtype == np.int8 else torch.float32
-        if self.device.type != "cuda":
-            host = torch.zeros(shape, dtype=torch_dtype)
-            host.numpy()[:len(chunk)] = chunk
-            return host.to(self.device)
-        # pinned staging buffer from torch's caching host allocator: it is
-        # not handed out again until this copy has completed
-        host = torch.empty(shape, dtype=torch_dtype, pin_memory=True)
+    def _enqueue(self, chunk: np.ndarray, dtype):
+        """Upload one chunk of at most batch_size windows, zero-padded to
+        its bucket, and enqueue its forward without waiting: one contiguous
+        row block a device, each on its device's current stream.  Returns
+        the blocks that hold windows, as (probabilities of those windows,
+        a CUDA event recorded after them or None on the CPU)."""
+        n = len(chunk)
+        bucket = self._bucket(n)
+        # one pinned staging buffer from torch's caching host allocator:
+        # it is not handed out again until every copy from it has completed
+        pinned = any(d.type == "cuda" for d in self.devices)
+        host = torch.empty((bucket, self.window, self.features),
+                           dtype=torch.int8 if dtype == np.int8
+                           else torch.float32, pin_memory=pinned)
         view = host.numpy()
-        view[:len(chunk)] = chunk
-        view[len(chunk):] = 0
-        return host.to(self.device, non_blocking=True)
+        view[:n] = chunk
+        view[n:] = 0
+        per = bucket // self.num_devices
+        blocks = []
+        for i, (device, tree) in enumerate(zip(self.devices, self._trees)):
+            rows = min(per, n - i * per)
+            if rows <= 0:       # padding only: nothing to classify
+                break
+            cuda = device.type == "cuda"
+            with torch.cuda.device(device) if cuda else \
+                    contextlib.nullcontext():
+                x = host[i * per:(i + 1) * per].to(device, non_blocking=cuda)
+                probs = self._forward(x, tree)[:rows]
+                event = None
+                if cuda:
+                    event = torch.cuda.Event()
+                    event.record()
+            blocks.append((probs, event))
+        return blocks
+
+    @staticmethod
+    def _gather(blocks) -> np.ndarray:
+        """Wait on each block's event, in order, and concatenate."""
+        out = []
+        for probs, event in blocks:
+            if event is not None:
+                event.synchronize()
+            out.append(probs.cpu().numpy())
+        return np.concatenate(out) if out else np.zeros((0, 3), np.float32)
 
     def predict_images(self, images: np.ndarray) -> np.ndarray:
         """(N, window, features) -> (N, 3) float32 probabilities."""
@@ -121,36 +168,27 @@ class InferenceRunner:
         probs_out = np.zeros((n, 3), np.float32)
         for start in range(0, n, self.batch_size):
             chunk = images[start:start + self.batch_size]
-            probs = self._forward(self._upload(chunk, dtype))
-            probs_out[start:start + len(chunk)] = \
-                probs[:len(chunk)].cpu().numpy()
+            probs_out[start:start + len(chunk)] = self._gather(
+                self._enqueue(chunk, dtype))
         return probs_out
 
     def dispatch(self, windows):
         """Upload and enqueue ONE window batch without waiting for it;
         resolve() returns its predictions.  The handle holds the device
-        probabilities and a CUDA event recorded after them (None on the
-        CPU, where the forward has already run)."""
+        blocks of _enqueue."""
         if not windows:
-            return (None, None, windows, np.zeros((0, 3), np.float32))
+            return (None, windows, np.zeros((0, 3), np.float32))
         images = np.stack([w.image for w in windows])
         if len(images) > self.batch_size:
             # oversized chunk: the synchronous multi-batch loop
-            return (None, None, windows, self.predict_images(images))
-        probs = self._forward(
-            self._upload(images, self._upload_dtype(images)))[:len(images)]
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        return (probs, event, windows, None)
+            return (None, windows, self.predict_images(images))
+        return (self._enqueue(images, self._upload_dtype(images)), windows,
+                None)
 
     def resolve(self, handle) -> list[CandidatePrediction]:
-        dev, event, windows, probs = handle
+        blocks, windows, probs = handle
         if probs is None:
-            if event is not None:
-                event.synchronize()
-            probs = dev.cpu().numpy()
+            probs = self._gather(blocks)
         return [
             CandidatePrediction(
                 contig=w.contig, position=w.position, depth=w.depth,

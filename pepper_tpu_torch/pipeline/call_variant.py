@@ -81,20 +81,129 @@ def generate_windows(options, intervals, bed_list, threads: int = 1):
     return all_windows
 
 
-def resolve_num_devices(options) -> None:
-    """Resolve options.num_devices against what this port serves: one
-    device.  -1/0 (all local devices) resolve to 1 and say so; more than one
-    is not ported yet."""
-    requested = getattr(options, "num_devices", 1)
-    if requested in (-1, 0):
-        log_info(f"--num_devices {requested} RESOLVED TO 1 (multi-GPU "
-                 "inference is not ported yet)")
-        requested = 1
-    if requested > 1:
-        raise NotImplementedError(
-            f"--num_devices {requested}: multi-GPU inference is not ported "
-            "yet: ROADMAP.md queue A, item 7")
-    options.num_devices = requested
+def call_variant_sharded(options, params=None, manifest_dir=None,
+                         device=None, devices=None):
+    """Multi-process / resumable call_variant: intervals are claimed
+    deterministically per rank, completed intervals are skipped on restart
+    (explicit shard completion — no silently dropped regions), per-rank
+    predictions land in HDF5 and rank 0 performs the deterministic decode
+    merge (the order-independent global sort, CandidateFinder.py:549-550).
+    The ranks are those of parallel/dist.py's process group (one process
+    without it); each runs its inference on `device` or `devices` as
+    call_variant does.  Needs h5py (io/datastore.py)."""
+    from ..io.datastore import PredictionStore
+    from ..parallel.dist import (RegionManifest, barrier, process_count,
+                                 process_index, shard_intervals)
+    from .stages import process_candidates
+
+    rank, world = process_index(), process_count()
+
+    # the sharded path persists per-window predictions to HDF5 between
+    # processes; the fused device-window flow is single-process only
+    options.device_pileup = False
+
+    os.makedirs(options.output_dir, exist_ok=True)
+    manifest_dir = manifest_dir or os.path.join(options.output_dir,
+                                                "manifest")
+    prediction_dir = os.path.join(options.output_dir, "predictions")
+    os.makedirs(prediction_dir, exist_ok=True)
+
+    bam_handler = BamReader(options.bam)
+    fasta_handler = FastaReader(options.fasta)
+    chr_list, bed_list = get_chromosome_list(options.region, fasta_handler,
+                                             bam_handler, options.region_bed)
+    intervals, _ = build_intervals(chr_list, fasta_handler,
+                                   options.region_size, options.train_mode)
+
+    manifest = RegionManifest(manifest_dir)
+    if rank == 0:
+        manifest.write(intervals)
+    barrier("manifest-written")
+
+    my_intervals = shard_intervals(intervals, rank, world)
+    pending = [i for i in my_intervals if not manifest.is_done(i)]
+    log_info(f"HOST {rank}/{world}: "
+             f"{len(pending)}/{len(my_intervals)} INTERVALS PENDING")
+
+    device = resolve_device(device if devices is None else devices[0])
+    runner = None
+    if not options.dry:
+        # as the JAX package's sharded path: the runner's default
+        # compute dtype, float32 (ROADMAP.md, reference notes)
+        runner = InferenceRunner(
+            params, batch_size=options.batch_size,
+            quantized=options.quantized,
+            quantize_mode=options.quantize_mode,
+            model_type=options.model_type, device=device,
+            devices=_inference_devices(options, device, devices))
+
+    output_file = os.path.join(prediction_dir,
+                               f"pepper_prediction_{rank}.hdf")
+    mode = "a" if os.path.exists(output_file) else "w"
+    # 1-deep dispatch pipeline (same as _stream_predictions): interval
+    # k's device work overlaps interval k+1's window generation.  Resume
+    # stays exact — an interval is only marked done after its predictions
+    # are resolved AND stored, so at most one interval is re-done after a
+    # crash.
+    inflight = None  # (key, interval, handle)
+
+    with PredictionStore(output_file, mode) as store:
+
+        def flush():
+            nonlocal inflight
+            if inflight is not None:
+                key, interval, handle = inflight
+                store.write_prediction(key, runner.resolve(handle))
+                manifest.mark_done(interval)
+                inflight = None
+
+        for contig, start, end in pending:
+            windows = create_region_summary(options, bam_handler,
+                                            fasta_handler, contig, start,
+                                            end, bed_list)
+            # interval-derived batch key so resumed runs never collide
+            key = f"{contig}_{start}_{end}"
+            if windows and runner is not None:
+                handle = runner.dispatch(windows)
+                flush()
+                inflight = (key, (contig, start, end), handle)
+            else:
+                if windows:
+                    store.write_prediction(key, fake_predict(windows))
+                manifest.mark_done((contig, start, end))
+        flush()
+
+    barrier("predictions-complete")
+    if rank == 0:
+        return process_candidates(options, prediction_dir,
+                                  options.output_dir)
+    return None
+
+
+def resolve_num_devices(options, device) -> None:
+    """Resolve options.num_devices (-1/0 = all local devices) against the
+    local device count of `device`'s type — once, up front, so the
+    device_pileup gate, the summarizer mirror gate and the runners all see
+    the same integer.  On the CPU it resolves to 1."""
+    from ..parallel.mesh import resolve_num_devices as resolve
+
+    options.num_devices = resolve(getattr(options, "num_devices", 1), device)
+
+
+def _inference_devices(options, device, devices=None):
+    """The devices the data-parallel InferenceRunner runs on, or None (one
+    device); sets options.num_devices to their count.  An explicit list
+    (a library caller's, possibly naming one device twice) overrides
+    options.num_devices."""
+    from ..parallel.mesh import local_devices
+
+    if devices is None:
+        resolve_num_devices(options, device)
+        devices = local_devices(options.num_devices, device)
+    else:
+        devices = [resolve_device(d) for d in devices]
+        options.num_devices = len(devices)
+    return devices if devices and len(devices) > 1 else None
 
 
 def resolve_device_pileup(options) -> None:
@@ -125,7 +234,7 @@ def resolve_device_pileup(options) -> None:
         options.device_pileup = False
 
 
-def _make_predict_fn(options, params, device):
+def _make_predict_fn(options, params, device, devices=None):
     if options.dry:
         return fake_predict
     if getattr(options, "device_pileup", False) and not options.use_hp_info:
@@ -151,7 +260,7 @@ def _make_predict_fn(options, params, device):
         window=size_options.CANDIDATE_WINDOW_SIZE + 1,
         features=size_options.IMAGE_HEIGHT,
         quantized=options.quantized, quantize_mode=options.quantize_mode,
-        model_type=options.model_type, device=device)
+        model_type=options.model_type, device=device, devices=devices)
     return runner.predict
 
 
@@ -253,17 +362,21 @@ def _stream_predictions(options, intervals, bed_list, predict_fn,
     return predictions, total_windows
 
 
-def call_variant(options, params=None, device=None):
+def call_variant(options, params=None, device=None, devices=None):
     """Full pipeline: windows -> model -> candidates -> 5 VCFs.
 
     params: transducer parameter tree (numpy arrays as load_params gives
     them, or tensors); None with options.dry uses the label passthrough.
-    device: the torch device for inference, cuda unless given."""
+    device: the torch device for inference, cuda unless given; with
+    options.num_devices other than 1 on cuda, inference runs data parallel
+    over that many local GPUs, or over `devices` where given."""
     start_time = time.time()
-    device = resolve_device(device)
-    resolve_num_devices(options)
+    device = resolve_device(device if devices is None else devices[0])
+    devices = _inference_devices(options, device, devices)
     resolve_device_pileup(options)
     os.makedirs(options.output_dir, exist_ok=True)
+    if devices is not None and not options.dry:
+        log_info(f"INFERENCE SHARDED OVER {len(devices)} DEVICES")
 
     bam_handler = BamReader(options.bam)
     fasta_handler = FastaReader(options.fasta)
@@ -277,7 +390,7 @@ def call_variant(options, params=None, device=None):
     log_info(f"TOTAL CONTIGS: {len(chr_list)} TOTAL INTERVALS: "
              f"{len(intervals)} TOTAL BASES: {total_bases}")
 
-    predict_fn = _make_predict_fn(options, params, device)
+    predict_fn = _make_predict_fn(options, params, device, devices)
     if options.threads > 1 and len(intervals) > 1:
         # one pool serves both interval workers and decode chunks, so
         # candidate decoding overlaps window generation + inference; chunk

@@ -27,6 +27,7 @@ from ..models.quantize import (polish_forward_static,
                                polish_quantize_params_static)
 from ..ops.gru_kernel import use_fused_gru
 from ..options import PolishImageOptions
+from ..parallel.mesh import round_up
 
 SEQ_LENGTH = PolishImageOptions.SEQ_LENGTH          # 1000
 SEQ_OVERLAP = PolishImageOptions.SEQ_OVERLAP        # 50
@@ -131,42 +132,48 @@ def dry_consensus_labels(images: np.ndarray):
     return labels.astype(np.int32), phred
 
 
-_tree_cache: list = []
+_tree_cache: dict = {}
 
 
 def _device_tree_cached(params, device, quantize_mode):
-    """Single-entry memo of the serving tree on `device`, keyed on the host
-    params' identity, so per-worker predict calls reuse one device tree:
-    the float tree, or the static-int8 one for quantize_mode="static", its
-    int8 weights relaid once for the kernels (polish_prepare_static)."""
+    """Memo of the serving tree on each device, keyed on (device, mode) and
+    the host params' identity, so per-file predict calls reuse one tree a
+    device and devices do not evict each other: the float tree, or the
+    static-int8 one for quantize_mode="static", its int8 weights relaid
+    once a device for the kernels (polish_prepare_static).  A new params
+    tree replaces the device's entry, so reloads do not accumulate."""
     key = (str(device), quantize_mode)
-    if _tree_cache and _tree_cache[0][1] is params \
-            and _tree_cache[0][0] == key:
-        return _tree_cache[0][2]
+    hit = _tree_cache.get(key)
+    if hit is not None and hit[0] is params:
+        return hit[1]
     if quantize_mode == "static":
         tree = polish_prepare_static(params_from_jax(
             polish_quantize_params_static(params), device))
     else:
         tree = params_from_jax(params, device)
-    _tree_cache[:] = [(key, params, tree)]
+    _tree_cache[key] = (params, tree)
     return tree
 
 
 def consensus_predict(params, images: np.ndarray, batch_size: int = 512,
-                      compute_dtype=torch.float32, mesh=None,
-                      quantize_mode: str | None = None, device=None):
+                      compute_dtype=torch.float32,
+                      quantize_mode: str | None = None, device=None,
+                      devices=None):
     """Batched host wrapper: (N, 1000, 10) uint8 images -> (labels, phred)
     numpy arrays, on `device` (cuda unless given).  The final batch pads
     to a power-of-two bucket between 32 and batch_size.
 
+    devices: a list to run data parallel over (the JAX package's mesh, the
+    fan-out of predict_distributed_gpu.py:39-70): the batch and each bucket
+    round up to the device count, each padded batch splits into contiguous
+    row blocks, one a device, and every block is enqueued before any is
+    read back.  The hidden carry is per chunk, so the labels and phred
+    equal one device's.
+
     params: the float polish tree (numpy arrays as load_params gives them,
     or tensors).  quantize_mode="static" serves through the exact-1/127
     int8 tree (consensus_scan_static)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "consensus over a device mesh (multi-GPU polish) is not ported "
-            "yet: ROADMAP.md queue A, item 7")
-    device = resolve_device(device)
+    devices = [resolve_device(d) for d in (devices or [device])]
     n = len(images)
     if n == 0:
         return (np.zeros((0, SEQ_LENGTH), np.int32),
@@ -177,9 +184,11 @@ def consensus_predict(params, images: np.ndarray, batch_size: int = 512,
     elif quantize_mode not in (None, "", "none", "off"):
         raise ValueError(
             f"unsupported polish quantize_mode: {quantize_mode!r}")
-    tree = _device_tree_cached(params, device,
-                               "static" if scan_fn is consensus_scan_static
-                               else None)
+    trees = [_device_tree_cached(params, d,
+                                 "static" if scan_fn is consensus_scan_static
+                                 else None) for d in devices]
+    n_devices = len(devices)
+    batch_size = round_up(batch_size, n_devices)
     all_labels = np.zeros((n, SEQ_LENGTH), np.int32)
     all_phred = np.zeros((n, SEQ_LENGTH), np.float32)
     for start in range(0, n, batch_size):
@@ -187,13 +196,22 @@ def consensus_predict(params, images: np.ndarray, batch_size: int = 512,
         bucket = 32
         while bucket < len(chunk):
             bucket *= 2
-        bucket = min(bucket, batch_size)
+        bucket = round_up(min(bucket, batch_size), n_devices)
         padded = np.zeros((bucket, SEQ_LENGTH, images.shape[2]), np.float32)
         padded[:len(chunk)] = chunk
-        batch = torch.from_numpy(padded).to(device=device,
-                                            dtype=compute_dtype)
-        _, labels, phred = scan_fn(tree, batch)
-        all_labels[start:start + len(chunk)] = \
-            labels[:len(chunk)].cpu().numpy()
-        all_phred[start:start + len(chunk)] = phred[:len(chunk)].cpu().numpy()
+        per = bucket // n_devices
+        blocks = []
+        for i, (d, tree) in enumerate(zip(devices, trees)):
+            rows = min(per, len(chunk) - i * per)
+            if rows <= 0:       # padding only
+                break
+            batch = torch.from_numpy(padded[i * per:(i + 1) * per]).to(
+                device=d, dtype=compute_dtype)
+            _, labels, phred = scan_fn(tree, batch)
+            blocks.append((labels[:rows], phred[:rows]))
+        row = start
+        for labels, phred in blocks:
+            all_labels[row:row + len(labels)] = labels.cpu().numpy()
+            all_phred[row:row + len(phred)] = phred.cpu().numpy()
+            row += len(labels)
     return all_labels, all_phred

@@ -1,14 +1,16 @@
-"""Assembly polishing in one process: images -> consensus -> stitch
-(reference pepper/modules/python/polish.py:91-117), the port of the JAX
-package's polish/pipeline.py `polish`.
+"""Assembly polishing: images -> consensus -> stitch (reference
+pepper/modules/python/polish.py:91-117), the port of the JAX package's
+polish/pipeline.py.
 
-The JAX package passes images and predictions between its three stages
-through HDF5 files (polish/datastore.py).  Here the images stay in memory,
-made by --threads worker processes that split the intervals as the JAX
-package's make_polish_images does, and the predictions go into
-PredictionStore, an in-memory store with PolishPredictionStore's writing
-and ordering rules, so the stitched FASTA is byte-equal.  The staged
-subcommands and their HDF5 files wait for ROADMAP.md queue A, item 14.
+The JAX package's `polish` passes images and predictions between its three
+stages through HDF5 files (polish/datastore.py).  The port's `polish` runs
+them in one process without h5py: the images stay in memory, made by
+--threads worker processes that split the intervals as the JAX package's
+make_polish_images does, and the predictions go into PredictionStore, an
+in-memory store with PolishPredictionStore's writing and ordering rules,
+so the stitched FASTA is byte-equal.  The staged subcommands
+(make_polish_images, call_consensus, perform_stitch) and polish_sharded
+write and read the JAX package's HDF5 files and need h5py.
 """
 
 from __future__ import annotations
@@ -206,7 +208,7 @@ def _image_worker(args):
     return [records[name] for name in sorted(records)]
 
 
-def make_polish_images(options, intervals):
+def polish_image_shares(options, intervals):
     """Image records of every interval, one list per worker process, the
     lists in the order the JAX package's call_consensus reads its image
     files (sorted by file name, so worker 10 before worker 2)."""
@@ -227,10 +229,17 @@ def make_polish_images(options, intervals):
     return [shares[process_id] for process_id in order if shares[process_id]]
 
 
-def call_consensus(options, shares, params, store, device):
-    """Each worker's image records -> labels and phred -> the store."""
-    quantize_mode = (getattr(options, "quantize_mode", None)
-                     if getattr(options, "quantized", False) else None)
+def _quantize_mode(options):
+    return (getattr(options, "quantize_mode", None)
+            if getattr(options, "quantized", False) else None)
+
+
+def consensus_into(options, shares, params, store, device, devices=None,
+                   quantize_mode=None):
+    """Each share's image records -> labels and phred -> the store (the
+    in-memory PredictionStore or an HDF5 PolishPredictionStore), one
+    consensus_predict call a share as the JAX package's call_consensus
+    makes one a file."""
     for records in shares:
         image_stack = np.stack([record[4] for record in records])
         if getattr(options, "dry", False):
@@ -242,7 +251,7 @@ def call_consensus(options, shares, params, store, device):
 
             labels, phred = consensus_predict(
                 params, image_stack, batch_size=options.batch_size,
-                quantize_mode=quantize_mode, device=device)
+                quantize_mode=quantize_mode, device=device, devices=devices)
         for i, (contig, start, end, chunk_id, _, position, index) in \
                 enumerate(records):
             store.write_prediction(contig, start, end, chunk_id, position,
@@ -267,12 +276,29 @@ def stitch(store, output_path: str):
     return fasta_path
 
 
-def polish(options, params, device=None):
+def _consensus_devices(options, device, devices=None):
+    """The devices the consensus runs data parallel over, or None (one
+    device): `devices` where given, else --num_devices resolved against
+    `device`'s local count, as call_variant resolves it.  Dry runs never
+    touch a device."""
+    if getattr(options, "dry", False):
+        return None
+    if devices is None:
+        from ..parallel.mesh import local_devices
+
+        devices = local_devices(getattr(options, "num_devices", 1), device)
+    return devices if devices and len(devices) > 1 else None
+
+
+def polish(options, params, device=None, devices=None):
     """Full polish pipeline (polish.py:91-117) in one process: images,
-    consensus on `device` (cuda unless given), stitch.  params: the float
-    polish tree (numpy arrays or tensors); None with options.dry.  Returns
-    the FASTA path, options.output_dir/consensus_pepper_polished.fa."""
-    device = resolve_device(device)
+    consensus on `device` (cuda unless given) or data parallel over
+    --num_devices local GPUs (or the list `devices`), stitch.  params: the
+    float polish tree (numpy arrays or tensors); None with options.dry.
+    Returns the FASTA path,
+    options.output_dir/consensus_pepper_polished.fa."""
+    device = resolve_device(device if devices is None else devices[0])
+    devices = _consensus_devices(options, device, devices)
     output_dir = options.output_dir
     os.makedirs(output_dir, exist_ok=True)
     log_info(f"RUN-ID: {time.strftime('%m%d%Y_%H%M%S')}")
@@ -284,9 +310,197 @@ def polish(options, params, device=None):
     log_info(f"TOTAL CONTIGS: {len(chr_list)} TOTAL INTERVALS: "
              f"{len(intervals)}")
     log_info("STEP 1: GENERATING IMAGES")
-    shares = make_polish_images(options, intervals)
+    shares = polish_image_shares(options, intervals)
     log_info("STEP 2: RUNNING INFERENCE")
     store = PredictionStore()
-    call_consensus(options, shares, params, store, device)
+    consensus_into(options, shares, params, store, device, devices,
+                   _quantize_mode(options))
     log_info("STEP 3: RUNNING STITCH")
     return stitch(store, os.path.join(output_dir, "consensus"))
+
+
+# ------------------------------------------------ the staged HDF5 flow
+
+
+def _polish_image_worker(args):
+    """One worker process: its interval share -> one HDF5 file (the
+    reference's image_generator, pepper ImageGenerationUI.py:192-233).
+    Host code only."""
+    from .datastore import PolishImageStore
+
+    options, intervals, output_dir, process_id, n_workers, timestr = args
+    bam_handler = BamReader(options.bam)
+    fasta_handler = FastaReader(options.fasta)
+    file_name = os.path.join(
+        output_dir, f"pepper_images_thread_{process_id}_{timestr}.hdf")
+    my_intervals = [interval for i, interval in enumerate(intervals)
+                    if i % n_workers == process_id]
+    written = 0
+    with PolishImageStore(file_name, "w") as store:
+        for contig, start, end in my_intervals:
+            images, labels, positions, chunk_ids = summarize_interval(
+                bam_handler, fasta_handler, contig, start, end,
+                options.downsample_rate,
+                realignment=getattr(options, "realignment", True))
+            region = (contig, start, end)
+            for i, image in enumerate(images):
+                name = f"{contig}_{start}_{end}_{chunk_ids[i]}"
+                store.write_summary(region, image, labels[i],
+                                    positions[i][:, 0], positions[i][:, 1],
+                                    chunk_ids[i], name)
+                written += 1
+    if written == 0:
+        os.remove(file_name)
+        return None
+    return file_name
+
+
+def make_polish_images(options, output_dir: str):
+    """The polish make_images stage: one HDF5 image file per worker
+    process, the JAX package's layout (polish/datastore.py)."""
+    os.makedirs(output_dir, exist_ok=True)
+    bam_handler = BamReader(options.bam)
+    fasta_handler = FastaReader(options.fasta)
+    chr_list = get_polish_chromosome_list(options.region, fasta_handler,
+                                          bam_handler, options.region_bed)
+    intervals = build_polish_intervals(chr_list, fasta_handler)
+    log_info(f"TOTAL CONTIGS: {len(chr_list)} TOTAL INTERVALS: "
+             f"{len(intervals)}")
+    timestr = time.strftime("%m%d%Y_%H%M%S")
+    n_workers = max(1, min(getattr(options, "threads", 1), len(intervals)))
+    tasks = [(options, intervals, output_dir, process_id, n_workers,
+              timestr) for process_id in range(n_workers)]
+    if n_workers == 1:
+        files = [_polish_image_worker(tasks[0])]
+    else:
+        with concurrent.futures.ProcessPoolExecutor(
+                max_workers=n_workers,
+                mp_context=multiprocessing.get_context("fork")) as pool:
+            files = list(pool.map(_polish_image_worker, tasks))
+    files = [f for f in files if f]
+    log_info("FINISHED IMAGE GENERATION")
+    return files[0] if len(files) == 1 else files
+
+
+def call_consensus(options, image_dir: str, output_dir: str, params,
+                   device=None, devices=None):
+    """Images HDF5 -> sliding-window GRU predictions HDF5, one
+    consensus_predict call an image file (sorted by file name), on
+    `device` (cuda unless given) or data parallel as polish runs."""
+    from .datastore import PolishImageStore, PolishPredictionStore
+
+    device = resolve_device(device if devices is None else devices[0])
+    devices = _consensus_devices(options, device, devices)
+    os.makedirs(output_dir, exist_ok=True)
+    output_file = os.path.join(output_dir, "pepper_prediction_0.hdf")
+    image_files = sorted(
+        os.path.join(image_dir, f) for f in os.listdir(image_dir)
+        if f.endswith((".hdf", ".hdf5", ".h5")))
+    with PolishPredictionStore(output_file, "w") as store:
+        for image_file in image_files:
+            with PolishImageStore(image_file, "r") as images:
+                records = [images.read_summary(name)
+                           for name in images.summary_names()]
+            if not records:
+                continue
+            consensus_into(options, [[
+                (r["contig"], r["region_start"], r["region_end"],
+                 r["chunk_id"], r["image"], r["position"], r["index"])
+                for r in records]], params, store, device, devices,
+                _quantize_mode(options))
+    log_info("FINISHED PREDICTION")
+    return output_file
+
+
+def perform_stitch(prediction_dir: str, output_path: str):
+    """Predictions HDF5 -> polished consensus FASTA
+    (perform_stitch.py:44-84)."""
+    from .datastore import PolishPredictionStore
+
+    prediction_files = sorted(
+        os.path.join(prediction_dir, f) for f in os.listdir(prediction_dir)
+        if f.endswith(".hdf"))
+    all_contigs = set()
+    for prediction_file in prediction_files:
+        with PolishPredictionStore(prediction_file, "r") as store:
+            all_contigs.update(store.contigs())
+
+    fasta_path = output_path + "_pepper_polished.fa"
+    os.makedirs(os.path.dirname(os.path.abspath(fasta_path)), exist_ok=True)
+    with open(fasta_path, "w") as fasta_out:
+        for contig in sorted(all_contigs, key=natural_key):
+            log_info(f"PROCESSING CONTIG: {contig}")
+            groups = []
+            for prediction_file in prediction_files:
+                with PolishPredictionStore(prediction_file, "r") as store:
+                    if contig not in store.contigs():
+                        continue
+                    for _, c_start, c_end, records in store.chunk_groups(
+                            contig):
+                        groups.append((c_start, c_end, records))
+            sequence = stitch_contig(groups)
+            log_info(f"FINISHED PROCESSING {contig}, POLISHED SEQUENCE "
+                     f"LENGTH: {len(sequence)}.")
+            if sequence:
+                fasta_out.write(f">{contig}\n{sequence}\n")
+    return fasta_path
+
+
+def polish_sharded(options, params, manifest_dir=None, device=None,
+                   devices=None):
+    """Multi-process / resumable polish: interval claims + done markers as
+    in call_variant_sharded; per-rank consensus predictions in HDF5, rank-0
+    stitch.  As the JAX package's polish_sharded, the consensus runs the
+    float tree whatever --quantized says (ROADMAP.md, reference notes)."""
+    from ..parallel.dist import (RegionManifest, barrier, process_count,
+                                 process_index, shard_intervals)
+    from .datastore import PolishPredictionStore
+
+    rank, world = process_index(), process_count()
+    device = resolve_device(device if devices is None else devices[0])
+    devices = _consensus_devices(options, device, devices)
+    os.makedirs(options.output_dir, exist_ok=True)
+    manifest_dir = manifest_dir or os.path.join(options.output_dir,
+                                                "manifest")
+    prediction_dir = os.path.join(options.output_dir, "predictions")
+    os.makedirs(prediction_dir, exist_ok=True)
+
+    bam_handler = BamReader(options.bam)
+    fasta_handler = FastaReader(options.fasta)
+    chr_list = get_polish_chromosome_list(options.region, fasta_handler,
+                                          bam_handler, options.region_bed)
+    intervals = build_polish_intervals(chr_list, fasta_handler)
+
+    manifest = RegionManifest(manifest_dir)
+    if rank == 0:
+        manifest.write(intervals)
+    barrier("polish-manifest")
+
+    my_intervals = shard_intervals(intervals, rank, world)
+    pending = [i for i in my_intervals if not manifest.is_done(i)]
+    log_info(f"HOST {rank}/{world}: "
+             f"{len(pending)}/{len(my_intervals)} INTERVALS PENDING")
+
+    output_file = os.path.join(prediction_dir,
+                               f"pepper_prediction_{rank}.hdf")
+    mode = "a" if os.path.exists(output_file) else "w"
+    with PolishPredictionStore(output_file, mode) as store:
+        for contig, start, end in pending:
+            images, _, positions, chunk_ids = summarize_interval(
+                bam_handler, fasta_handler, contig, start, end,
+                options.downsample_rate,
+                realignment=getattr(options, "realignment", True))
+            if images:
+                consensus_into(options, [[
+                    (contig, start, end, chunk_id, image, pos[:, 0],
+                     pos[:, 1])
+                    for image, pos, chunk_id in zip(images, positions,
+                                                    chunk_ids)]],
+                    params, store, device, devices)
+            manifest.mark_done((contig, start, end))
+
+    barrier("polish-predictions")
+    if rank == 0:
+        return perform_stitch(prediction_dir,
+                              os.path.join(options.output_dir, "consensus"))
+    return None

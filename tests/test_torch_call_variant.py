@@ -7,6 +7,7 @@ float32 probabilities that the two frameworks sum in different orders.
 """
 
 import gzip
+import os
 
 import jax
 import numpy as np
@@ -32,6 +33,7 @@ from pepper_tpu_torch.pipeline.summarizer import create_region_summary
 from pepper_tpu_torch.presets import set_parameters
 
 from simulate import random_reference, simulate_reads
+from test_torch_polish import one_intra_op_thread  # noqa: F401
 
 CONTIG = "chr20"
 VCFS = ("PEPPER_VARIANT_FULL", "PEPPER_VARIANT_OUTPUT_PEPPER",
@@ -186,15 +188,28 @@ def mode_params(override):
     ({"use_hp_info": True}, "item 9"),
 ])
 def test_unported_options_raise(sim, override, item):
-    """Options the port refused until their ROADMAP item was ported:
-    --num_devices 2 (item 7) still raises; --model_type no_cnn (item 6)
-    and --use_hp_info (item 9) now run and write the JAX package's
-    records."""
+    """Options the port refused until their ROADMAP item was ported, each
+    now run and writing the JAX package's records: --model_type no_cnn
+    (item 6), --use_hp_info (item 9) and --num_devices 2 (item 7: on the
+    CPU it resolves to one device, as JAX on one CPU device; over the
+    explicit list [cpu, cpu] the batches split in two)."""
     options = _options(PepperOptions, set_parameters, sim,
                        sim["tmp"] / f"ported_{item}", **override)
     if item == "item 7":
-        with pytest.raises(NotImplementedError, match=item):
-            cv.call_variant(options, params=sim["params"], device="cpu")
+        totals = cv.call_variant(options, params=sim["params"], device="cpu")
+        assert options.num_devices == 1
+        two = _options(PepperOptions, set_parameters, sim,
+                       sim["tmp"] / "ported_item_7_list", **override)
+        assert cv.call_variant(two, params=sim["params"],
+                               devices=["cpu", "cpu"]) == totals
+        assert two.num_devices == 2
+        theirs = sim["tmp"] / "jax_item_7"
+        jax_totals = jcv.call_variant(_options(
+            JaxOptions, jax_set_parameters, sim, theirs, num_devices=1),
+            params=sim["params"])
+        assert totals == jax_totals and totals[0] > 0
+        _assert_same_calls(options.output_dir, theirs)
+        _assert_same_calls(two.output_dir, theirs)
         return
     params = mode_params(override)
     totals = cv.call_variant(options, params=params, device="cpu")
@@ -207,9 +222,10 @@ def test_unported_options_raise(sim, override, item):
 
 
 def test_num_devices_all_resolves_to_one(sim):
+    """-1 resolves against the device's local count: 1 on the CPU."""
     options = _options(PepperOptions, set_parameters, sim, sim["tmp"],
                        num_devices=-1)
-    cv.resolve_num_devices(options)
+    cv.resolve_num_devices(options, "cpu")
     assert options.num_devices == 1
 
 
@@ -220,11 +236,27 @@ def test_num_devices_all_resolves_to_one(sim):
     # an unknown int8 mode is not accepted (argparse exits)
     (["--quantized", "--quantize_mode", "int4"], SystemExit),
 ])
-def test_cli_unported_flags_raise(sim, argv, error):
+def test_cli_unported_flags_raise(sim, jax_model_run, argv, error):
     """Flags the CLI refuses; --use_hp_info, refused until item 9 was
     ported, now serves an HP checkpoint and writes the JAX package's
-    records."""
+    records, and --sharded and --num_devices 2, refused until item 7 was,
+    write the records of the JAX package's float32 call_variant (the
+    sharded path through its HDF5 predictions and manifest)."""
     model = str(sim["tmp"] / "model_flags.npz")
+    if argv[0] in ("--sharded", "--num_devices"):
+        save_params(model, sim["params"])
+        out = sim["tmp"] / f"cli_{argv[0][2:]}"
+        assert cli.main(["call_variant", "-b", sim["bam"], "-f",
+                         sim["fasta"], "-m", model, "-o", str(out), "-s",
+                         "SAMPLE", "-r", CONTIG, "--ont_r9_guppy5_sup",
+                         "--compute_dtype", "float32", "--device", "cpu",
+                         *argv]) == 0
+        assert _records(out, "PEPPER_VARIANT_FULL")
+        _assert_same_calls(out, jax_model_run)
+        if argv == ["--sharded"]:
+            assert os.listdir(out / "predictions") == [
+                "pepper_prediction_0.hdf"]
+        return
     if argv == ["--use_hp_info"]:
         params = mode_params({"use_hp_info": True})
         save_params(model, params, {"model_type": "lstm"})
@@ -311,16 +343,98 @@ def test_pkl_checkpoints_raise(tmp_path):
     assert meta == j_meta
 
 
+def _cli_stage_matches_jax(sim, jax_model_run, stage):
+    """make_images -> run_inference -> find_candidates with `stage` through
+    the port's CLI and the other two through the JAX package's stages."""
+    from pepper_tpu.pipeline import stages as jstages
+
+    base = sim["tmp"] / f"cli_stage_{stage}"
+    images, predictions, out = (str(base / d) for d in
+                                ("images", "predictions", "vcf"))
+    model = str(sim["tmp"] / "model_stage.npz")
+    save_params(model, sim["params"], {"model_type": "lstm"})
+
+    def joptions():
+        return _options(JaxOptions, jax_set_parameters, sim, out)
+
+    common = ["-f", sim["fasta"], "-s", "SAMPLE", "--ont_r9_guppy5_sup"]
+    if stage == "make_images":
+        assert cli.main(["make_images", "-b", sim["bam"], "-r", CONTIG,
+                         "-o", images, *common]) == 0
+    else:
+        jstages.make_images(joptions(), images)
+    if stage == "run_inference":
+        assert cli.main(["run_inference", "-i", images, "-o", predictions,
+                         "-m", model, "--device", "cpu"]) == 0
+    else:
+        jstages.run_inference(joptions(), images, predictions,
+                              params=sim["params"])
+    if stage == "find_candidates":
+        assert cli.main(["find_candidates", "-i", predictions, "-o", out,
+                         *common]) == 0
+    else:
+        jstages.process_candidates(joptions(), predictions, out)
+    assert _records(out, "PEPPER_VARIANT_FULL")
+    _assert_same_calls(out, jax_model_run)
+
+
+def _cli_merge_matches_jax(sim, jax_model_run):
+    """merge_variants through the CLI on the JAX run's PEPPER VCF and a
+    DeepVariant-style VCF of half its records with other ALTs: the bytes
+    of the JAX package's merge."""
+    from pepper_tpu.decode.merge_variants import merge_vcf_records
+
+    pepper = str(jax_model_run / "PEPPER_VARIANT_FULL.vcf.gz")
+    dv = str(sim["tmp"] / "dv.vcf")
+    with gzip.open(pepper, "rt") as f:
+        lines = f.read().splitlines()
+    header = [line for line in lines if line.startswith("#")]
+    body = [line.split("\t") for line in lines if not line.startswith("#")]
+    assert body
+    with open(dv, "w") as out:
+        out.write("\n".join(header) + "\n")
+        for fields in body[::2]:
+            out.write("\t".join(fields[:4] + ["TT"] + fields[5:]) + "\n")
+    ours, theirs = sim["tmp"] / "merge_ours", sim["tmp"] / "merge_theirs"
+    assert cli.main(["merge_variants", "-vp", pepper, "-vd", dv, "-o",
+                     str(ours)]) == 0
+
+    class Args:
+        vcf_pepper, vcf_deepvariant = pepper, dv
+        vcf_deepvariant_snps = vcf_deepvariant_indels = None
+        output_dir = str(theirs)
+
+    merge_vcf_records(Args())
+    name = "PEPPER_MARGIN_DEEPVARIANT_OUTPUT.vcf.gz"
+    for suffix in ("", ".tbi"):
+        assert (ours / (name + suffix)).read_bytes() == \
+            (theirs / (name + suffix)).read_bytes()
+    with gzip.open(ours / name, "rt") as f:
+        assert sum(line.rstrip().endswith(":DV") for line in f) == len(
+            body[::2])
+
+
 @pytest.mark.parametrize("sub_command,item", [
     ("make_images", "item 14"), ("run_inference", "item 14"),
     ("find_candidates", "item 14"), ("merge_variants", "item 16"),
     ("make_train_images", "item 11"), ("train_model", "item 11"),
     ("test_model", "item 11"), ("run_hyperband", "item 11"),
     ("download_models", "item 12")])
-def test_cli_unported_subcommands_raise(sub_command, item):
+def test_cli_unported_subcommands_raise(sim, jax_model_run, sub_command,
+                                        item):
     """The JAX CLI's other subcommands are registered and raise naming
     their item, whatever follows them (argparse would exit 2 on an unknown
-    subcommand or a missing option)."""
+    subcommand or a missing option).  Those ported since, the staged
+    subcommands (item 14) and merge_variants (item 16), serve: each runs
+    its stage through the CLI beside the JAX package's other stages, and
+    the chain writes the JAX package's float32 call_variant records (the
+    merge: the JAX merge's bytes)."""
+    if item == "item 16":
+        _cli_merge_matches_jax(sim, jax_model_run)
+        return
+    if item == "item 14":
+        _cli_stage_matches_jax(sim, jax_model_run, sub_command)
+        return
     for tail in ([], ["-i", "images", "--bogus"]):
         with pytest.raises(NotImplementedError, match=item):
             cli.main([sub_command, *tail])

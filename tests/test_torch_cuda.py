@@ -247,6 +247,29 @@ def test_runner_on_card(device):
                                       np.float32)))
 
 
+@pytest.mark.parametrize("mode", [{}, {"quantized": True}],
+                         ids=["float32", "static"])
+def test_runner_over_two_device_entries_equals_one(device, mode):
+    """The data-parallel runner over [cuda:0, cuda:0] (a card's worth of
+    the split, the per-device trees and the gather): 300 windows in a
+    bucket of 512, split in blocks of 256 (256 and 44 windows), give one
+    device's probabilities (float32 1e-5, static int8 1e-3), each block
+    launching its own four kernels."""
+    rng = np.random.default_rng(2)
+    images = rng.integers(-125, 126, (300, 33, 26)).astype(np.int8)
+    params = _params()
+    kw = dict(batch_size=4096, compute_dtype="float32", **mode)
+    one = InferenceRunner(params, **kw)
+    two = InferenceRunner(params, devices=[device, device], **kw)
+    kernel = (lstm_kernel.lstm_direction_fused_static if mode
+              else lstm_kernel.lstm_direction_fused)
+    expected = one.predict_images(images)
+    before = kernel.launches
+    got = two.predict_images(images)
+    assert kernel.launches == before + 8
+    np.testing.assert_allclose(got, expected, atol=1e-3 if mode else 1e-5)
+
+
 # ---------------------------------------------------------------- int8 serving
 
 CODE_BARS = {False: 0.999, True: 0.995}    # equal share, by rec_int8

@@ -54,6 +54,7 @@ from pepper_tpu_torch.presets import set_parameters
 
 from simulate import random_reference, simulate_reads
 from test_pileup_hp import REF, THRESHOLDS
+from test_torch_polish import one_intra_op_thread  # noqa: F401
 
 # ---------------------------------------------------------------- pileup
 
@@ -316,11 +317,25 @@ def test_predict_hp_pair_matches_jax():
 
 
 def test_predict_hp_mesh_raises_naming_item_7():
+    """Refused until item 7 was ported: predict_hp over a device list
+    (the JAX package's mesh branch) pads each haplotype batch of 3 to the
+    2 devices, splits it and gathers the votes in order, exactly one
+    device's, and within the vote bars of JAX's mesh run."""
+    from pepper_tpu.parallel.mesh import get_mesh
+
     params = _polish_params(5, 8)
-    images = _images(6, (1, 100, 8))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        hp_sliding.predict_hp(params, images, images, mesh=object(),
-                              device="cpu")
+    im1, im2 = _images(6, (3, 200, 8)), _images(7, (3, 200, 8))
+    one = hp_sliding.predict_hp(params, im1, im2, allow_kernel=False,
+                                device="cpu")
+    two = hp_sliding.predict_hp(params, im1, im2, allow_kernel=False,
+                                devices=["cpu", "cpu"])
+    for ours, single in zip(two, one):
+        assert ours.shape == (3, 200, 5) and ours.dtype == np.int32
+        np.testing.assert_array_equal(ours, single)
+    theirs = jsliding.predict_hp(params, im1, im2, allow_kernel=False,
+                                 mesh=get_mesh(2))
+    for ours, j_votes, what in zip(two, theirs, ("hp1", "hp2")):
+        assert_votes_close(ours, np.asarray(j_votes), f"{what} mesh")
 
 
 # ---------------------------------------------------------------- legacy

@@ -48,12 +48,33 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "infer/device_runner.py", "device.py",
                    "models/torch_convert.py", "models/alternates.py",
                    "ops/pileup_hp.py", "infer/hp_sliding.py",
-                   "decode/hp_legacy.py"):
+                   "decode/hp_legacy.py", "io/vcf_reader.py",
+                   "decode/merge_variants.py", "io/datastore.py",
+                   "polish/datastore.py", "pipeline/stages.py",
+                   "parallel/mesh.py", "parallel/dist.py"):
         assert PORT / module in sources, module
     for path in sources:
         for module in _imported_modules(path):
             top = module.split(".")[0]
             assert top not in FORBIDDEN, f"{path} imports {module}"
+
+
+def test_h5py_is_imported_inside_functions_only():
+    """No module of the port imports h5py at its top level, so
+    call_variant and polish import on a host without it; only
+    io/datastore.py's require_h5py imports it."""
+    importers = []
+    for path in sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in tree.body:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import)
+                     else [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) else [])
+            assert "h5py" not in [n.split(".")[0] for n in names], path
+        if "h5py" in _imported_modules(path):
+            importers.append(path.relative_to(PORT.parent).as_posix())
+    assert importers == ["pepper_tpu_torch/io/datastore.py"]
 
 
 def test_scan_sees_imports_inside_functions(tmp_path):

@@ -43,6 +43,18 @@ from simulate import apply_variants, random_reference, simulate_reads
 CONTIG = "ctg1"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for the module: the consensus runs thousands of
+    tiny ops, and with a thread a core each waits on the slowest of them
+    while the other test workers keep every core busy (tens of times
+    slower); one thread computes the same."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _params(seed):
     return jax.tree_util.tree_map(np.asarray, init_polish_params(
         jax.random.PRNGKey(seed)))
@@ -201,13 +213,30 @@ def test_consensus_predict_matches_jax(quantize_mode):
     assert (labels == j_labels).mean() > 0.99
 
 
-def test_consensus_predict_refuses_a_mesh_and_unknown_modes():
-    images = np.zeros((1, 1000, 10), np.uint8)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        consensus.consensus_predict(_params(0), images, mesh=object(),
-                                    device="cpu")
+@pytest.mark.parametrize("quantize_mode,atol", [(None, 1e-5),
+                                                 ("static", 1e-3)])
+def test_consensus_predict_refuses_a_mesh_and_unknown_modes(quantize_mode,
+                                                           atol):
+    """A device list, refused until item 7 was ported, now runs data
+    parallel: 5 chunks at a batch of 3 over [cpu, cpu] (batch and buckets
+    rounded up to 2, a padding-only block skipped) give one device's labels
+    and phred (float32 1e-5, int8 1e-3); the tree memo keeps one entry a
+    device and mode.  An unknown mode still raises."""
+    params = _params(0)
+    images = _images(5, 9, high=40).astype(np.uint8)
+    one = consensus.consensus_predict(params, images, batch_size=3,
+                                      quantize_mode=quantize_mode,
+                                      device="cpu")
+    two = consensus.consensus_predict(params, images, batch_size=3,
+                                      quantize_mode=quantize_mode,
+                                      devices=["cpu", "cpu"])
+    np.testing.assert_array_equal(two[0], one[0])
+    np.testing.assert_allclose(two[1], one[1], atol=atol)
+    assert two[0].shape == (5, 1000) and two[0].dtype == np.int32
+    mode = "static" if quantize_mode else None
+    assert consensus._tree_cache[("cpu", mode)][0] is params
     with pytest.raises(ValueError, match="quantize_mode"):
-        consensus.consensus_predict(_params(0), images,
+        consensus.consensus_predict(params, images,
                                     quantize_mode="dynamic", device="cpu")
 
 
@@ -332,25 +361,82 @@ def test_polish_cli_matches_jax_bytes(polish_sim, mode):
         assert f.read() == _jax_fasta(polish_sim, mode)
 
 
+def _cli_staged(sim, tag, images_by="port", consensus_by="port",
+                mode="float"):
+    """The staged polish chain make_images -> call_consensus -> stitch,
+    each stage through the port's CLI or the JAX package's functions (its
+    files are the other package's input), the consensus in `mode` (dry or
+    float); returns the FASTA bytes."""
+    from pepper_tpu.polish import pipeline as jpipeline
+
+    base = sim["tmp"] / f"staged_{tag}"
+    images, predictions = str(base / "images"), str(base / "predictions")
+    common = ["-b", sim["bam"], "-f", sim["fasta"], "-t", "2",
+              "--batch_size", "8"]
+    if images_by == "port":
+        assert polish_main.main(["make_images", *common, "-o", images]) == 0
+    else:
+        jpipeline.make_polish_images(JaxOptions(
+            bam=sim["bam"], fasta=sim["fasta"], threads=2), images)
+    dry = mode == "dry"
+    if consensus_by == "port":
+        assert polish_main.main(
+            ["call_consensus", *common, "-i", images, "-o", predictions,
+             "-m", sim["model"], "--device", "cpu"]
+            + (["--dry"] if dry else [])) == 0
+    else:
+        jpipeline.call_consensus(JaxOptions(batch_size=8, dry=dry), images,
+                                 predictions, None if dry else sim["params"])
+    assert polish_main.main(["stitch", "-i", predictions, "-o",
+                             str(base)]) == 0
+    with open(base / "consensus_pepper_polished.fa", "rb") as f:
+        return f.read()
+
+
 @pytest.mark.parametrize("argv,item", [
     (["make_images", "-b", "x.bam"], "item 14"),
     (["call_consensus", "-i", "imgs"], "item 14"),
     (["stitch", "-i", "preds"], "item 14"),
-    (["make_train_images", "--truth_bam", "t.bam"], "item 14"),
+    (["make_train_images", "--truth_bam", "t.bam"], "item 11"),
     (["train_model", "-i", "imgs"], "item 11"),
     (["test_model", "-i", "imgs"], "item 11"),
     (["run_hyperband", "-i", "imgs"], "item 11"),
     (["download_models"], "item 12"),
     (["call_consensus"], "item 14"),
-    (["make_train_images", "-b", "x.bam"], "item 14"),
+    (["make_train_images", "-b", "x.bam"], "item 11"),
     (["train_model"], "item 11"),
     (["polish", "-m", "model.pkl", "--device", "cpu"], "item 13"),
     (["polish", "--num_devices", "2", "--device", "cpu"], "item 7"),
 ])
 def test_polish_cli_refuses_what_is_not_ported(polish_sim, argv, item):
-    """What the polish CLI refuses, naming the item; a reference .pkl
-    (item 13, refused until that item was ported) now serves and writes
-    the bytes of the JAX package's polish() on the same weights."""
+    """What the polish CLI refuses, naming the item (make_train_images is
+    training data, item 11); what it refused until its item was ported now
+    serves and writes the bytes of the JAX package's polish() on the same
+    weights: a reference .pkl (item 13), --num_devices 2 (item 7; on the
+    CPU it resolves to one device) and the staged make_images,
+    call_consensus and stitch (item 14), each case's own stage through
+    the port's CLI beside the JAX package's other stages (the bare
+    call_consensus case: every stage the port's), the consensus float
+    where the port runs it and dry elsewhere."""
+    if item == "item 14":
+        stage = argv[0] if len(argv) > 1 else "all"
+        kinds = {"make_images": ("port", "jax", "dry"),
+                 "call_consensus": ("jax", "port", "float"),
+                 "stitch": ("jax", "jax", "dry"),
+                 "all": ("port", "port", "dry")}[stage]
+        assert _cli_staged(polish_sim, stage, *kinds) == _jax_fasta(
+            polish_sim, kinds[2])
+        return
+    if item == "item 7":
+        out = str(polish_sim["tmp"] / "cli_two_devices")
+        assert polish_main.main(
+            [argv[0], "-b", polish_sim["bam"], "-f", polish_sim["fasta"],
+             "-o", out, "-m", polish_sim["model"], "--batch_size", "8",
+             *argv[1:]]) == 0
+        with open(os.path.join(out, "consensus_pepper_polished.fa"),
+                  "rb") as f:
+            assert f.read() == _jax_fasta(polish_sim, "float")
+        return
     if item == "item 13":
         from test_torch_checkpoint_pkl import write_checkpoint
 
