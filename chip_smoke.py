@@ -200,9 +200,35 @@ Phases, each printing one JSON line:
                variant and polish flows and a two-process gloo --sharded
                run on cuda:0 against their one-process runs; where it is
                not, one {"phase": "staged", "skipped": ...} line first
+ 20 train      variant-side training at full width (H=256, linear 512):
+               train steps/s and windows/s at B=128 and 4096 with the
+               forward/backward/optimizer split, and the eval's windows/s
+               (first, the host idle); three float64 Adam steps (lr 1e-4,
+               weight decay 1e-4, dropout 0) of the 26x33 and HP 48x21
+               transducers, no_cnn and the transformer on one seeded
+               batch of 4096 windows on cuda against the same steps on
+               the CPU (in two processes of their own while the card
+               works; loss rtol 1e-5, each gradient leaf within 2e-4 of
+               its largest magnitude, params atol 1e-5), launching no
+               kernel (and, measured only, each leaf's gradient
+               difference of one float32 step of the 26x33 transducer:
+               a last bit that moves a SELU pre-activation across 0, where
+               its slope jumps, and Adam's +-lr near g = 0 keep float32
+               from those bars); train_on_arrays on the labeled windows
+               of a 40 kb genome (tests/test_trained_e2e.py's recipe: 150
+               SNPs, 250 noise sites, lr 3e-4, batch 32, holdout 0.15, 30
+               epochs) to >= 90% held out, its eval through row 1 (4
+               launches a batch) and no other kernel; call_variant with the
+               best checkpoint on an unseen 6 kb genome (cuda bfloat16 and
+               float32 against cpu float32, every variant recovered, no
+               false positive); test_model's arrays entry on cuda against
+               cpu; two gloo processes on cuda:0 against one process over
+               [cuda:0, cuda:0] (params within 2e-4, rank 1 writes
+               nothing)
 
-Then the kernel summary line (rows 1-4 with their HP figures, rows 5 and 7
-with their hp_votes_scan figures), the nvidia-smi line and, last, the
+Then the kernel summary line (rows 1-4 with their HP figures, row 1 with
+the training eval's launches, rows 5 and 7 with their hp_votes_scan
+figures), the nvidia-smi line and, last, the
 result line; the `done` line gives each phase's wall seconds.  `--phases
 6,13` runs phases 1 and 2 and the listed ones only, and prints neither the
 summary nor the result line.  Any failed check
@@ -3701,18 +3727,523 @@ def phase_multi_device(device, card):
     return result
 
 
+# ---------------------------------------------------------------- phase 20
+
+# the step checks: three Adam steps of each model on one seeded batch, in
+# float64.  In float32 a last-bit difference moves a SELU pre-activation
+# across 0, where SELU's slope jumps from 1.76 to 1.05: at B=4096 one such
+# row in 10^7 pre-activations puts whole leaves 5e-4 to 6e-3 of their
+# largest gradient apart, cuda against cpu (PERF.md, section 6); and near
+# g = 0 Adam's first step is +-lr whatever g's size.  float64 takes both
+# below the bars; the float32 path is held end to end by the training run.
+TRAIN_STEP_MODELS = ("lstm", "hp", "no_cnn", "transformer")
+TRAIN_STEP_B = 4096
+TRAIN_LR, TRAIN_WD = 1e-4, 1e-4
+# tests/test_trained_e2e.py's recipe, at full width
+TRAIN_EPOCHS = 30
+TRAIN_BATCH = 32
+TRAIN_CONTIG = "chr20"
+
+TRAIN_WORKER = r'''
+import sys
+import numpy as np
+sys.path.insert(0, {root!r})
+from pepper_tpu_torch.options import PepperOptions
+from pepper_tpu_torch.parallel import dist
+from pepper_tpu_torch.train.trainer import train_on_arrays
+
+rank = int(sys.argv[1])
+assert dist.init_distributed({address!r}, 2, rank) == (rank, 2)
+arrays = np.load({arrays!r})
+train_on_arrays(PepperOptions(batch_size={batch}), arrays["images"],
+                arrays["labels"], {out!r} + ("" if rank == 0 else "_rank1"),
+                devices=[{device!r}], **{kwargs!r})
+dist.shutdown_distributed()
+'''
+
+
+def train_step_model(name):
+    """Phase 20's seeded full-width params of `name` (lstm, its HP 48x21
+    twin, no_cnn, transformer), its logits function for the train step
+    (None: the transducer's) and its window shape."""
+    import torch
+    from pepper_tpu_torch.models.registry import make_family
+    from pepper_tpu_torch.models.transducer import (TransducerConfig,
+                                                    init_transducer_params)
+
+    generator = torch.Generator().manual_seed(21)
+    if name in ("lstm", "hp"):
+        config = (TransducerConfig(image_features=48, window=21)
+                  if name == "hp" else TransducerConfig())
+        return (init_transducer_params(generator, config), None,
+                (config.window, config.image_features))
+    family = make_family(name)
+
+    def logits(params, x, train, _):
+        return family.logits(params, x, train, None)   # dropout 0
+
+    return family.init(generator), logits, (33, 26)
+
+
+def train_steps(name, device, B=TRAIN_STEP_B, steps=3, dtype="float64"):
+    """`steps` Adam steps (TRAIN_LR, TRAIN_WD, dropout 0) of model `name`
+    in `dtype` on one seeded batch of B windows on `device`: (the losses,
+    each step's gradients, the params after, the largest move of a param),
+    host arrays keyed by path."""
+    import torch
+    from pepper_tpu_torch.models.params import map_params
+    from pepper_tpu_torch.train import step, trainer
+
+    tree, logits_fn, (window, features) = train_step_model(name)
+    tree = map_params(lambda p: p.to(getattr(torch, dtype)), tree)
+    rng = np.random.RandomState(22)
+    images = rng.randint(-40, 41, (B, window, features)).astype(dtype)
+    labels = rng.randint(0, 3, B).astype(np.int32)
+    mask = np.ones(B, dtype)
+    params = trainer.trainable_params(tree, device)
+    trainable = [(path, leaf) for path, leaf in step.leaves(params)
+                 if leaf.requires_grad]
+    optimizer = torch.optim.Adam([leaf for _, leaf in trainable],
+                                 lr=TRAIN_LR, weight_decay=TRAIN_WD)
+    train_step = step.make_train_step(optimizer, dropout_rate=0.0,
+                                      logits_fn=logits_fn)
+    losses, grads = [], []
+    for _ in range(steps):
+        losses.append(train_step(params, images, labels, None, mask)["loss"])
+        grads.append({"/".join(path): leaf.grad.detach().cpu().clone()
+                      .numpy() for path, leaf in trainable})
+    moved = max(float((leaf.detach().cpu() - torch.as_tensor(init)).abs()
+                      .max()) for (_, leaf), (_, init)
+                in zip(step.leaves(params), step.leaves(tree)))
+    return losses, grads, {"/".join(path): leaf.detach().cpu().clone()
+                           .numpy() for path, leaf in step.leaves(params)}, \
+        moved
+
+
+def compare_train_steps(name, ours, cpu):
+    """Phase 20's bars for one model's steps on the card against the CPU:
+    the loss rtol 1e-5, each gradient leaf within 2e-4 of its largest
+    magnitude, the params after the steps atol 1e-5; and on both, n steps
+    moved a param by at least (n - 0.5) lr (the Adam steps were applied:
+    each moves a param whose gradient keeps its sign by lr)."""
+    losses, grads, params, moved = ours
+    cpu_losses, cpu_grads, cpu_params, cpu_moved = cpu
+    for where, value in (("cuda", moved), ("cpu", cpu_moved)):
+        check(value >= (len(losses) - 0.5) * TRAIN_LR,
+              f"{name} on {where}: the steps "
+              f"moved a param by {value} at most")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    grad_rel = max(float(np.abs(g[k] - c[k]).max())
+                   / max(float(np.abs(c[k]).max()), 1e-30)
+                   for g, c in zip(grads, cpu_grads) for k in c)
+    param_abs = max(float(np.abs(params[k] - cpu_params[k]).max())
+                    for k in cpu_params)
+    check(loss_rel <= 1e-5, f"{name}: loss rel diff {loss_rel}")
+    check(grad_rel <= 2e-4, f"{name}: gradient diff {grad_rel} of max")
+    check(param_abs <= 1e-5, f"{name}: params differ by {param_abs}")
+    return {"loss_rel": loss_rel, "grad_rel_of_max": grad_rel,
+            "params_abs": param_abs, "moved": moved, "losses": losses}
+
+
+def float32_step_diffs(ours, cpu):
+    """Each leaf's largest gradient difference of one float32 step, cuda
+    against cpu, over the leaf's largest gradient (measured, not held to a
+    bar: module docstring, phase 20)."""
+    grads, cpu_grads = ours[1][0], cpu[1][0]
+    return {k: float(np.abs(grads[k] - c).max())
+            / max(float(np.abs(c).max()), 1e-30)
+            for k, c in cpu_grads.items()}
+
+
+def write_train_genome(directory, seed, n_snps, n_noise=None, length=6000):
+    """tests/test_trained_e2e.py's genome with the port's writers: SNPs on
+    a 40 bp grid (every third homozygous), a low-coverage population of
+    reads carrying other sites' "systematic errors" (hom-ref candidates
+    at ~13% VAF), 300 bp reads every 25 bp of each haplotype and every 80
+    of the noise, and its truth VCF and BED."""
+    from pepper_tpu_torch.io.bam_writer import (BamRecord, write_bam,
+                                                write_fasta)
+
+    rng = np.random.RandomState(seed)
+    ref = "".join("ACGT"[i] for i in rng.randint(0, 4, length))
+
+    def alt_base(pos):
+        return {"A": "T", "T": "A", "C": "G", "G": "C"}[ref[pos]]
+
+    n_noise = n_snps if n_noise is None else n_noise
+    chosen = rng.choice(np.arange(300, length - 300, 40),
+                        size=n_snps + n_noise, replace=False)
+    variants = [(int(p), ref[p], alt_base(p), "1|1" if i % 3 == 0 else "1|0")
+                for i, p in enumerate(sorted(int(p) for p in chosen[:n_snps]))]
+    noise = [(int(p), ref[p], alt_base(p))
+             for p in sorted(int(p) for p in chosen[n_snps:])]
+    haplotypes = ([v[:3] for v in variants],
+                  [v[:3] for v in variants if v[3] == "1|1"], noise)
+    records, count = [], 0
+    for hap_index, (hap, stride) in enumerate(zip(haplotypes, (25, 25, 80))):
+        for start in range(0, length - 300 + 1, stride):
+            seq, cigar = _cigar_read(ref, hap, start, 300)
+            records.append(BamRecord(
+                name=f"t{seed}_{hap_index}_{count}", ref_id=0, pos=start,
+                mapq=60, cigar=cigar, seq=seq, qual=[30] * len(seq),
+                flag=0x10 if count % 2 else 0))
+            count += 1
+    records.sort(key=lambda r: r.pos)
+    stem = os.path.join(directory, f"train_{seed}")
+    write_bam(stem + ".bam", [(TRAIN_CONTIG, length)], records)
+    write_fasta(stem + ".fa", {TRAIN_CONTIG: ref})
+    lines = ["##fileformat=VCFv4.2",
+             f"##contig=<ID={TRAIN_CONTIG},length={length}>",
+             "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tsample"]
+    lines += [f"{TRAIN_CONTIG}\t{p + 1}\t.\t{r}\t{a}\t60\tPASS\t.\tGT\t{g}"
+              for p, r, a, g in variants]
+    with open(stem + ".vcf", "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return dict(bam=stem + ".bam", fasta=stem + ".fa", truth=stem + ".vcf",
+                length=length, variants=variants)
+
+
+def train_windows(genome):
+    """The labeled windows of a genome from the port's summarizer in train
+    mode, in memory (random_draw_probability 1.0): (images float32, type
+    labels int32)."""
+    from pepper_tpu_torch.io.bam import BamReader
+    from pepper_tpu_torch.io.fasta import FastaReader
+    from pepper_tpu_torch.options import PepperOptions
+    from pepper_tpu_torch.pipeline.regions import build_intervals
+    from pepper_tpu_torch.pipeline.summarizer import create_region_summary
+    from pepper_tpu_torch.presets import set_parameters
+
+    options = set_parameters(PepperOptions(
+        bam=genome["bam"], fasta=genome["fasta"], ont_r9_guppy5_sup=True,
+        sub_command="make_train_images", train_mode=True,
+        truth_vcf=genome["truth"], random_draw_probability=1.0,
+        region=TRAIN_CONTIG, threads=1))
+    bam, fasta = BamReader(genome["bam"]), FastaReader(genome["fasta"])
+    intervals, _ = build_intervals([(TRAIN_CONTIG, None)], fasta,
+                                   options.region_size, train_mode=True)
+    bed = {TRAIN_CONTIG: [[0, genome["length"]]]}
+    windows = [w for contig, start, end in intervals
+               for w in create_region_summary(options, bam, fasta, contig,
+                                              start, end, bed) or ()]
+    return (np.stack([w.image for w in windows]).astype(np.float32),
+            np.array([w.type_label for w in windows], np.int32))
+
+
+def train_genome_calls(device, workdir, genome, model):
+    """call_variant with the trained model on the unseen genome: cuda
+    bfloat16 (the default) and float32 against cpu float32, by phase 9's
+    rules; the cpu set recovers every simulated variant, all but at most
+    one genotype right, and calls no other site."""
+    table = [(*run, model) for run in CALL_RUNS
+             if run[0] in ("cuda_bfloat16", "cuda_float32", "cpu_float32")]
+    runs, launches = run_calls(device, workdir, (genome["bam"],
+                                                 genome["fasta"]), table)
+    alt_order_only, _ = check_calls(runs, launches, table)
+    calls = {pos: (ref, alt, gt)
+             for pos, ref, alt, gt in runs["cpu_float32"]["calls"]}
+    recovered = genotypes = 0
+    for pos, ref, alt, genotype in genome["variants"]:
+        if calls.get(pos + 1, (None, None))[:2] == (ref, alt):
+            recovered += 1
+            genotypes += calls[pos + 1][2] == (
+                "1/1" if genotype == "1|1" else "0/1")
+    truth = {pos + 1 for pos, *_ in genome["variants"]}
+    false = sorted(pos for pos, (_, _, gt) in calls.items()
+                   if gt not in ("0/0", "./.") and pos not in truth)
+    n = len(genome["variants"])
+    check(recovered == n, f"recovered {recovered}/{n} variants")
+    check(genotypes >= recovered - 1, f"{genotypes}/{n} genotypes right")
+    check(not false, f"false positives at {false}")
+    return {"variants": n, "recovered": recovered, "genotypes": genotypes,
+            "alt_order_only_differences": alt_order_only,
+            "launches": {k: v for k, v in launches.items()
+                         if k.startswith("cuda")},
+            "seconds": {k: v["seconds"] for k, v in runs.items()}}
+
+
+def held_out_confusion(device, params, meta, images, labels):
+    """test_model's arrays entry on the held-out windows on cuda and cpu:
+    equal confusion matrices but at windows whose cpu top-two logits lie
+    within 1e-4 (counted); row 1 launched 4 times a batch."""
+    import torch
+    from pepper_tpu_torch.models.params import params_from_jax
+    from pepper_tpu_torch.models.transducer import transducer_logits
+    from pepper_tpu_torch.options import PepperOptions
+    from pepper_tpu_torch.train import trainer
+
+    options = PepperOptions(batch_size=TRAIN_BATCH)
+    (loss, confusion, accuracy), launches = counted(
+        lambda: trainer.test_on_arrays(options, images, labels, params, meta,
+                                       device=device))
+    batches = -(-len(images) // TRAIN_BATCH)
+    check(launches == {"lstm_direction_fused": 4 * batches},
+          f"test_model launched {launches} for {batches} batches")
+    cpu_loss, cpu_confusion, cpu_accuracy = trainer.test_on_arrays(
+        options, images, labels, params, meta, device="cpu")
+    with torch.inference_mode():
+        logits = {d: transducer_logits(
+            params_from_jax(params, d),
+            torch.from_numpy(images).to(d)).float().cpu().numpy()
+            for d in (device, "cpu")}
+    top2 = np.sort(logits["cpu"], axis=1)[:, -2:]
+    preds = {d: v.argmax(axis=1) for d, v in logits.items()}
+    differ = np.flatnonzero(preds[device] != preds["cpu"])
+    near = np.diff(top2, axis=1)[:, 0] <= 1e-4
+    check(near[differ].all(), "test_model predictions differ at windows "
+          f"whose cpu top-two logits are apart: {differ[~near[differ]]}")
+    expected = cpu_confusion.copy()
+    for i in differ:
+        expected[labels[i], preds["cpu"][i]] -= 1
+        expected[labels[i], preds[device][i]] += 1
+    check(np.array_equal(confusion, expected),
+          f"test_model confusion {confusion.tolist()} on cuda, "
+          f"{cpu_confusion.tolist()} on cpu")
+    return {"windows": len(images), "accuracy": accuracy,
+            "cpu_accuracy": cpu_accuracy, "loss": loss, "cpu_loss": cpu_loss,
+            "near_tied_windows": int(near.sum()),
+            "predictions_differing": len(differ),
+            "confusion": confusion.tolist(), "launches": launches}
+
+
+def two_process_train(device, workdir, images, labels, kwargs):
+    """train_on_arrays in two gloo processes on `device` (cuda:0) from the
+    arrays (an .npz) against one process over [device, device] (the same
+    global device count): final params within 2e-4
+    (tests/test_multihost.py:89-90), and rank 1 writes nothing."""
+    import socket
+
+    from pepper_tpu_torch.options import PepperOptions
+    from pepper_tpu_torch.train import trainer
+
+    arrays = os.path.join(workdir, "train_arrays.npz")
+    np.savez(arrays, images=images, labels=labels)
+    out = os.path.join(workdir, "two_process")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = TRAIN_WORKER.format(root=ROOT, address=f"127.0.0.1:{port}",
+                                 arrays=arrays, batch=TRAIN_BATCH, out=out,
+                                 device=str(device), kwargs=kwargs)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(key, None)
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(rank)],
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, env=env)
+             for rank in (0, 1)]
+    try:
+        logs = [proc.communicate(timeout=300)[0].decode() for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0, f"train rank {rank} failed:\n"
+              f"{log[-3000:]}")
+    seconds = time.time() - t0
+    check(os.listdir(out + "_rank1") == [], "rank 1 wrote "
+          f"{os.listdir(out + '_rank1')}")
+    one = os.path.join(workdir, "one_process")
+    trainer.train_on_arrays(PepperOptions(batch_size=TRAIN_BATCH), images,
+                            labels, one, devices=[device, device], **kwargs)
+    final = [np.load(os.path.join(d, "pepper_model_final.npz"))
+             for d in (out, one)]
+    keys = sorted(k for k in final[1].files if k != "__meta__")
+    check(keys == sorted(k for k in final[0].files if k != "__meta__"),
+          "the two runs' checkpoints hold different leaves")
+    diff = max(float(np.abs(final[0][k] - final[1][k]).max()) for k in keys)
+    check(diff <= 2e-4, f"two processes' params differ by {diff}")
+    return {"params_max_abs_diff": diff, "seconds": round(seconds, 3)}
+
+
+def train_rates(device, B, iters):
+    """The trainer's step (dropout 0.2 drawn over the batch) at B windows:
+    steps/s and windows/s (wall time, the card idle before and after), and
+    the split of a step into forward (logits and loss), backward and the
+    Adam step, by CUDA events around each."""
+    import torch
+    from pepper_tpu_torch.models.transducer import (init_transducer_params,
+                                                    transducer_logits)
+    from pepper_tpu_torch.train import step, trainer
+
+    params = trainer.trainable_params(
+        init_transducer_params(torch.Generator().manual_seed(23)), device)
+    leaves = [leaf for _, leaf in step.leaves(params)]
+    optimizer = torch.optim.Adam(leaves, lr=TRAIN_LR, weight_decay=TRAIN_WD)
+    rng = np.random.RandomState(24)
+    images = rng.randint(-40, 41, (B, 33, 26)).astype(np.float32)
+    labels = rng.randint(0, 3, B).astype(np.int32)
+    mask = np.ones(B, np.float32)
+    generator = torch.Generator(device=device).manual_seed(2)
+    train_step = step.make_train_step(optimizer)
+    seconds = wall_s(lambda: train_step(params, images, labels, generator,
+                                        mask), iters)
+    x = torch.from_numpy(images).to(device)
+    y = torch.from_numpy(labels).to(device)
+    m = torch.from_numpy(mask).to(device)
+    split = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
+    for _ in range(iters):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        events[0].record()
+        logits = transducer_logits(params, x, train=True, generator=(
+            step.GlobalDropout(generator, B)))
+        loss = step.cross_entropy_sum(logits, y, m)
+        events[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+        events[2].record()
+        for leaf, grad in zip(leaves, grads):
+            leaf.grad = grad
+        optimizer.step()
+        events[3].record()
+        events[3].synchronize()
+        for key, (a, b) in zip(split, zip(events, events[1:])):
+            split[key] += a.elapsed_time(b) / iters
+    return {"B": B, "step_ms": seconds * 1e3, "steps_per_s": 1 / seconds,
+            "windows_per_s": B / seconds, **split}
+
+
+def eval_rate(device, iters=5):
+    """The eval step at B=4096 through row 1's float32 kernel: windows/s
+    (wall time) and launches per batch."""
+    import torch
+    from pepper_tpu_torch.models.transducer import init_transducer_params
+    from pepper_tpu_torch.train import step, trainer
+
+    params = trainer.trainable_params(
+        init_transducer_params(torch.Generator().manual_seed(23)), device)
+    rng = np.random.RandomState(25)
+    images = rng.randint(-40, 41, (B_SERVE, 33, 26)).astype(np.float32)
+    labels = rng.randint(0, 3, B_SERVE).astype(np.int32)
+    mask = np.ones(B_SERVE, np.float32)
+    eval_step = step.make_eval_step()
+    _, launches = counted(lambda: eval_step(params, images, labels, mask))
+    check(launches == {"lstm_direction_fused": 4},
+          f"an eval batch launched {launches}")
+    seconds = wall_s(lambda: eval_step(params, images, labels, mask), iters)
+    return {"B": B_SERVE, "batch_ms": seconds * 1e3,
+            "windows_per_s": B_SERVE / seconds, "launches": launches}
+
+
+def _cpu_steps_worker() -> None:
+    """A CPU reference process of phase 20: 4 threads, below the card's
+    host process in priority."""
+    import torch
+
+    os.nice(10)
+    torch.set_num_threads(4)
+
+
+def phase_train(device, card):
+    """Variant-side training at full width on the card (module docstring,
+    phase 20); returns the training eval's row-1 launches."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+    from pepper_tpu_torch.models.checkpoint import load_params
+    from pepper_tpu_torch.options import PepperOptions
+    from pepper_tpu_torch.train import trainer
+
+    t0 = time.time()
+    # the rates first, with the host otherwise idle
+    result = {"card": card,
+              "rates": [train_rates(device, B, iters)
+                        for B, iters in ((128, 20), (B_SERVE, 5))],
+              "eval": eval_rate(device)}
+    # the CPU's reference steps, in two processes (the dearest first),
+    # while the card works
+    pool = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_steps_worker)
+    cpu_start, cpu_done = time.time(), {}
+    try:
+        cpu_steps = {name: pool.submit(train_steps, name, "cpu")
+                     for name in ("lstm", "transformer", "hp", "no_cnn")}
+        cpu_steps["lstm_float32"] = pool.submit(
+            train_steps, "lstm", "cpu", steps=1, dtype="float32")
+        for name, future in cpu_steps.items():
+            future.add_done_callback(
+                lambda _, name=name: cpu_done.setdefault(
+                    name, round(time.time() - cpu_start, 3)))
+        card_steps = {}
+        for name in TRAIN_STEP_MODELS:
+            card_steps[name], launches = counted(
+                lambda: train_steps(name, device))
+            check(not launches, f"{name} train steps launched {launches}")
+        card_steps["lstm_float32"] = train_steps(
+            "lstm", device, steps=1, dtype="float32")
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            genome = write_train_genome(workdir, seed=101, n_snps=150,
+                                        n_noise=250, length=40000)
+            unseen = write_train_genome(workdir, seed=202, n_snps=8)
+            images, labels = train_windows(genome)
+            out = os.path.join(workdir, "train_run")
+            kwargs = dict(learning_rate=3e-4, step_size=10_000,
+                          batch_size=TRAIN_BATCH, holdout_fraction=0.15,
+                          seed=0)
+            start = time.time()
+            (_, accuracy), launches = counted(
+                lambda: trainer.train_on_arrays(
+                    PepperOptions(batch_size=TRAIN_BATCH), images, labels,
+                    out, epochs=TRAIN_EPOCHS, device=device, **kwargs))
+            train_s = time.time() - start
+            n_test = max(1, int(len(images) * 0.15))
+            eval_batches = -(-n_test // TRAIN_BATCH)
+            check(launches == {"lstm_direction_fused": 4 * eval_batches},
+                  f"training launched {launches}; its one eval has "
+                  f"{eval_batches} batches")
+            check(accuracy >= 90.0, f"held-out accuracy {accuracy} < 90%")
+            result["training"] = {
+                "windows": len(images), "labels": np.bincount(
+                    labels, minlength=3).tolist(),
+                "held_out": n_test, "epochs": TRAIN_EPOCHS,
+                "batch": TRAIN_BATCH, "accuracy": accuracy,
+                "seconds_beside_cpu_steps": round(train_s, 3),
+                "launches": launches}
+            best = os.path.join(out, "pepper_model_best.npz")
+            result["call"] = train_genome_calls(device, workdir, unseen, best)
+            order = np.random.RandomState(0).permutation(len(images))
+            held = order[:n_test]
+            params, meta = load_params(best)
+            result["test_model"] = held_out_confusion(
+                device, params, meta, images[held], labels[held])
+            result["two_process"] = two_process_train(
+                device, workdir, images, labels, dict(kwargs, epochs=1))
+        card_s = round(time.time() - cpu_start, 3)
+        result["steps"] = {name: compare_train_steps(
+            name, card_steps[name], cpu_steps[name].result())
+            for name in TRAIN_STEP_MODELS}
+        diffs = float32_step_diffs(card_steps["lstm_float32"],
+                                   cpu_steps["lstm_float32"].result())
+        result["float32_step_grad_rel_of_max"] = {
+            "worst": max(diffs.values()), "by_leaf": diffs}
+        # the card's part against the CPU steps' (each model's end)
+        result["step_seconds"] = {"card": card_s, "cpu_done": cpu_done}
+    finally:
+        pool.shutdown(cancel_futures=True)
+    result["seconds"] = round(time.time() - t0, 3)
+    emit({"phase": "train", **result})
+    torch.cuda.synchronize()
+    return result["training"]["launches"]["lstm_direction_fused"]
+
+
 # ---------------------------------------------------------------- main
 
 
 def run_phases(device, smi, only):
-    """Some of phases 3-19 alone (after phases 1 and 2), for a short run:
+    """Some of phases 3-20 alone (after phases 1 and 2), for a short run:
     no kernel summary and no result line.  Phases 13, 14 and 17 walk phase
     9's scene without running phase 9."""
     simple = {3: phase_kernel, 4: phase_transducer, 5: phase_kernel_static,
               6: phase_kernel_recurrence, 7: phase_kernel_dual,
               8: phase_transducer_quantized, 10: phase_kernel_gru,
               15: phase_kernel_hp, 16: phase_transducer_hp,
-              18: phase_hp_votes, 19: phase_multi_device}
+              18: phase_hp_votes, 19: phase_multi_device, 20: phase_train}
     for number in sorted(set(simple) & only):
         simple[number](device, smi)
     if only & {9, 13, 14, 17}:
@@ -3738,14 +4269,14 @@ def run_phases(device, smi, only):
 
 
 def parse_phases(argv):
-    """`--phases 6,13`: the phases to run (3-19), or None for all."""
+    """`--phases 6,13`: the phases to run (3-20), or None for all."""
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases N[,N...]]")
     only = {int(n) for n in argv[1].split(",")}
-    if not only or not only <= set(range(3, 20)):
-        raise SystemExit(f"--phases takes numbers 3-19, got {argv[1]}")
+    if not only or not only <= set(range(3, 21)):
+        raise SystemExit(f"--phases takes numbers 3-20, got {argv[1]}")
     return only
 
 
@@ -3824,6 +4355,7 @@ def main(argv=()) -> int:
                                 scene)
     votes = timed("hp_votes", phase_hp_votes, device, smi)
     timed("multi_device", phase_multi_device, device, smi)
+    train_eval_launches = timed("train", phase_train, device, smi)
     emit({"phase": "done", "seconds_total": round(time.time() - t0, 3),
           "phase_seconds": seconds})
 
@@ -3878,6 +4410,7 @@ def main(argv=()) -> int:
         "source": "pepper_tpu_torch/ops/csrc/lstm_direction_fused.cu",
         "replaces": "pepper_tpu/ops/lstm_kernel.py:146",
         "launches": launches["cuda_bfloat16"]["lstm_direction_fused"],
+        "launches_train_eval": train_eval_launches,
         "max_abs_err": max_err["bfloat16"],
         "max_abs_err_f32": max_err["float32"],
         "ms": float_batch["kernel_ms"], "plain_ms": float_batch["plain_ms"],

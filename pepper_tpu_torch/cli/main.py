@@ -1,20 +1,24 @@
 """pepper_tpu_torch command-line interface.
 
-The JAX package's subcommand surface, so far for call_variant, the staged
-make_images / run_inference / find_candidates, merge_variants, version and
-backend_stat:
+The JAX package's subcommand surface: call_variant, the staged
+make_images / run_inference / find_candidates, merge_variants, the
+training subcommands make_train_images / train_model / test_model /
+run_hyperband, version and backend_stat:
 
   python -m pepper_tpu_torch.cli.main call_variant -b reads.bam -f ref.fa \\
       -m model.npz|model.pkl -o out/ -t 8 --ont_r9_guppy5_sup \\
       [--use_hp_info] [--num_devices -1] [--sharded] [--device cuda]
 
-Inference runs on --device (default cuda; `--device cpu` runs on the CPU),
-data parallel over --num_devices local GPUs (-1, the default: all of
-them).  --sharded, or a process group of more than one process (torchrun's
-environment, parallel/dist.py), runs the region-manifest sharded path.
-The staged subcommands and --sharded pass HDF5 files and need h5py.  The
-JAX package's training subcommands and download_models raise
-NotImplementedError, whatever follows them, naming their ROADMAP.md item.
+Inference and training run on --device (default cuda; `--device cpu` runs
+on the CPU); inference is data parallel over --num_devices local GPUs (-1,
+the default: all of them), training over every local GPU of --device cuda
+(one with --device cuda:N).  --sharded, or a process group of more than
+one process (torchrun's environment, parallel/dist.py), runs the
+region-manifest sharded path; in such a group train_model sums its
+gradients over the processes.  The staged subcommands, the training
+subcommands and --sharded pass HDF5 files and need h5py.  download_models
+raises NotImplementedError, whatever follows it, naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -25,10 +29,7 @@ import sys
 from ..options import PepperOptions
 from ..presets import set_parameters
 
-_NOT_PORTED = {
-    "make_train_images": 11, "train_model": 11, "test_model": 11,
-    "run_hyperband": 11, "download_models": 12,
-}
+_NOT_PORTED = {"download_models": 12}
 
 
 def _add_common_io(parser, need_model=False):
@@ -126,6 +127,18 @@ def _add_preset_args(parser):
         parser.add_argument(f"--{name}", action="store_true", default=False)
 
 
+def _add_train_args(parser):
+    parser.add_argument("--truth_vcf", default=None)
+    parser.add_argument("--random_draw_probability", type=float, default=0.33)
+    parser.add_argument("--epochs", type=int, default=10)
+    parser.add_argument("--learning_rate", type=float, default=1e-4)
+    parser.add_argument("--weight_decay", type=float, default=0.0)
+    parser.add_argument("--step_size", type=int, default=100)
+    parser.add_argument("--retrain_model", action="store_true", default=False)
+    parser.add_argument("--retrain_model_path", default=None)
+    parser.add_argument("--test_file", default=None)
+
+
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="pepper_tpu_torch",
@@ -175,6 +188,46 @@ def build_parser():
     p.add_argument("-vdi", "--vcf_deepvariant_indels", default=None)
     p.add_argument("-o", "--output_dir", default="./output")
 
+    p = sub.add_parser("make_train_images", help="Generate labeled images "
+                       "(HDF5; needs h5py).")
+    _add_common_io(p)
+    _add_region_args(p)
+    _add_image_args(p)
+    _add_preset_args(p)
+    _add_train_args(p)
+
+    p = sub.add_parser("train_model", help="Train the window classifier "
+                       "(HDF5 images; needs h5py).")
+    _add_common_io(p, need_model=True)
+    p.add_argument("-i", "--image_dir", required=True)
+    _add_inference_args(p)
+    _add_train_args(p)
+    p.add_argument("--use_hp_info", action="store_true", default=False)
+    p.add_argument("--model_type", default="lstm",
+                   choices=("lstm", "no_cnn", "transformer"),
+                   help="Window-classifier family (default: the reference's "
+                        "live bi-LSTM transducer).")
+
+    p = sub.add_parser("test_model", help="Evaluate a model on labeled "
+                       "images (HDF5; needs h5py).")
+    _add_common_io(p, need_model=True)
+    p.add_argument("-i", "--image_dir", required=True)
+    _add_inference_args(p)
+    p.add_argument("--use_hp_info", action="store_true", default=False)
+
+    p = sub.add_parser("run_hyperband", help="Hyperband lr/l2 search over "
+                       "the window classifier (HDF5 images; needs h5py).")
+    _add_common_io(p)
+    p.add_argument("-i", "--image_dir", required=True)
+    p.add_argument("--max_iter", type=int, default=27,
+                   help="Max epochs per configuration.")
+    p.add_argument("--eta", type=int, default=3)
+    p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--use_hp_info", action="store_true", default=False)
+    p.add_argument("--device", default="cuda",
+                   help="torch device for training (default cuda; cpu "
+                        "runs on the CPU).")
+
     for name, item in _NOT_PORTED.items():
         sub.add_parser(name, add_help=False,
                        help=f"Not ported yet (ROADMAP.md item {item}).")
@@ -200,7 +253,8 @@ def _validate_inputs(options, args):
         sys.stderr.write(f"ERROR: {message}\n")
         raise SystemExit(1)
 
-    if args.sub_command in ("call_variant", "make_images"):
+    if args.sub_command in ("call_variant", "make_images",
+                            "make_train_images"):
         if not options.bam or not os.path.isfile(options.bam):
             fail(f"CAN NOT LOCATE BAM FILE: {options.bam!r}")
         if not (os.path.isfile(options.bam + ".bai")
@@ -217,6 +271,9 @@ def _validate_inputs(options, args):
         fail("THREAD NEEDS TO BE >0.")
     if getattr(options, "batch_size", 1) <= 0:
         fail("batch_size NEEDS TO BE >0.")
+    if args.sub_command == "make_train_images":
+        if not options.truth_vcf or not os.path.isfile(options.truth_vcf):
+            fail(f"CAN NOT LOCATE TRUTH VCF: {options.truth_vcf!r}")
 
 
 def _backend_stat() -> None:
@@ -297,9 +354,10 @@ def main(argv=None):
         finally:
             if world > 1:
                 shutdown_distributed()
-    elif args.sub_command == "make_images":
+    elif args.sub_command in ("make_images", "make_train_images"):
         from ..pipeline.stages import make_images
 
+        options.train_mode = args.sub_command == "make_train_images"
         make_images(options, options.output_dir)
     elif args.sub_command == "run_inference":
         from ..pipeline.stages import run_inference
@@ -310,7 +368,71 @@ def main(argv=None):
         from ..pipeline.stages import process_candidates
 
         process_candidates(options, args.input_dir, options.output_dir)
+    elif args.sub_command == "train_model":
+        _train_model(options, args)
+    elif args.sub_command == "test_model":
+        from ..train import trainer
+
+        trainer.test_model(options, args.image_dir, device=args.device)
+    elif args.sub_command == "run_hyperband":
+        _run_hyperband(options, args)
     return 0
+
+
+def _train_model(options, args):
+    """train_model in this process, or in each of a process group's
+    (torchrun's environment), which sum their gradients."""
+    from ..parallel.dist import init_distributed, shutdown_distributed
+    from ..train.trainer import train_model
+
+    _, world = init_distributed()
+    try:
+        train_model(options, args.image_dir, options.output_dir,
+                    epochs=args.epochs, learning_rate=args.learning_rate,
+                    weight_decay=args.weight_decay, step_size=args.step_size,
+                    retrain_model_path=args.retrain_model_path,
+                    test_file=args.test_file, model_type=args.model_type,
+                    device=args.device)
+    finally:
+        if world > 1:
+            shutdown_distributed()
+
+
+def _run_hyperband(options, args):
+    import os
+    import shutil
+
+    from ..train.hyperband import Hyperband
+    from ..train.trainer import train_model
+
+    run_counter = {"n": 0}
+
+    def try_params(n_iterations, config):
+        run_counter["n"] += 1
+        run_dir = os.path.join(options.output_dir,
+                               f"hb_{config['_id']}_{run_counter['n']}")
+        resume = (os.path.join(options.output_dir,
+                               f"hb_{config['_id']}_best.npz")
+                  if config.get("_resume") else None)
+        model_path, accuracy = train_model(
+            options, args.image_dir, run_dir,
+            epochs=int(n_iterations),
+            learning_rate=config["learning_rate"],
+            weight_decay=config["weight_decay"],
+            step_size=10_000, batch_size=options.batch_size,
+            retrain_model_path=(resume if resume
+                                and os.path.exists(resume) else None),
+            device=args.device)
+        best_path = os.path.join(options.output_dir,
+                                 f"hb_{config['_id']}_best.npz")
+        shutil.copy(model_path, best_path)
+        return {"loss": -accuracy, "accuracy": accuracy,
+                "checkpoint": best_path}
+
+    hyperband = Hyperband(try_params, max_iter=args.max_iter, eta=args.eta)
+    best = hyperband.run()
+    print(f"BEST: acc={best['accuracy']:.3f} "
+          f"config={best['config']} ckpt={best['checkpoint']}")
 
 
 if __name__ == "__main__":

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..options import ImageOptions
 from .rnn import (
+    dropout,
     init_linear_params,
     init_lstm_params,
     linear,
@@ -95,12 +96,6 @@ def _convert_conv(sd, prefix):
     return _to_numpy(sd[f"{prefix}.weight"]).copy()
 
 
-def _dropout(x, rate, generator):
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
-
-
 # ---------------------------------------------------------------------------
 # 1. No-CNN transducer (simple_model_no_cnn.py)
 # ---------------------------------------------------------------------------
@@ -156,6 +151,15 @@ def no_cnn_logits(params, x):
     for i in range(1, 6):
         out = F.relu(linear(out, params[f"linear_{i}"]))
     return linear(out, params["output_layer"])
+
+
+def no_cnn_apply(params, x, *, train=False):
+    """Logits in train mode (paired with the cross-entropy loss), float32
+    probabilities otherwise."""
+    logits = no_cnn_logits(params, x)
+    if train:
+        return logits
+    return torch.softmax(logits.float(), dim=1)
 
 
 def no_cnn_params_from_state_dict(state_dict):
@@ -252,27 +256,30 @@ def _mha(x, lp, num_heads):
     q, k, v = heads(q), heads(k), heads(v)
     attn = torch.einsum("bhqd,bhkd->bhqk", q, k) / torch.sqrt(
         torch.tensor(hd, dtype=x.dtype))
-    attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+    # the softmax in float32 at least (bfloat16 serving); float64 stays
+    attn = torch.softmax(
+        attn.to(torch.promote_types(attn.dtype, torch.float32)),
+        dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
     out = out.transpose(1, 2).reshape(B, T, D)
     return linear(out, lp["out_proj"])
 
 
-def _encoder_layer(x, lp, num_heads, generator=None, dropout=0.1):
+def _encoder_layer(x, lp, num_heads, generator=None, dropout_rate=0.1):
     """Post-LN torch TransformerEncoderLayer (norm_first=False):
     x = LN(x + drop(SA(x))); x = LN(x + drop(FFN(x))); torch's default
     dropout=0.1 applies in train mode (generator given), identity at
     eval."""
     sa = _mha(x, lp, num_heads)
     if generator is not None:
-        sa = _dropout(sa, dropout, generator)
+        sa = dropout(sa, dropout_rate, generator)
     x = _layernorm(x + sa, lp["norm1"])
     hidden = F.relu(linear(x, lp["ffn_1"]))
     if generator is not None:
-        hidden = _dropout(hidden, dropout, generator)
+        hidden = dropout(hidden, dropout_rate, generator)
     ffn = linear(hidden, lp["ffn_2"])
     if generator is not None:
-        ffn = _dropout(ffn, dropout, generator)
+        ffn = dropout(ffn, dropout_rate, generator)
     return _layernorm(x + ffn, lp["norm2"])
 
 
@@ -303,7 +310,7 @@ def transformer_logits(params, x, *,
     for i in range(1, 6):
         out = F.relu(linear(out, params[f"linear_{i}"]))
         if drop is not None and i <= 4:
-            out = _dropout(out, pyramid_dropout[i - 1], drop)
+            out = dropout(out, pyramid_dropout[i - 1], drop)
     return linear(out, params["output_layer"])
 
 
@@ -327,6 +334,18 @@ def transformer_calibrate_batchnorm(params, x):
     new_params["bn1"] = bn1
     new_params["bn2"] = bn2
     return new_params
+
+
+def transformer_apply(params, x, *,
+                      config: TransformerConfig = TransformerConfig(),
+                      train=False, generator=None):
+    """Logits in train mode (dropout drawn from `generator` when given),
+    float32 probabilities otherwise."""
+    logits = transformer_logits(params, x, config=config, train=train,
+                                generator=generator)
+    if train:
+        return logits
+    return torch.softmax(logits.float(), dim=1)
 
 
 def transformer_params_from_state_dict(state_dict):

@@ -151,3 +151,16 @@ def init_linear_params(generator, in_features, out_features,
 
 def linear(x, params):
     return x @ params["w"] + params["b"]
+
+
+def dropout(x, rate, generator):
+    """Inverted dropout of the train-mode forwards.  `generator` is a
+    torch.Generator on x's device, or an object whose uniform(shape,
+    device) gives the draws (train/step.py's GlobalDropout, which draws
+    over the global batch and hands each device its rows)."""
+    keep = 1.0 - rate
+    if isinstance(generator, torch.Generator):
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        u = generator.uniform(x.shape, x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))

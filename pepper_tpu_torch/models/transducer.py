@@ -27,7 +27,8 @@ from torch import nn
 
 from ..options import ImageOptions
 from .params import map_params, params_from_jax  # noqa: F401
-from .rnn import bilstm, init_linear_params, init_lstm_params, linear
+from .rnn import (bilstm, dropout, init_linear_params, init_lstm_params,
+                  linear)
 
 DENSE_LAYERS = ("linear_1", "linear_2", "linear_3", "linear_4", "linear_5",
                 "output_layer_type")
@@ -88,12 +89,6 @@ class Transducer(nn.Module):
         return transducer_infer(self.params(), x, compute_dtype)
 
 
-def _dropout(x, rate, generator):
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
-
-
 def transducer_logits(params, x, *, train=False, dropout_rate=0.2,
                       generator=None):
     """Forward pass to logits. x: (B, T, F) float.  Inference runs the
@@ -105,13 +100,13 @@ def transducer_logits(params, x, *, train=False, dropout_rate=0.2,
     x = bilstm(x, params["decoder"], allow_kernel=False)
     drop = generator is not None
     if drop:
-        x = _dropout(x, dropout_rate, generator)
+        x = dropout(x, dropout_rate, generator)
     # row-major (t-major) flatten, same as torch.flatten(x, 1, 2)
     x = x.reshape(x.shape[0], -1)
     for name in ("linear_1", "linear_2", "linear_3", "linear_4"):
         x = F.selu(linear(x, params[name]))
         if drop:
-            x = _dropout(x, dropout_rate, generator)
+            x = dropout(x, dropout_rate, generator)
     x = F.selu(linear(x, params["linear_5"]))
     return linear(x, params["output_layer_type"])
 

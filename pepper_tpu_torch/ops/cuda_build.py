@@ -207,7 +207,16 @@ def require_cuda(t: torch.Tensor, name: str) -> None:
 
 
 def check_contiguous(tensors, device, name) -> None:
+    """Every kernel wrapper's check of its tensors before a launch: on
+    `device`, contiguous, and none that requires grad while grad mode is
+    on (the kernels have no backward: a launch would hand back a tensor
+    with no grad_fn, and training would take zero gradients silently)."""
     for t in tensors:
+        if t.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(
+                f"{name} has no backward: an input requires grad with grad "
+                "mode on; train on the eager path (allow_kernel=False) or "
+                "run under torch.no_grad()/torch.inference_mode()")
         if t.device != device:
             raise TypeError(f"{name}: tensors on {t.device} and {device}")
         if not t.is_contiguous():

@@ -138,3 +138,24 @@ def barrier(name: str = "pepper") -> None:
     import torch.distributed as dist
 
     dist.barrier()
+
+
+def all_reduce_sum(arrays):
+    """Sum a list of host arrays over the processes (one gloo all-reduce
+    of a float64 buffer); each comes back in its own dtype and shape.  With
+    one process it returns its input."""
+    arrays = [np.asarray(array) for array in arrays]
+    if process_count() == 1:
+        return arrays
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.from_numpy(np.concatenate(
+        [array.astype(np.float64).ravel() for array in arrays]))
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    out, offset = [], 0
+    for array in arrays:
+        part = flat[offset:offset + array.size].numpy()
+        out.append(part.reshape(array.shape).astype(array.dtype))
+        offset += array.size
+    return out

@@ -62,3 +62,37 @@ def split_rows(array, n_parts: int):
         widths = [(0, padded - n)] + [(0, 0)] * (array.ndim - 1)
         array = np.pad(array, widths)
     return np.split(array, n_parts), n
+
+
+def pad_to_multiple(array, multiple, axis=0):
+    """Pad axis 0 up to a multiple (needed to shard uneven batches)."""
+    n = array.shape[axis]
+    remainder = n % multiple
+    if remainder == 0:
+        return array, n
+    pad = multiple - remainder
+    widths = [(0, 0)] * array.ndim
+    widths[axis] = (0, pad)
+    return np.pad(array, widths), n
+
+
+def host_batch_rows(array, process_index: int, process_count: int):
+    """This host's contiguous row-slice of a global batch whose length is a
+    multiple of the global device count (and therefore of process_count,
+    with equal devices per process — device order groups rows by
+    process)."""
+    per_host = len(array) // process_count
+    return array[process_index * per_host:(process_index + 1) * per_host]
+
+
+def make_global_batch(array, devices) -> list:
+    """A process's rows of a padded global batch as one tensor a device:
+    contiguous equal row blocks in the list's order (split_rows), the
+    counterpart of the JAX package's batch-sharded global array.  The rows
+    must already be a multiple of len(devices)."""
+    blocks, n = split_rows(array, len(devices))
+    if sum(len(block) for block in blocks) != n:
+        raise ValueError(f"{n} rows do not split evenly over "
+                         f"{len(devices)} devices")
+    return [torch.from_numpy(np.ascontiguousarray(block)).to(device)
+            for block, device in zip(blocks, devices)]

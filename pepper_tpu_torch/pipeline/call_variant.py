@@ -143,8 +143,9 @@ def call_variant_sharded(options, params=None, manifest_dir=None,
     # 1-deep dispatch pipeline (same as _stream_predictions): interval
     # k's device work overlaps interval k+1's window generation.  Resume
     # stays exact — an interval is only marked done after its predictions
-    # are resolved AND stored, so at most one interval is re-done after a
-    # crash.
+    # are resolved AND stored, so up to two intervals (the one in flight
+    # and the one being summarized) are re-done after a crash, and
+    # write_prediction skips the keys already stored.
     inflight = None  # (key, interval, handle)
 
     with PredictionStore(output_file, mode) as store:

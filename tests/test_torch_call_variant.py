@@ -32,7 +32,7 @@ from pepper_tpu_torch.pipeline import call_variant as cv
 from pepper_tpu_torch.pipeline.summarizer import create_region_summary
 from pepper_tpu_torch.presets import set_parameters
 
-from simulate import random_reference, simulate_reads
+from simulate import random_reference, simulate_reads, write_truth_vcf
 from test_torch_polish import one_intra_op_thread  # noqa: F401
 
 CONTIG = "chr20"
@@ -60,7 +60,14 @@ def sim(tmp_path_factory):
     write_fasta(fasta, {CONTIG: ref})
     params = jax.tree_util.tree_map(np.array, init_transducer_params(
         jax.random.PRNGKey(0), TransducerConfig(hidden=32, linear_size=64)))
-    return dict(bam=bam, fasta=fasta, tmp=tmp, params=params)
+    truth, bed = str(tmp / "truth.vcf"), str(tmp / "truth.bed")
+    write_truth_vcf(truth, CONTIG, len(ref), [
+        (*het_snp, "1|0"), (*hom_snp, "1|1"), (*het_ins, "1|0"),
+        (*het_del, "1|0")])
+    with open(bed, "w") as f:
+        f.write(f"{CONTIG}\t0\t{len(ref)}\n")
+    return dict(bam=bam, fasta=fasta, tmp=tmp, params=params, truth=truth,
+                bed=bed)
 
 
 def _options(cls, preset, sim, out_dir, **overrides):
@@ -378,6 +385,68 @@ def _cli_stage_matches_jax(sim, jax_model_run, stage):
     _assert_same_calls(out, jax_model_run)
 
 
+def _cli_train_matches_jax(sim, sub_command, capsys):
+    """A training subcommand through the port's CLI on the CPU:
+    make_train_images writes JAX's train images; train_model (1 epoch,
+    the CLI's full width) writes an .npz both packages load, with JAX's
+    metadata; test_model prints the JAX package's confusion matrix of the
+    same model and images; run_hyperband (--max_iter 2 --eta 2) finds a
+    best checkpoint."""
+    from pepper_tpu.models.checkpoint import load_params as jax_load_params
+    from pepper_tpu.pipeline import stages as jstages
+    from pepper_tpu.train import trainer as jtrainer
+    from pepper_tpu.train.data import load_image_dir
+
+    base = sim["tmp"] / f"cli_{sub_command}"
+    images, out = str(base / "images"), str(base / "out")
+    truth = ["--truth_vcf", sim["truth"], "--region_bed", sim["bed"],
+             "--random_draw_probability", "1.0"]
+    joptions = _options(JaxOptions, jax_set_parameters, sim, images,
+                        sub_command="make_train_images", train_mode=True,
+                        truth_vcf=sim["truth"], region_bed=sim["bed"],
+                        random_draw_probability=1.0)
+    if sub_command == "make_train_images":
+        assert cli.main(["make_train_images", "-b", sim["bam"], "-f",
+                         sim["fasta"], "-o", images, "-r", CONTIG,
+                         "--ont_r9_guppy5_sup", *truth]) == 0
+        theirs = str(base / "jax_images")
+        jstages.make_images(joptions, theirs)
+        ours, expected = load_image_dir(images), load_image_dir(theirs)
+        assert len(ours[0]) > 0 and set(ours[1]) >= {1, 2}
+        for a, b in zip(ours, expected):
+            np.testing.assert_array_equal(a, b)
+        return
+    jstages.make_images(joptions, images)
+    if sub_command == "train_model":
+        assert cli.main(["train_model", "-i", images, "-o", out,
+                         "--epochs", "1", "--batch_size", "16",
+                         "--device", "cpu"]) == 0
+        params, meta = load_params(os.path.join(out,
+                                                "pepper_model_final.npz"))
+        j_params, j_meta = jax_load_params(
+            os.path.join(out, "pepper_model_final.npz"))
+        assert meta == j_meta and meta["model_type"] == "lstm"
+        assert meta["hidden_size"] == 256 and meta["epochs"] == 1
+        assert params["linear_1"]["w"].shape == (33 * 512, 512)
+        return
+    if sub_command == "test_model":
+        model = str(base / "model.npz")
+        save_params(model, sim["params"], {"model_type": "lstm"})
+        capsys.readouterr()
+        assert cli.main(["test_model", "-i", images, "-m", model,
+                         "--batch_size", "16", "--device", "cpu"]) == 0
+        printed = capsys.readouterr().err
+        _, confusion, accuracy = jtrainer.test_model(
+            JaxOptions(batch_size=16, model_path=model), images)
+        assert f"ACCURACY: {accuracy:.4f}" in printed
+        assert f"CONFUSION MATRIX:\n{confusion}" in printed
+        return
+    assert cli.main(["run_hyperband", "-i", images, "-o", out,
+                     "--max_iter", "2", "--eta", "2", "--batch_size", "16",
+                     "--device", "cpu"]) == 0
+    assert any(f.endswith("_best.npz") for f in os.listdir(out))
+
+
 def _cli_merge_matches_jax(sim, jax_model_run):
     """merge_variants through the CLI on the JAX run's PEPPER VCF and a
     DeepVariant-style VCF of half its records with other ALTs: the bytes
@@ -421,19 +490,24 @@ def _cli_merge_matches_jax(sim, jax_model_run):
     ("test_model", "item 11"), ("run_hyperband", "item 11"),
     ("download_models", "item 12")])
 def test_cli_unported_subcommands_raise(sim, jax_model_run, sub_command,
-                                        item):
+                                        item, capsys):
     """The JAX CLI's other subcommands are registered and raise naming
     their item, whatever follows them (argparse would exit 2 on an unknown
     subcommand or a missing option).  Those ported since, the staged
-    subcommands (item 14) and merge_variants (item 16), serve: each runs
-    its stage through the CLI beside the JAX package's other stages, and
-    the chain writes the JAX package's float32 call_variant records (the
-    merge: the JAX merge's bytes)."""
+    subcommands (item 14), merge_variants (item 16) and the training
+    subcommands (item 11), serve: each staged one runs its stage through
+    the CLI beside the JAX package's other stages, and the chain writes
+    the JAX package's float32 call_variant records (the merge: the JAX
+    merge's bytes); each training one runs on the CPU against the JAX
+    package's output on the same images (_cli_train_matches_jax)."""
     if item == "item 16":
         _cli_merge_matches_jax(sim, jax_model_run)
         return
     if item == "item 14":
         _cli_stage_matches_jax(sim, jax_model_run, sub_command)
+        return
+    if item == "item 11":
+        _cli_train_matches_jax(sim, sub_command, capsys)
         return
     for tail in ([], ["-i", "images", "--bogus"]):
         with pytest.raises(NotImplementedError, match=item):

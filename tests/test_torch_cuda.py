@@ -1367,3 +1367,102 @@ def test_hp_votes_scan_on_card_matches_twin_path(device, monkeypatch, env,
         clear = (top2[..., 1] - top2[..., 0]) > 50
         np.testing.assert_array_equal(ours.argmax(-1)[clear],
                                       twin.argmax(-1)[clear])
+
+
+# ---------------------------------------------------------------- training
+
+
+def _train_batch(dtype=np.float32, B=64, seed=0):
+    rng = np.random.RandomState(seed)
+    images = rng.randint(-40, 41, (B, 33, 26)).astype(dtype)
+    labels = rng.randint(0, 3, B).astype(np.int32)
+    mask = np.ones(B, dtype)
+    mask[-3:] = 0.0
+    return images, labels, mask
+
+
+def _train_steps(device, tree, batch, steps=2):
+    from pepper_tpu_torch.train import step, trainer
+
+    params = trainer.trainable_params(tree, device)
+    optimizer = torch.optim.Adam(
+        [leaf for _, leaf in step.leaves(params) if leaf.requires_grad],
+        lr=1e-4, weight_decay=1e-4)
+    train_step = step.make_train_step(optimizer, dropout_rate=0.0)
+    losses, grads = [], []
+    for _ in range(steps):
+        losses.append(train_step(params, *batch[:2], None, batch[2])["loss"])
+        grads.append({path: leaf.grad.cpu().numpy().copy()
+                      for path, leaf in step.leaves(params)})
+    return losses, grads, params
+
+
+def test_training_step_and_eval_on_card(device):
+    """Two full-width Adam steps on cuda against the same steps on the CPU
+    (loss rtol 1e-5, each gradient leaf within 2e-4 of its largest
+    magnitude, params atol 1e-5), on the eager recurrence: row 4
+    (lstm_recurrence) and row 1 never launch in them.  The steps run in
+    float64: in float32 a last bit moves a SELU pre-activation across 0,
+    where its slope jumps, and Adam turns a last bit of a gradient near 0
+    into +-lr (chip_smoke.py, phase 20).  Then one float32 eval batch
+    through row 1's kernel: 4 launches, the CPU's loss (rtol 1e-4) and
+    confusion."""
+    from pepper_tpu_torch.models.params import map_params
+    from pepper_tpu_torch.models.transducer import init_transducer_params
+    from pepper_tpu_torch.train import step
+
+    tree = map_params(lambda p: p.double(), init_transducer_params(
+        torch.Generator().manual_seed(0)))
+    batch = _train_batch(np.float64)
+    lstm_kernel.lstm_recurrence.launches = 0
+    lstm_kernel.lstm_direction_fused.launches = 0
+    losses, grads, params = _train_steps(device, tree, batch)
+    assert lstm_kernel.lstm_recurrence.launches == 0
+    assert lstm_kernel.lstm_direction_fused.launches == 0
+    cpu_losses, cpu_grads, cpu_params = _train_steps("cpu", tree, batch)
+    np.testing.assert_allclose(losses, cpu_losses, rtol=1e-5)
+    for grad, cpu_grad in zip(grads, cpu_grads):
+        for path, value in cpu_grad.items():
+            bar = 2e-4 * max(np.abs(value).max(), 1e-30)
+            assert np.abs(grad[path] - value).max() <= bar, path
+    for (path, a), (_, b) in zip(step.leaves(params),
+                                 step.leaves(cpu_params)):
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(), atol=1e-5,
+                                   err_msg=str(path))
+
+    eval_step = step.make_eval_step()
+    params, cpu_params = (map_params(lambda p: p.detach().float(), trained)
+                          for trained in (params, cpu_params))
+    batch = _train_batch()
+    lstm_kernel.lstm_direction_fused.launches = 0
+    loss, confusion = eval_step(params, *batch)
+    assert lstm_kernel.lstm_direction_fused.launches == 4
+    cpu_loss, cpu_confusion = eval_step(cpu_params, *batch)
+    assert loss == pytest.approx(cpu_loss, rel=1e-4)
+    np.testing.assert_array_equal(confusion, cpu_confusion)
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad(device):
+    """A launch would cut the graph (the kernels have no backward): with
+    grad mode on, a wrapper given an input that requires grad raises;
+    under no_grad it launches."""
+    from pepper_tpu_torch.models.rnn import bilstm, init_lstm_params
+
+    xs, ws, b, w_hh = _inputs(device, torch.float32, (26,), 8)
+    w_hh.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        lstm_kernel.lstm_direction_fused(xs, ws, b, w_hh)
+    xw = torch.zeros((33, 8, 4 * H), device=device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        lstm_kernel.lstm_recurrence(xw, w_hh.detach())
+    params = {k: v.to(device).requires_grad_()
+              for k, v in init_lstm_params(torch.Generator().manual_seed(0),
+                                           26, H).items()}
+    x = torch.zeros((8, 33, 26), device=device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bilstm(x, params)          # the kernel route: allow_kernel=True
+    assert bilstm(x, params, allow_kernel=False).grad_fn is not None
+    with torch.no_grad():
+        out = lstm_kernel.lstm_direction_fused(xs, ws, b, w_hh)
+    assert out.shape == (33, 8, H)

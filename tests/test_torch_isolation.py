@@ -43,7 +43,7 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_no_jax_package():
     sources = _port_sources()
     assert len(sources) > 20 and (REPO / "chip_smoke.py").exists()
-    # the device-pileup modules are among the scanned sources
+    # the device-pileup and training modules are among the scanned sources
     for module in ("ops/pileup_kernel.py", "ops/device_windows.py",
                    "infer/device_runner.py", "device.py",
                    "models/torch_convert.py", "models/alternates.py",
@@ -51,7 +51,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "decode/hp_legacy.py", "io/vcf_reader.py",
                    "decode/merge_variants.py", "io/datastore.py",
                    "polish/datastore.py", "pipeline/stages.py",
-                   "parallel/mesh.py", "parallel/dist.py"):
+                   "parallel/mesh.py", "parallel/dist.py",
+                   "train/__init__.py", "train/data.py", "train/step.py",
+                   "train/trainer.py", "train/resume.py",
+                   "train/hyperband.py"):
         assert PORT / module in sources, module
     for path in sources:
         for module in _imported_modules(path):
