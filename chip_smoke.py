@@ -206,7 +206,7 @@ Phases, each printing one JSON line:
                (first, the host idle); three float64 Adam steps (lr 1e-4,
                weight decay 1e-4, dropout 0) of the 26x33 and HP 48x21
                transducers, no_cnn and the transformer on one seeded
-               batch of 4096 windows on cuda against the same steps on
+               batch of 1024 windows on cuda against the same steps on
                the CPU (in two processes of their own while the card
                works; loss rtol 1e-5, each gradient leaf within 2e-4 of
                its largest magnitude, params atol 1e-5), launching no
@@ -225,10 +225,36 @@ Phases, each printing one JSON line:
                cpu; two gloo processes on cuda:0 against one process over
                [cuda:0, cuda:0] (params within 2e-4, rank 1 writes
                nothing)
+ 21 polish_train  polish-side training at full width (F=10, H=128, 5
+               classes): TBPTT steps/s and chunks/s at B=16 and 128 with
+               one window's forward/backward/Adam split and its device
+               launches, and the eval's chunks/s through row 5 (4
+               launches a batch; first, the host idle); row 5 at T=1000
+               (the eval's whole chunk) against its twin at B=16 and 128
+               (atol 1e-5); one float64 TBPTT step (19 window updates, lr
+               1e-4, weight decay 1e-4) of 16 chunks on cuda against the
+               same step on the CPU (in a process of its own while the
+               card works; each window's loss rtol 1e-5, each gradient
+               leaf within 2e-4 of its largest magnitude, params atol
+               1e-5), launching no kernel (one float32 step's gradient
+               differences measured only); train_polish_on_arrays on the
+               labelled chunks of a 14 kb draft with a truth read
+               (tests/test_polish_train_e2e.py's recipe: lr 1e-3, batch
+               8, holdout 0.15, 6 epochs), its evals through row 5 and no
+               other kernel; polish on an unseen 6 kb draft with the
+               final .npz, float32 and --quantized on cuda against cpu
+               (phase 12's rules, 76 launches of row 5 or row 6 a
+               consensus batch), >= 0.995 identity to the truth and above
+               the draft's; test_polish_on_arrays on cuda against cpu
+               (loss rtol 1e-5, the confusion equal but at positions whose
+               cpu top-two logits lie within 1e-4, counted); two gloo
+               processes on cuda:0 against one process over [cuda:0,
+               cuda:0] (params within 2e-4, rank 1 writes nothing)
 
 Then the kernel summary line (rows 1-4 with their HP figures, row 1 with
 the training eval's launches, rows 5 and 7 with their hp_votes_scan
-figures), the nvidia-smi line and, last, the
+figures, rows 5 and 6 with phase 21's launches), the nvidia-smi line and,
+last, the
 result line; the `done` line gives each phase's wall seconds.  `--phases
 6,13` runs phases 1 and 2 and the listed ones only, and prints neither the
 summary nor the result line.  Any failed check
@@ -1538,11 +1564,11 @@ STATIC_BATCHES = (B_POLISH, B_SERVE, 37)
 GRU_OTHER_WIDTHS = (32, 256)
 
 
-def gru_inputs(gen, layer, B, x_dtype, device, H=GRU_H):
-    """One GRU direction at the polish width (or H): the encoder reads
-    image values (F=10) of 0..40, where the random-weight gates are not
-    all saturated, the decoder the encoder's two (-1, 1) streams; float32
-    weights and biases, and a non-zero float32 h0."""
+def gru_inputs(gen, layer, B, x_dtype, device, H=GRU_H, T=GRU_T):
+    """One GRU direction at the polish width (or H) over T steps: the
+    encoder reads image values (F=10) of 0..40, where the random-weight
+    gates are not all saturated, the decoder the encoder's two (-1, 1)
+    streams; float32 weights and biases, and a non-zero float32 h0."""
     import torch
 
     scale = 1.0 / H ** 0.5
@@ -1551,10 +1577,10 @@ def gru_inputs(gen, layer, B, x_dtype, device, H=GRU_H):
         return (torch.rand(size, generator=gen, device=device) * 2 - 1) * s
 
     if layer == "encoder":
-        xs = (torch.randint(0, 41, (GRU_T, B, GRU_F), generator=gen,
+        xs = (torch.randint(0, 41, (T, B, GRU_F), generator=gen,
                             device=device).float(),)
     else:
-        xs = (u(GRU_T, B, H, s=1.0), u(GRU_T, B, H, s=1.0))
+        xs = (u(T, B, H, s=1.0), u(T, B, H, s=1.0))
     ws = tuple(u(x.shape[2], 3 * H) for x in xs)
     return (tuple(x.to(x_dtype) for x in xs), ws, u(3 * H), u(H, 3 * H),
             u(3 * H), u(B, H, s=0.9))
@@ -2096,11 +2122,13 @@ def consensus_modes(trees, images, device, timed):
 
 
 def write_polish_scene(directory, length=24_000, read_len=1000, coverage=30,
-                       error_rate=0.01, seed=23):
+                       error_rate=0.01, seed=23, truth_bam=False):
     """A truth sequence, a draft carrying seeded SNP, insertion and
     deletion errors against it every ~200 bp, and ~30x of reads of the
     truth aligned to the draft, written with the port's own BAM/FASTA
-    writers.  Returns (bam, fasta, draft, truth)."""
+    writers (with `truth_bam`, also truth.bam: one full-length truth read
+    aligned to the draft, training's labels).  Returns (bam, fasta, draft,
+    truth)."""
     from pepper_tpu_torch.io.bam_writer import (BamRecord, write_bam,
                                                 write_fasta)
 
@@ -2141,6 +2169,12 @@ def write_polish_scene(directory, length=24_000, read_len=1000, coverage=30,
                   os.path.join(directory, "draft.fa"))
     write_bam(bam, [("contig_1", length)], records)
     write_fasta(fasta, {"contig_1": draft})
+    if truth_bam:
+        seq, cigar = _cigar_read(draft, fixes, 0, length)
+        write_bam(os.path.join(directory, "truth.bam"),
+                  [("contig_1", length)],
+                  [BamRecord(name="truth", ref_id=0, pos=0, mapq=60,
+                             cigar=cigar, seq=seq, qual=[60] * len(seq))])
     return bam, fasta, draft, truth
 
 
@@ -2176,22 +2210,50 @@ def phase_polish(device, workdir, scene, threads=4):
     """The polish CLI on `scene` (write_polish_scene's) in every run of
     POLISH_RUNS; returns each cuda run's launches by kernel, read around
     that run alone."""
-    import torch
-    from pepper_tpu_torch.cli import polish_main
     from pepper_tpu_torch.models.checkpoint import save_params
-    from pepper_tpu_torch.ops import gru_kernel
-    from pepper_tpu_torch.polish import consensus
 
     bam, fasta, draft, truth = scene
     host, _ = polish_trees("cpu")
     model = os.path.join(workdir, "polish.npz")
     save_params(model, host, {})
+    runs, launches, differing = polish_cli_runs(device, workdir, bam, fasta,
+                                                model, POLISH_RUNS, threads)
+    missing = {"draft": missing_kmers(draft, truth)}
+    for name in runs:
+        missing[name] = missing_kmers(read_fasta_sequence(os.path.join(
+            workdir, name, "consensus_pepper_polished.fa")), truth)
+    # random weights polish nowhere; the dry backend must
+    check(missing["cuda_dry"] < missing["draft"],
+          f"the dry polish did not move toward the truth: {missing}")
+    emit({"phase": "polish", "draft_length": len(draft),
+          "truth_21mers_missing": missing,
+          "fasta_length": {k: len(v["fasta"]) for k, v in runs.items()},
+          "against_reference": differing,
+          "launches": {k: v for k, v in launches.items()
+                       if k.startswith("cuda")},
+          "seconds": {k: v["seconds"] for k, v in runs.items()}})
+    return launches
+
+
+def polish_cli_runs(device, workdir, bam, fasta, model, table, threads=4):
+    """The polish CLI on (bam, fasta) with `model` in every run of `table`
+    (POLISH_RUNS' rows), each in workdir/<name>: a run's launches by
+    kernel, read around that run alone, are only its kernel's and a
+    multiple of 76; a float run's FASTA has its reference run's bytes, a
+    --quantized run's too or its labels differ only at near ties (the
+    reference's top-two vote margin <= 0.05).  Returns (each run's
+    seconds and FASTA bytes, its launches, the differences by run)."""
+    import torch
+    from pepper_tpu_torch.cli import polish_main
+    from pepper_tpu_torch.ops import gru_kernel
+    from pepper_tpu_torch.polish import consensus
+
     wrappers = {name: getattr(gru_kernel, name)
                 for name in gru_kernel.KERNELS}
     real_scan = {name: getattr(consensus, name)
                  for name in ("consensus_scan", "consensus_scan_static")}
     runs, launches, scans = {}, {}, {}
-    for name, dev, extra, env, _, _ in POLISH_RUNS:
+    for name, dev, extra, env, _, _ in table:
         out = os.path.join(workdir, name)
         argv = ["polish", "-b", bam, "-f", fasta, "-m", model, "-o", out,
                 "-t", str(threads), "--batch_size", str(B_POLISH),
@@ -2221,7 +2283,7 @@ def phase_polish(device, workdir, scene, threads=4):
             runs[name] = {"seconds": round(time.time() - t0, 3),
                           "fasta": f.read()}
     differing = {}
-    for name, dev, extra, _, kernel, reference in POLISH_RUNS:
+    for name, dev, extra, _, kernel, reference in table:
         counts = launches[name]
         if kernel is None:
             check(not any(counts.values()), f"{name} launched {counts}")
@@ -2252,21 +2314,7 @@ def phase_polish(device, workdir, scene, threads=4):
             check(differing[name]["fasta_equal"],
                   f"{name}: FASTA differs from {reference} "
                   f"({differing[name]})")
-    missing = {"draft": missing_kmers(draft, truth)}
-    for name in runs:
-        missing[name] = missing_kmers(read_fasta_sequence(os.path.join(
-            workdir, name, "consensus_pepper_polished.fa")), truth)
-    # random weights polish nowhere; the dry backend must
-    check(missing["cuda_dry"] < missing["draft"],
-          f"the dry polish did not move toward the truth: {missing}")
-    emit({"phase": "polish", "draft_length": len(draft),
-          "truth_21mers_missing": missing,
-          "fasta_length": {k: len(v["fasta"]) for k, v in runs.items()},
-          "against_reference": differing,
-          "launches": {k: v for k, v in launches.items()
-                       if k.startswith("cuda")},
-          "seconds": {k: v["seconds"] for k, v in runs.items()}})
-    return launches
+    return runs, launches, differing
 
 
 # ---------------------------------------------------------------- phases 13-14
@@ -3737,7 +3785,9 @@ def phase_multi_device(device, card):
 # g = 0 Adam's first step is +-lr whatever g's size.  float64 takes both
 # below the bars; the float32 path is held end to end by the training run.
 TRAIN_STEP_MODELS = ("lstm", "hp", "no_cnn", "transformer")
-TRAIN_STEP_B = 4096
+# cut from 4096 to 1024 to keep the whole script within half its time
+# limit once phase 21 came
+TRAIN_STEP_B = 1024
 TRAIN_LR, TRAIN_WD = 1e-4, 1e-4
 # tests/test_trained_e2e.py's recipe, at full width
 TRAIN_EPOCHS = 30
@@ -4232,18 +4282,492 @@ def phase_train(device, card):
     return result["training"]["launches"]["lstm_direction_fused"]
 
 
+# ---------------------------------------------------------------- phase 21
+
+# tests/test_polish_train_e2e.py's recipe (a 14 kb draft, lr 1e-3, batch 8,
+# holdout 0.15, 6 epochs) on write_polish_scene's drafts, and an unseen
+# 6 kb draft to polish with the trained model
+POLISH_TRAIN_LENGTH, POLISH_UNSEEN_LENGTH = 14_000, 6_000
+POLISH_TRAIN_SEEDS = (41, 43)          # the training draft, the unseen one
+POLISH_TRAIN_EPOCHS = 6
+POLISH_TRAIN_BATCH = 8
+POLISH_TRAIN_KWARGS = dict(learning_rate=1e-3, batch_size=POLISH_TRAIN_BATCH,
+                           holdout_fraction=0.15, seed=0)
+POLISH_STEP_B = 16                     # the trainer's default batch
+POLISH_RATE_BATCHES = (16, B_POLISH)
+EVAL_LAUNCHES = 4                      # 2 layers x 2 directions, T=1000
+POLISH_TRAINED_RUNS = tuple(run for run in POLISH_RUNS if run[0] in (
+    "cpu_float32", "cuda_float32", "cpu_quantized", "cuda_quantized"))
+# the eval confusion on cuda against the cpu's: equal but at positions
+# whose cpu top-two logits lie within this margin
+LOGIT_TIE = 1e-4
+
+POLISH_TRAIN_WORKER = r'''
+import sys
+import numpy as np
+sys.path.insert(0, {root!r})
+from pepper_tpu_torch.options import PepperOptions
+from pepper_tpu_torch.parallel import dist
+from pepper_tpu_torch.polish.train import train_polish_on_arrays
+
+rank = int(sys.argv[1])
+assert dist.init_distributed({address!r}, 2, rank) == (rank, 2)
+arrays = np.load({arrays!r})
+train_polish_on_arrays(PepperOptions(), arrays["images"], arrays["labels"],
+                       {out!r} + ("" if rank == 0 else "_rank1"),
+                       devices=[{device!r}], **{kwargs!r})
+dist.shutdown_distributed()
+'''
+
+
+def polish_chunk_batch(B, dtype="float32", seed=33):
+    """B seeded chunks of 1000 columns: image counts 0..254, labels 0..4,
+    the last row a pad row (mask 0)."""
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 255, (B, 1000, GRU_F)).astype(dtype)
+    labels = rng.randint(0, 5, (B, 1000)).astype(np.int32)
+    mask = np.ones(B, dtype)
+    mask[-1] = 0
+    return images, labels, mask
+
+
+def polish_train_step(device, dtype="float64", B=POLISH_STEP_B):
+    """One TBPTT step (19 window updates, TRAIN_LR, TRAIN_WD) of the
+    full-width polish model in `dtype` on polish_chunk_batch(B): (the
+    window losses, each window's gradients, the params after, the largest
+    move of a param), host arrays keyed by path; the arguments of
+    compare_train_steps."""
+    import torch
+    from pepper_tpu_torch.models.params import map_params
+    from pepper_tpu_torch.models.polish_gru import init_polish_params
+    from pepper_tpu_torch.polish import train
+    from pepper_tpu_torch.train import step, trainer
+
+    tree = map_params(lambda p: p.to(getattr(torch, dtype)),
+                      init_polish_params(torch.Generator().manual_seed(32)))
+    params = trainer.trainable_params(tree, device)
+    named = [("/".join(path), leaf) for path, leaf in step.leaves(params)]
+    optimizer = torch.optim.Adam([leaf for _, leaf in named], lr=TRAIN_LR,
+                                 weight_decay=TRAIN_WD)
+    grads, losses = [], []
+    optimizer.register_step_pre_hook(lambda *_: grads.append(
+        {path: leaf.grad.detach().cpu().numpy().copy()
+         for path, leaf in named}))
+    train.make_tbptt_step(optimizer)(params, *polish_chunk_batch(B, dtype),
+                                     losses_out=losses)
+    moved = max(float((leaf.detach().cpu() - init).abs().max())
+                for (_, leaf), (_, init) in zip(named, step.leaves(tree)))
+    return losses, grads, {path: leaf.detach().cpu().numpy().copy()
+                           for path, leaf in named}, moved
+
+
+def polish_train_rates(device, B, iters=1):
+    """The TBPTT step at B chunks (float32, the host idle): steps/s and
+    chunks/s (wall time), one window's forward (logits and loss), backward
+    and Adam step apart (CUDA events, the mean of 3 windows), and the
+    device kernels and copies one window launches (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pepper_tpu_torch.models.polish_gru import (init_polish_params,
+                                                    polish_forward)
+    from pepper_tpu_torch.polish import train
+    from pepper_tpu_torch.train import step, trainer
+
+    params = trainer.trainable_params(
+        init_polish_params(torch.Generator().manual_seed(34)), device)
+    leaves = [leaf for _, leaf in step.leaves(params)]
+    optimizer = torch.optim.Adam(leaves, lr=TRAIN_LR, weight_decay=TRAIN_WD)
+    images, labels, mask = polish_chunk_batch(B, seed=35)
+    tbptt = train.make_tbptt_step(optimizer)
+    seconds = wall_s(lambda: tbptt(params, images, labels, mask), iters)
+    x = torch.from_numpy(images[:, :GRU_T]).to(device)
+    y = torch.from_numpy(labels[:, :GRU_T]).to(device)
+    m = torch.from_numpy(mask).to(device)
+    hidden = torch.zeros((B, 2, GRU_H), device=device)
+
+    def window(events=None):
+        logits, _ = polish_forward(params, x, hidden, allow_kernel=False)
+        loss = train.weighted_cross_entropy_mean(logits, y,
+                                                 train.CLASS_WEIGHTS, mask=m)
+        if events:
+            events[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+        if events:
+            events[2].record()
+        for leaf, grad in zip(leaves, grads):
+            leaf.grad = grad
+        optimizer.step()
+
+    split = {"forward_ms": 0.0, "backward_ms": 0.0, "adam_ms": 0.0}
+    for _ in range(3):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        events[0].record()
+        window(events)
+        events[3].record()
+        events[3].synchronize()
+        for key, (a, b) in zip(split, zip(events, events[1:])):
+            split[key] += a.elapsed_time(b) / 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        window()
+        torch.cuda.synchronize()
+    device_events = [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA]
+    launches = sum(e.count for e in device_events)
+    window_ms = sum(split.values())
+    return {"B": B, "step_s": seconds, "steps_per_s": 1 / seconds,
+            "chunks_per_s": B / seconds, "windows_per_step": WINDOWS,
+            **split, "window_device_launches": launches,
+            "window_device_ms": sum(
+                getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+                for e in device_events) / 1e3,
+            "us_per_launch": window_ms * 1e3 / max(1, launches)}
+
+
+def polish_eval_rate(device, B, iters=3):
+    """The polish eval step at B chunks through row 5 (float32, T=1000):
+    chunks/s (wall time) and its launches a batch."""
+    import torch
+    from pepper_tpu_torch.models.polish_gru import init_polish_params
+    from pepper_tpu_torch.polish import train
+    from pepper_tpu_torch.train import trainer
+
+    params = trainer.trainable_params(
+        init_polish_params(torch.Generator().manual_seed(36)), device)
+    images, labels, mask = polish_chunk_batch(B, seed=37)
+    eval_step = train.make_polish_eval_step()
+    _, launches = counted(lambda: eval_step(params, images, labels, mask))
+    check(launches == {"gru_direction_fused": EVAL_LAUNCHES},
+          f"a polish eval batch of {B} launched {launches}")
+    seconds = wall_s(lambda: eval_step(params, images, labels, mask), iters)
+    return {"B": B, "batch_ms": seconds * 1e3, "chunks_per_s": B / seconds,
+            "launches": launches}
+
+
+def row5_full_chunk(device):
+    """Row 5 at T=1000 (the eval's one launch a direction over the whole
+    chunk) against its twin on the card at B=16 and 128, both layers and
+    directions, float32 at phase 10's bar; the kernel's ms a launch at
+    B=128, queued."""
+    import torch
+    from pepper_tpu_torch.ops import gru_kernel
+
+    gen = torch.Generator(device=device).manual_seed(2469)
+    worst, ms = 0.0, {}
+    with torch.no_grad():
+        for B in POLISH_RATE_BATCHES:
+            for layer in ("encoder", "decoder"):
+                xs, ws, b_ih, w_hh, b_hh, h0 = gru_inputs(
+                    gen, layer, B, torch.float32, device, T=1000)
+                for reverse in (False, True):
+                    args = (xs, ws, b_ih, w_hh, b_hh, h0)
+                    out, hT = gru_kernel.gru_direction_fused(
+                        *args, reverse=reverse)
+                    ref, ref_hT = gru_kernel.gru_direction_fused_reference(
+                        *args, reverse=reverse)
+                    worst = max(worst, (out - ref).abs().max().item(),
+                                (hT - ref_hT).abs().max().item())
+                if B == B_POLISH:
+                    ms[layer] = cuda_ms(lambda: gru_kernel.gru_direction_fused(
+                        xs, ws, b_ih, w_hh, b_hh, h0), iters=5, queued=True)
+    check(worst <= KERNEL_BARS["float32"],
+          f"row 5 at T=1000 differs from its twin by {worst}")
+    return {"max_abs_err": worst, "batches": list(POLISH_RATE_BATCHES),
+            f"ms_a_launch_B{B_POLISH}": ms}
+
+
+def polish_train_chunks(bam, truth_bam, fasta):
+    """The labelled chunks of summarize_interval_train over a draft's
+    intervals: (images float32 (N, 1000, 10), labels int32 (N, 1000))."""
+    from pepper_tpu_torch.io.bam import BamReader
+    from pepper_tpu_torch.io.fasta import FastaReader
+    from pepper_tpu_torch.polish import pipeline
+
+    bam_handler, truth_handler = BamReader(bam), BamReader(truth_bam)
+    fasta_handler = FastaReader(fasta)
+    intervals = pipeline.build_polish_intervals(
+        pipeline.get_polish_chromosome_list(None, fasta_handler,
+                                            bam_handler), fasta_handler)
+    images, labels = [], []
+    for contig, start, end in intervals:
+        chunk_images, chunk_labels, _, _ = pipeline.summarize_interval_train(
+            bam_handler, truth_handler, fasta_handler, contig, start, end)
+        images += chunk_images
+        labels += chunk_labels
+    return (np.stack(images).astype(np.float32),
+            np.stack(labels).astype(np.int32))
+
+
+def sequence_identity(a, b):
+    """difflib's ratio, without its junk heuristic (which takes every DNA
+    base for junk on long sequences), as tests/test_polish_train_e2e.py
+    scores it."""
+    import difflib
+
+    return difflib.SequenceMatcher(None, a, b, autojunk=False).ratio()
+
+
+def polish_with_trained(device, workdir, scene, model):
+    """The polish CLI with the card-trained model on the unseen draft in
+    float32 and --quantized on cuda and cpu (polish_cli_runs' rules); the
+    cpu float32 FASTA at >= 0.995 identity to the truth and above the
+    draft's."""
+    bam, fasta, draft, truth = scene
+    runs, launches, differing = polish_cli_runs(
+        device, workdir, bam, fasta, model, POLISH_TRAINED_RUNS)
+    identity = {"draft": sequence_identity(draft, truth)}
+    missing = {"draft": missing_kmers(draft, truth)}
+    for name in runs:
+        sequence = read_fasta_sequence(os.path.join(
+            workdir, name, "consensus_pepper_polished.fa"))
+        identity[name] = sequence_identity(sequence, truth)
+        missing[name] = missing_kmers(sequence, truth)
+    for name in ("cpu_float32", "cuda_float32"):
+        check(identity[name] >= 0.995 and identity[name] > identity["draft"],
+              f"{name}: identity {identity[name]} to the truth, the "
+              f"draft's {identity['draft']}")
+    return {"draft_length": len(draft), "identity": identity,
+            "truth_21mers_missing": missing, "against_cpu": differing,
+            "launches": {k: v for k, v in launches.items()
+                         if k.startswith("cuda")},
+            "seconds": {k: v["seconds"] for k, v in runs.items()}}
+
+
+def polish_held_out(device, model, images, labels):
+    """test_polish_on_arrays on the held-out chunks on cuda (row 5, 4
+    launches a batch) and cpu: the loss within rtol 1e-5, the confusion
+    equal but at positions whose cpu top-two logits lie within LOGIT_TIE
+    (counted)."""
+    import torch
+    from pepper_tpu_torch.models.checkpoint import load_params
+    from pepper_tpu_torch.models.params import params_from_jax
+    from pepper_tpu_torch.models.polish_gru import polish_forward
+    from pepper_tpu_torch.options import PepperOptions
+    from pepper_tpu_torch.polish import train
+
+    params, _ = load_params(model)
+    result, launches = counted(lambda: train.test_polish_on_arrays(
+        PepperOptions(), images, labels, params,
+        batch_size=POLISH_TRAIN_BATCH, device=device))
+    batches = -(-len(images) // POLISH_TRAIN_BATCH)
+    check(launches == {"gru_direction_fused": EVAL_LAUNCHES * batches},
+          f"test_polish_on_arrays launched {launches} for {batches} batches")
+    cpu = train.test_polish_on_arrays(PepperOptions(), images, labels,
+                                      params, batch_size=POLISH_TRAIN_BATCH,
+                                      device="cpu")
+    loss_rel = abs(result["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    check(loss_rel <= 1e-5, f"test loss {result['loss']} on cuda, "
+          f"{cpu['loss']} on cpu")
+    with torch.inference_mode():
+        logits = {d: polish_forward(
+            params_from_jax(params, d), torch.from_numpy(images).to(d),
+            torch.zeros((len(images), 2, GRU_H), device=d),
+            allow_kernel=True)[0].float().cpu().numpy()
+            for d in (device, "cpu")}
+    top2 = np.sort(logits["cpu"], axis=-1)[..., -2:]
+    near = np.diff(top2, axis=-1)[..., 0] < LOGIT_TIE
+    preds = {d: v.argmax(axis=-1) for d, v in logits.items()}
+    differ = preds[device] != preds["cpu"]
+    check(near[differ].all(), "eval predictions differ at positions whose "
+          f"cpu top-two logits are apart: {np.argwhere(differ & ~near)}")
+    expected = cpu["confusion"].copy()
+    for i, t in zip(*np.nonzero(differ)):
+        expected[labels[i, t], preds["cpu"][i, t]] -= 1
+        expected[labels[i, t], preds[device][i, t]] += 1
+    check(np.array_equal(result["confusion"], expected),
+          f"eval confusion {result['confusion'].tolist()} on cuda, "
+          f"{cpu['confusion'].tolist()} on cpu")
+    return {"chunks": len(images), "loss": result["loss"],
+            "cpu_loss": cpu["loss"], "loss_rel": loss_rel,
+            "accuracy": result["accuracy"], "cpu_accuracy": cpu["accuracy"],
+            "near_tied_positions": int(near.sum()),
+            "predictions_differing": int(differ.sum()),
+            "confusion": result["confusion"].tolist(), "launches": launches}
+
+
+def polish_two_process(device, workdir, images, labels, kwargs):
+    """train_polish_on_arrays in two gloo processes on `device` (cuda:0)
+    against one process over [device, device]: final params within 2e-4
+    (tests/test_multihost.py:89-90), and rank 1 writes nothing."""
+    import socket
+
+    from pepper_tpu_torch.options import PepperOptions
+    from pepper_tpu_torch.polish import train
+
+    arrays = os.path.join(workdir, "polish_train_arrays.npz")
+    np.savez(arrays, images=images, labels=labels)
+    out = os.path.join(workdir, "polish_two_process")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = POLISH_TRAIN_WORKER.format(
+        root=ROOT, address=f"127.0.0.1:{port}", arrays=arrays, out=out,
+        device=str(device), kwargs=kwargs)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(key, None)
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(rank)],
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, env=env)
+             for rank in (0, 1)]
+    try:
+        logs = [proc.communicate(timeout=300)[0].decode() for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0, f"polish train rank {rank} failed:\n"
+              f"{log[-3000:]}")
+    seconds = time.time() - t0
+    check(os.listdir(out + "_rank1") == [], "rank 1 wrote "
+          f"{os.listdir(out + '_rank1')}")
+    one = os.path.join(workdir, "polish_one_process")
+    t1 = time.time()
+    train.train_polish_on_arrays(PepperOptions(), images, labels, one,
+                                 devices=[device, device], **kwargs)
+    one_seconds = time.time() - t1
+    final = [np.load(os.path.join(d, "polish_model_final.npz"))
+             for d in (out, one)]
+    keys = sorted(k for k in final[1].files if k != "__meta__")
+    check(keys == sorted(k for k in final[0].files if k != "__meta__"),
+          "the two runs' checkpoints hold different leaves")
+    diff = max(float(np.abs(final[0][k] - final[1][k]).max()) for k in keys)
+    check(diff <= 2e-4, f"two processes' params differ by {diff}")
+    return {"chunks": len(images), "params_max_abs_diff": diff,
+            "seconds": round(seconds, 3),
+            "one_process_two_devices_seconds": round(one_seconds, 3)}
+
+
+def phase_polish_train(device, card):
+    """Polish-side training on the card (module docstring, phase 21);
+    returns row 5's and row 6's launches on its paths."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+    from pepper_tpu_torch.options import PepperOptions
+    from pepper_tpu_torch.polish import train
+
+    seconds = {}
+
+    def part(name, fn):
+        start = time.time()
+        try:
+            return fn()
+        finally:
+            seconds[name] = round(time.time() - start, 3)
+
+    t0 = time.time()
+    # the rates first, with the host otherwise idle
+    result = {"card": card}
+    result["rates"] = part("rates", lambda: [
+        polish_train_rates(device, B) for B in POLISH_RATE_BATCHES])
+    result["eval"] = part("eval", lambda: [
+        polish_eval_rate(device, B) for B in POLISH_RATE_BATCHES])
+    result["row_5_T1000"] = part("row_5_T1000",
+                                 lambda: row5_full_chunk(device))
+    # the CPU's reference steps in a process of their own while the card
+    # works
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_steps_worker)
+    try:
+        cpu_start = time.time()
+        cpu_steps = {dtype: pool.submit(polish_train_step, "cpu", dtype)
+                     for dtype in ("float64", "float32")}
+        card_step, launches = part("card_steps", lambda: counted(
+            lambda: polish_train_step(device)))
+        check(not launches, f"the polish train step launched {launches}")
+        card_step32 = polish_train_step(device, "float32")
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            scenes = {}
+            for name, length, seed in (
+                    ("train", POLISH_TRAIN_LENGTH, POLISH_TRAIN_SEEDS[0]),
+                    ("unseen", POLISH_UNSEEN_LENGTH, POLISH_TRAIN_SEEDS[1])):
+                directory = os.path.join(workdir, name)
+                os.makedirs(directory)
+                scenes[name] = (directory, write_polish_scene(
+                    directory, length=length, seed=seed, truth_bam=True))
+            directory, (bam, fasta, _, _) = scenes["train"]
+            images, labels = part("train_images", lambda: polish_train_chunks(
+                bam, os.path.join(directory, "truth.bam"), fasta))
+            out = os.path.join(workdir, "polish_run")
+            final, train_launches = part("training", lambda: counted(
+                lambda: train.train_polish_on_arrays(
+                    PepperOptions(), images, labels, out,
+                    epochs=POLISH_TRAIN_EPOCHS, device=device,
+                    **POLISH_TRAIN_KWARGS)))
+            n_test = max(1, int(len(images) * 0.15))
+            eval_batches = -(-n_test // POLISH_TRAIN_BATCH)
+            check(train_launches == {"gru_direction_fused": EVAL_LAUNCHES
+                                     * eval_batches * POLISH_TRAIN_EPOCHS},
+                  f"training launched {train_launches}; each epoch's eval "
+                  f"has {eval_batches} batches")
+            check(sorted(os.listdir(out)) == sorted(
+                [f"polish_epoch_{n + 1}_checkpoint.npz"
+                 for n in range(POLISH_TRAIN_EPOCHS)]
+                + ["polish_model_final.npz"]),
+                f"the run wrote {sorted(os.listdir(out))}")
+            result["training"] = {
+                "chunks": len(images), "held_out": n_test,
+                "labels": np.bincount(labels.ravel(), minlength=5).tolist(),
+                "epochs": POLISH_TRAIN_EPOCHS, "batch": POLISH_TRAIN_BATCH,
+                "launches": train_launches,
+                "seconds_beside_cpu_steps": seconds["training"]}
+            result["polish"] = part("polish", lambda: polish_with_trained(
+                device, scenes["unseen"][0], scenes["unseen"][1], final))
+            held = np.random.RandomState(0).permutation(len(images))[:n_test]
+            result["test_model"] = part("test_model", lambda: polish_held_out(
+                device, final, images[held], labels[held]))
+            result["two_process"] = part(
+                "two_process", lambda: polish_two_process(
+                    device, workdir, images[:9], labels[:9],
+                    dict(POLISH_TRAIN_KWARGS, epochs=1)))
+        card_s = round(time.time() - cpu_start, 3)
+        result["step"] = compare_train_steps(
+            "polish", card_step, cpu_steps["float64"].result())
+        diffs = float32_step_diffs(card_step32,
+                                   cpu_steps["float32"].result())
+        result["float32_step_grad_rel_of_max"] = {
+            "worst": max(diffs.values()), "by_leaf": diffs}
+        seconds["card_part_beside_cpu_steps"] = card_s
+        seconds["cpu_steps_done"] = round(time.time() - cpu_start, 3)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    seconds["total"] = round(time.time() - t0, 3)
+    result["seconds"] = seconds
+    emit({"phase": "polish_train", **result})
+    torch.cuda.synchronize()
+    polish_launches = result["polish"]["launches"]
+    return {"train_eval": train_launches["gru_direction_fused"],
+            "eval_B128": result["eval"][-1]["launches"]["gru_direction_fused"],
+            "trained_polish": polish_launches["cuda_float32"][
+                "gru_direction_fused"],
+            "trained_polish_quantized": polish_launches["cuda_quantized"][
+                "gru_direction_fused_static"],
+            "max_abs_err_T1000": result["row_5_T1000"]["max_abs_err"]}
+
+
 # ---------------------------------------------------------------- main
 
 
 def run_phases(device, smi, only):
-    """Some of phases 3-20 alone (after phases 1 and 2), for a short run:
+    """Some of phases 3-21 alone (after phases 1 and 2), for a short run:
     no kernel summary and no result line.  Phases 13, 14 and 17 walk phase
     9's scene without running phase 9."""
     simple = {3: phase_kernel, 4: phase_transducer, 5: phase_kernel_static,
               6: phase_kernel_recurrence, 7: phase_kernel_dual,
               8: phase_transducer_quantized, 10: phase_kernel_gru,
               15: phase_kernel_hp, 16: phase_transducer_hp,
-              18: phase_hp_votes, 19: phase_multi_device, 20: phase_train}
+              18: phase_hp_votes, 19: phase_multi_device, 20: phase_train,
+              21: phase_polish_train}
     for number in sorted(set(simple) & only):
         simple[number](device, smi)
     if only & {9, 13, 14, 17}:
@@ -4269,14 +4793,14 @@ def run_phases(device, smi, only):
 
 
 def parse_phases(argv):
-    """`--phases 6,13`: the phases to run (3-20), or None for all."""
+    """`--phases 6,13`: the phases to run (3-21), or None for all."""
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases N[,N...]]")
     only = {int(n) for n in argv[1].split(",")}
-    if not only or not only <= set(range(3, 21)):
-        raise SystemExit(f"--phases takes numbers 3-20, got {argv[1]}")
+    if not only or not only <= set(range(3, 22)):
+        raise SystemExit(f"--phases takes numbers 3-21, got {argv[1]}")
     return only
 
 
@@ -4356,6 +4880,7 @@ def main(argv=()) -> int:
     votes = timed("hp_votes", phase_hp_votes, device, smi)
     timed("multi_device", phase_multi_device, device, smi)
     train_eval_launches = timed("train", phase_train, device, smi)
+    polish_train = timed("polish_train", phase_polish_train, device, smi)
     emit({"phase": "done", "seconds_total": round(time.time() - t0, 3),
           "phase_seconds": seconds})
 
@@ -4505,6 +5030,10 @@ def main(argv=()) -> int:
         "work": f"one consensus batch of {B_POLISH} chunks, float32: "
                 f"{WINDOWS} windows x encoder and decoder, forward and "
                 f"backward ({LAUNCHES_PER_BATCH} launches)",
+        "launches_polish_train_eval": polish_train["train_eval"],
+        "launches_polish_eval_batch": polish_train["eval_B128"],
+        "launches_card_trained_polish": polish_train["trained_polish"],
+        "max_abs_err_T1000": polish_train["max_abs_err_T1000"],
     }, {
         "name": "gru_direction_fused_static", "route": "cuda",
         "source": "pepper_tpu_torch/ops/csrc/gru_direction_fused_static.cu",
@@ -4527,6 +5056,8 @@ def main(argv=()) -> int:
         "work": f"one --quantized consensus batch of {B_POLISH} chunks, "
                 f"float32: {WINDOWS} windows x encoder and decoder, forward "
                 f"and backward ({LAUNCHES_PER_BATCH} launches)",
+        "launches_card_trained_polish": polish_train[
+            "trained_polish_quantized"],
     }, {
         "name": "gru_recurrence", "route": "cuda",
         "source": "pepper_tpu_torch/ops/csrc/gru_recurrence.cu",

@@ -3,7 +3,7 @@
 The JAX package's subcommand surface: call_variant, the staged
 make_images / run_inference / find_candidates, merge_variants, the
 training subcommands make_train_images / train_model / test_model /
-run_hyperband, version and backend_stat:
+run_hyperband, download_models, version and backend_stat:
 
   python -m pepper_tpu_torch.cli.main call_variant -b reads.bam -f ref.fa \\
       -m model.npz|model.pkl -o out/ -t 8 --ont_r9_guppy5_sup \\
@@ -16,9 +16,7 @@ the default: all of them), training over every local GPU of --device cuda
 one process (torchrun's environment, parallel/dist.py), runs the
 region-manifest sharded path; in such a group train_model sums its
 gradients over the processes.  The staged subcommands, the training
-subcommands and --sharded pass HDF5 files and need h5py.  download_models
-raises NotImplementedError, whatever follows it, naming its ROADMAP.md
-item.
+subcommands and --sharded pass HDF5 files and need h5py.
 """
 
 from __future__ import annotations
@@ -28,8 +26,6 @@ import sys
 
 from ..options import PepperOptions
 from ..presets import set_parameters
-
-_NOT_PORTED = {"download_models": 12}
 
 
 def _add_common_io(parser, need_model=False):
@@ -228,9 +224,12 @@ def build_parser():
                    help="torch device for training (default cuda; cpu "
                         "runs on the CPU).")
 
-    for name, item in _NOT_PORTED.items():
-        sub.add_parser(name, add_help=False,
-                       help=f"Not ported yet (ROADMAP.md item {item}).")
+    p = sub.add_parser("download_models", help="Download published PEPPER "
+                       "model checkpoints (download_model.py:10-27).")
+    p.add_argument("-o", "--output_dir", default="pepper_models")
+    p.add_argument("--description_url", default=None,
+                   help="Override the model-description CSV URL "
+                        "(file:// URLs accepted for offline mirrors).")
     sub.add_parser("backend_stat", help="Print the torch device info.")
     sub.add_parser("version")
     return parser
@@ -308,12 +307,24 @@ def _load_model(options):
     return params
 
 
+def download_models_command(args, hint: str = "") -> int:
+    """download_models into args.output_dir from args.description_url (or
+    the published list): 0 with the count printed, 1 where the list cannot
+    be fetched."""
+    from ..utils.download_model import (DEFAULT_DESCRIPTION_URL,
+                                        download_models)
+
+    url = args.description_url or DEFAULT_DESCRIPTION_URL
+    try:
+        paths = download_models(args.output_dir, url)
+    except OSError:
+        return 1
+    print(f"downloaded/verified {len(paths)} model(s) in "
+          f"{args.output_dir}{hint}")
+    return 0
+
+
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {argv[0]} subcommand is not ported yet: "
-            f"ROADMAP.md queue A, item {_NOT_PORTED[argv[0]]}")
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.sub_command is None:
@@ -327,6 +338,10 @@ def main(argv=None):
     if args.sub_command == "backend_stat":
         _backend_stat()
         return 0
+    if args.sub_command == "download_models":
+        return download_models_command(
+            args, " — pass a .pkl to -m/--model_path (converted on load) or "
+            "train natively with `pepper_tpu_torch train_model`.")
 
     if args.sub_command == "merge_variants":
         from ..decode.merge_variants import merge_vcf_records

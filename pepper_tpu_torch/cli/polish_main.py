@@ -1,6 +1,8 @@
 """pepper_tpu_torch polish command-line interface, the JAX package's
-pepper_tpu_polish surface (pepper/pepper.py:264-373), so far for polish
-and the staged make_images / call_consensus / stitch:
+pepper_tpu_polish surface (pepper/pepper.py:264-373): polish, the staged
+make_images / call_consensus / stitch, the training subcommands
+make_train_images / train_model / test_model / run_hyperband and
+download_models:
 
   python -m pepper_tpu_torch.cli.polish_main polish -b reads.bam \\
       -f draft.fa -m polish.npz -o out/ -t 8 [--quantized] \\
@@ -8,10 +10,12 @@ and the staged make_images / call_consensus / stitch:
 
 The consensus runs on --device (default cuda; `--device cpu` runs on the
 CPU), data parallel over --num_devices local GPUs (-1, the default: all of
-them).  polish runs in one process without h5py; the staged subcommands
-pass the JAX package's HDF5 files and need it.  The training subcommands
-and download_models take no options yet: they raise NotImplementedError
-naming their ROADMAP.md item, whatever follows them.
+them); training and its evals run over every local GPU of --device cuda
+(one with --device cuda:N), and train_model in a process group of more
+than one process (torchrun's environment, parallel/dist.py) sums its
+gradients over the processes.  polish runs in one process without h5py;
+the staged and training subcommands pass the JAX package's HDF5 files and
+need it.
 """
 
 from __future__ import annotations
@@ -20,11 +24,6 @@ import argparse
 import sys
 
 from ..options import PepperOptions
-
-_NOT_PORTED = {
-    "make_train_images": 11, "train_model": 11, "test_model": 11,
-    "run_hyperband": 11, "download_models": 12,
-}
 
 
 def _add_polish_options(parser, need_model=True):
@@ -58,9 +57,13 @@ def _add_polish_options(parser, need_model=True):
     parser.add_argument(
         "--quantize_mode", default="static", choices=["static"],
         help="Quantization scheme used with --quantized.")
+    _add_device(parser)
+
+
+def _add_device(parser):
     parser.add_argument("--device", default="cuda",
-                        help="torch device for the consensus (default "
-                             "cuda; cpu runs on the CPU).")
+                        help="torch device for the consensus and training "
+                             "(default cuda; cpu runs on the CPU).")
 
 
 def build_parser():
@@ -87,9 +90,40 @@ def build_parser():
     p.add_argument("-i", "--input_dir", required=True)
     p.add_argument("-o", "--output_dir", default="./output")
 
-    for name, item in _NOT_PORTED.items():
-        sub.add_parser(name, add_help=False,
-                       help=f"Not ported yet (ROADMAP.md item {item}).")
+    p = sub.add_parser("make_train_images", help="Labeled polish images "
+                       "to HDF5 (needs h5py).")
+    _add_polish_options(p, need_model=False)
+    p.add_argument("--truth_bam", required=True,
+                   help="Truth-to-draft alignment BAM (supervision).")
+
+    p = sub.add_parser("train_model", help="Train the polish model on "
+                       "HDF5 images (needs h5py).")
+    _add_polish_options(p)
+    p.add_argument("-i", "--image_dir", required=True)
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--weight_decay", type=float, default=0.0)
+
+    p = sub.add_parser("test_model", help="Evaluate a polish checkpoint "
+                       "on labeled HDF5 images (needs h5py).")
+    _add_polish_options(p)
+    p.add_argument("-i", "--image_dir", required=True)
+
+    p = sub.add_parser("run_hyperband", help="Hyperband lr/l2 search over "
+                       "the polish trainer (HDF5 images; needs h5py).")
+    _add_polish_options(p, need_model=False)
+    _add_device(p)
+    p.add_argument("-i", "--image_dir", required=True)
+    p.add_argument("--max_iter", type=int, default=27)
+    p.add_argument("--eta", type=int, default=3)
+    p.add_argument("--seed", type=int, default=0)
+
+    p = sub.add_parser("download_models", help="Download published PEPPER "
+                       "model checkpoints (download_model.py:10-27).")
+    p.add_argument("-o", "--output_dir", default="pepper_models")
+    p.add_argument("--description_url", default=None,
+                   help="Override the model-description CSV URL "
+                        "(file:// URLs accepted for offline mirrors).")
     return parser
 
 
@@ -110,16 +144,15 @@ def _load_polish_params(options):
 
 
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {argv[0]} subcommand is not ported yet: "
-            f"ROADMAP.md queue A, item {_NOT_PORTED[argv[0]]}")
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.sub_command is None:
         parser.print_help()
         return 1
+    if args.sub_command == "download_models":
+        from .main import download_models_command
+
+        return download_models_command(args)
     if args.sub_command == "stitch":
         from ..polish.pipeline import perform_stitch
 
@@ -138,18 +171,52 @@ def main(argv=None):
 
         make_polish_images(options, options.output_dir)
         return 0
+    if args.sub_command == "make_train_images":
+        from ..polish.pipeline import make_polish_train_images
+
+        make_polish_train_images(options, args.truth_bam, options.output_dir)
+        return 0
 
     from ..device import resolve_device
-    from ..polish import pipeline
+    from ..polish import pipeline, train
 
-    # --num_devices reaches the pipeline as options.num_devices
     device = resolve_device(args.device)
     if args.sub_command == "polish":
+        # --num_devices reaches the pipeline as options.num_devices
         pipeline.polish(options, _load_polish_params(options), device=device)
-    else:
+    elif args.sub_command == "call_consensus":
         pipeline.call_consensus(options, args.image_dir, options.output_dir,
                                 _load_polish_params(options), device=device)
+    elif args.sub_command == "test_model":
+        train.test_polish_model(options, args.image_dir, options.model_path,
+                                batch_size=options.batch_size, device=device)
+    elif args.sub_command == "run_hyperband":
+        train.run_polish_hyperband(options, args.image_dir,
+                                   options.output_dir, max_iter=args.max_iter,
+                                   eta=args.eta, seed=args.seed,
+                                   batch_size=options.batch_size,
+                                   device=device)
+    else:
+        _train_model(options, args, device)
     return 0
+
+
+def _train_model(options, args, device):
+    """train_model in this process, or in each of a process group's
+    (torchrun's environment), which sum their gradients.  As the JAX
+    package's CLI it passes no --batch_size: the trainer's 16."""
+    from ..parallel.dist import init_distributed, shutdown_distributed
+    from ..polish.train import train_polish_model
+
+    _, world = init_distributed()
+    try:
+        train_polish_model(options, args.image_dir, options.output_dir,
+                           epochs=args.epochs,
+                           learning_rate=args.learning_rate,
+                           weight_decay=args.weight_decay, device=device)
+    finally:
+        if world > 1:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

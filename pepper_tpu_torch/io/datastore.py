@@ -13,7 +13,9 @@ import ast
 import numpy as np
 
 NEEDS_H5PY = ("the staged subcommands (make_images, run_inference, "
-              "find_candidates; polish make_images, call_consensus, stitch) "
+              "find_candidates; polish make_images, call_consensus, stitch), "
+              "the training subcommands of both CLIs (make_train_images, "
+              "train_model, test_model, run_hyperband), utils/merge_images "
               "and the sharded paths (call_variant --sharded, "
               "polish_sharded)")
 

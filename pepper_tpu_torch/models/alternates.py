@@ -1,6 +1,5 @@
-"""Alternate model families of the reference that the registry serves, the
-port of the JAX package's models/alternates.py (its no_cnn and transformer
-halves):
+"""Alternate model families of the reference, the port of the JAX
+package's models/alternates.py:
 
   * pepper_variant/modules/python/models/simple_model_no_cnn.py:5-104 —
     a narrower LSTM transducer whose decoder re-reads the *input* image
@@ -9,11 +8,18 @@ halves):
   * pepper_variant/modules/python/models/simple_model_transformers.py:5-97 —
     residual Conv2d block + 6-layer post-LN transformer encoder + a
     128->64->32->16->8 linear pyramid.
+  * pepper/modules/python/models/resnet.py:49-94 — a tiny one-plane
+    "ResNet-18" feature extractor (two BasicConv2d stems + one BasicBlock).
+  * pepper/modules/python/models/Seq2Seq_atn.py:14-135 — CRNN encoder
+    (resnet + bidirectional GRU with direction-summed outputs) and an
+    attention GRU decoder step.
 
-Parameters are nested dicts of tensors with the JAX package's keys and
-layout.  Both run as plain PyTorch ops (the JAX package runs no Pallas
-kernel for them): the recurrences are models/rnn.py's eager lstm_scan,
-attention is written out as the JAX package writes it.
+The registry serves the first two; the last two are on no serving path in
+either package.  Parameters are nested dicts of tensors with the JAX
+package's keys and layout.  All run as plain PyTorch ops (the JAX package
+runs no Pallas kernel for them): the recurrences are models/rnn.py's eager
+lstm_scan and gru_scan, attention is written out as the JAX package
+writes it.
 `*_params_from_state_dict` converts equivalently-shaped torch checkpoints.
 """
 
@@ -27,6 +33,8 @@ import torch.nn.functional as F
 from ..options import ImageOptions
 from .rnn import (
     dropout,
+    gru_scan,
+    init_gru_params,
     init_linear_params,
     init_lstm_params,
     linear,
@@ -34,6 +42,7 @@ from .rnn import (
     uniform_init,
 )
 from .torch_convert import (
+    _convert_gru,
     _convert_linear,
     _convert_lstm,
     _strip_module_prefix,
@@ -50,6 +59,10 @@ def _conv2d(x, w, *, stride=(1, 1)):
     Conv2d(padding=p) when the kernel is odd; w: (O, I, kh, kw)."""
     kh, kw = w.shape[2], w.shape[3]
     return F.conv2d(x, w, stride=stride, padding=(kh // 2, kw // 2))
+
+
+def _conv2d_valid(x, w, *, stride=(1, 1)):
+    return F.conv2d(x, w, stride=stride)
 
 
 def _batchnorm2d(x, p, *, train=False, eps=1e-5):
@@ -376,3 +389,151 @@ def transformer_params_from_state_dict(state_dict):
         params[f"linear_{j}"] = _convert_linear(sd, f"linear_{j}")
     params["output_layer"] = _convert_linear(sd, "output_layer")
     return params
+
+
+# ---------------------------------------------------------------------------
+# 3. Polish mini-ResNet feature extractor (pepper resnet.py)
+# ---------------------------------------------------------------------------
+
+
+def init_resnet_params(generator, dtype=torch.float32, device=None):
+    """resnet18_custom: two 1-channel BasicConv2d stems (kernel (1,4)/s(1,4),
+    then 1x1) + one 1-plane BasicBlock (resnet.py:49-94)."""
+    def conv(kh, kw):
+        return _init_conv(generator, 1, 1, kh, kw, dtype, device)
+
+    return {
+        "stem0_conv": conv(1, 4),
+        "stem0_bn": _init_bn(1, dtype, device),
+        "stem1_conv": conv(1, 1),
+        "stem1_bn": _init_bn(1, dtype, device),
+        "block_conv1": conv(3, 3),
+        "block_bn1": _init_bn(1, dtype, device),
+        "block_conv2": conv(3, 3),
+        "block_bn2": _init_bn(1, dtype, device),
+    }
+
+
+def resnet_apply(params, x, *, train=False):
+    """x: (B, 1, T, F) NCHW -> (B, 1, T, (F-4)//4 + 1).  BasicConv2d uses
+    eps=0.001 (resnet.py:15); the BasicBlock BNs use the torch default."""
+    out = _conv2d_valid(x, params["stem0_conv"], stride=(1, 4))
+    out = F.relu(_batchnorm2d(out, params["stem0_bn"], train=train,
+                              eps=1e-3))
+    out = _conv2d_valid(out, params["stem1_conv"])
+    out = F.relu(_batchnorm2d(out, params["stem1_bn"], train=train,
+                              eps=1e-3))
+    residual = out
+    y = _conv2d(out, params["block_conv1"])
+    y = F.relu(_batchnorm2d(y, params["block_bn1"], train=train))
+    y = _conv2d(y, params["block_conv2"])
+    y = _batchnorm2d(y, params["block_bn2"], train=train)
+    return F.relu(y + residual)
+
+
+def resnet_params_from_state_dict(state_dict):
+    sd = _strip_module_prefix(state_dict)
+    return {
+        "stem0_conv": _convert_conv(sd, "Context_Conv2d_0a.conv"),
+        "stem0_bn": _convert_bn(sd, "Context_Conv2d_0a.bn"),
+        "stem1_conv": _convert_conv(sd, "Context_Conv2d_1a.conv"),
+        "stem1_bn": _convert_bn(sd, "Context_Conv2d_1a.bn"),
+        "block_conv1": _convert_conv(sd, "layer1.0.conv1"),
+        "block_bn1": _convert_bn(sd, "layer1.0.bn1"),
+        "block_conv2": _convert_conv(sd, "layer1.0.conv2"),
+        "block_bn2": _convert_bn(sd, "layer1.0.bn2"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# 4. Seq2Seq attention polisher (pepper Seq2Seq_atn.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Seq2SeqConfig:
+    # The reference hardcodes GRU input 5 (Seq2Seq_atn.py:69): the resnet
+    # stem maps image width 20 -> (20-4)//4+1 = 5 feature columns.
+    image_features: int = 20
+    hidden: int = 128
+    num_classes: int = 5
+
+    @property
+    def cnn_features(self):
+        return (self.image_features - 4) // 4 + 1
+
+
+def init_seq2seq_params(generator, config: Seq2SeqConfig = Seq2SeqConfig(),
+                        dtype=torch.float32, device=None):
+    H = config.hidden
+    return {
+        "cnn": init_resnet_params(generator, dtype, device),
+        "encoder_gru": init_gru_params(generator, config.cnn_features, H,
+                                       dtype, device),
+        "decoder_gru": init_gru_params(generator, config.num_classes, H,
+                                       dtype, device),
+        "attn_out": init_linear_params(generator, 2 * H, H, dtype, device),
+        "out": init_linear_params(generator, H, config.num_classes, dtype,
+                                  device),
+    }
+
+
+def _bigru_summed(x, p, h0_f=None, h0_b=None):
+    """Bidirectional GRU whose direction outputs are *summed*, the
+    reference's merge (Seq2Seq_atn.py:82-85), not concatenated."""
+    fwd, hf = gru_scan(x, p["w_ih_f"], p["w_hh_f"], p["b_ih_f"], p["b_hh_f"],
+                       h0=h0_f)
+    bwd, hb = gru_scan(x, p["w_ih_b"], p["w_hh_b"], p["b_ih_b"], p["b_hh_b"],
+                       h0=h0_b, reverse=True)
+    return fwd + bwd, (hf, hb)
+
+
+def seq2seq_encode(params, images, *, train=False):
+    """EncoderCRNN.forward (Seq2Seq_atn.py:72-89): resnet features ->
+    (B, T, F') -> summed biGRU.  images: (B, 1, T, F) NCHW.
+    Returns (context (B,T,H), hidden (hf, hb))."""
+    feats = resnet_apply(params["cnn"], images, train=train)
+    B, C, T, Fp = feats.shape
+    feats = feats.permute(0, 2, 1, 3).reshape(B, T, C * Fp)
+    return _bigru_summed(feats, params["encoder_gru"])
+
+
+def _attention(output, context, attn_out):
+    """Luong-style attention (Seq2Seq_atn.py:28-46): scores =
+    output . context^T, mix = softmax(scores) . context, out =
+    tanh(W[mix; output]); the softmax in float32 at least."""
+    attn = torch.einsum("bod,bid->boi", output, context)
+    attn = torch.softmax(
+        attn.to(torch.promote_types(attn.dtype, torch.float32)),
+        dim=-1).to(output.dtype)
+    mix = torch.einsum("boi,bid->bod", attn, context)
+    combined = torch.cat([mix, output], dim=-1)
+    return torch.tanh(linear(combined, attn_out)), attn
+
+
+def seq2seq_decode_step(params, class_onehot, context, hidden):
+    """AttnDecoderRNN.forward_step (Seq2Seq_atn.py:112-126): one-step biGRU
+    over the previous-class one-hot, direction-summed, attention over the
+    encoder context, linear head.  class_onehot: (B, num_classes);
+    hidden: (hf, hb) each (B, H).  Returns (logits (B, C), hidden, attn)."""
+    x = class_onehot[:, None, :]                     # (B, 1, C)
+    out, hidden = _bigru_summed(x, params["decoder_gru"],
+                                h0_f=hidden[0], h0_b=hidden[1])
+    out, attn = _attention(out, context, params["attn_out"])
+    logits = linear(out[:, 0, :], params["out"])
+    return logits, hidden, attn
+
+
+def seq2seq_params_from_state_dict(state_dict, cnn_prefix="encoder"):
+    """Convert torch EncoderCRNN + AttnDecoderRNN state dicts merged under
+    'encoder.' / 'decoder.' prefixes."""
+    sd = _strip_module_prefix(state_dict)
+    cnn_sd = {k[len("encoder.cnn_encoder.cnn."):]: v for k, v in sd.items()
+              if k.startswith("encoder.cnn_encoder.cnn.")}
+    return {
+        "cnn": resnet_params_from_state_dict(cnn_sd),
+        "encoder_gru": _convert_gru(sd, "encoder.gru"),
+        "decoder_gru": _convert_gru(sd, "decoder.gru"),
+        "attn_out": _convert_linear(sd, "decoder.attention.linear_out"),
+        "out": _convert_linear(sd, "decoder.out"),
+    }

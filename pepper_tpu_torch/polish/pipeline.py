@@ -28,7 +28,7 @@ from ..io.fasta import FastaReader
 from ..options import PolishImageOptions
 from ..pipeline.regions import log_info, natural_key
 from .stitch import stitch_contig
-from .summary import PolishSummary, chunk_images
+from .summary import PolishSummary, chunk_images, chunk_images_train
 
 MIN_IMAGE_OVERLAP = 100  # pepper ImageSizeOptions.MIN_IMAGE_OVERLAP
 MAX_READS = PolishImageOptions.MAX_READS_IN_REGION  # 1500
@@ -130,6 +130,151 @@ def summarize_interval(bam_handler, fasta_handler, contig, start, end,
     summary.generate_summary(reads)
     return chunk_images(summary, PolishImageOptions.SEQ_LENGTH,
                         PolishImageOptions.SEQ_OVERLAP)
+
+
+def get_overlap_between_ranges(range_a, range_b):
+    if range_a[1] > range_b[0]:
+        return range_b[0], range_a[1]
+    return None
+
+
+def remove_conflicting_regions(regions, region_start, region_end,
+                               min_length=1000, length_ratio=2.0,
+                               overlap_fraction=0.5):
+    """Medaka-style truth-alignment conflict resolution
+    (pepper AlignmentSummarizer.py:116-157): overlapping truth regions are
+    trimmed, discarded, or arbitrated by length ratio.  regions: mutable
+    lists [start, end, payload, is_kept]."""
+    import itertools
+    from operator import itemgetter
+
+    for reg_a, reg_b in itertools.combinations(regions, 2):
+        el1, el2 = sorted((reg_a, reg_b), key=itemgetter(0))
+        overlap = get_overlap_between_ranges(el1, el2)
+        if overlap is None:
+            continue
+        ovlp_start, ovlp_end = overlap
+        s, l = sorted((reg_a, reg_b),
+                      key=lambda element: element[1] - element[0])
+        length_ratio_ij = (l[1] - l[0]) / max(1, s[1] - s[0])
+        overlap_fraction_ij = (ovlp_end - ovlp_start) / max(1, s[1] - s[0])
+        if length_ratio_ij < length_ratio:
+            if overlap_fraction_ij >= overlap_fraction:
+                s[3] = False
+                l[3] = False
+            else:
+                el1[1] = ovlp_start
+                el2[0] = ovlp_end
+        else:
+            if overlap_fraction_ij >= overlap_fraction:
+                s[3] = False
+            else:
+                el2[0] = ovlp_end
+
+    for al in regions:
+        al[0] = max(region_start, al[0])
+        al[1] = min(region_end, al[1])
+    filtered = [al for al in regions
+                if al[3] and al[1] - al[0] >= min_length]
+    filtered.sort(key=lambda al: al[0])
+    return filtered
+
+
+def summarize_interval_train(bam_handler, truth_bam_handler, fasta_handler,
+                             contig, start, end,
+                             downsample_rate: float = 1.0,
+                             realignment: bool = True,
+                             min_truth_length: int = 1000):
+    """Train-mode polish summaries: truth reads define confident regions
+    (conflict-filtered), labels projected from the realigned truth read
+    (pepper AlignmentSummarizer.create_summary train branch :187-294)."""
+    from ..options import TruthFilterOptions
+    from .realign import ALIGNMENT_SAFE_BASES, realign_reads
+
+    truth_reads = truth_bam_handler.get_reads(
+        contig, start, end, TruthFilterOptions.INCLUDE_SUPPLEMENTARY,
+        TruthFilterOptions.MIN_MAPQ, TruthFilterOptions.MIN_BASEQ)
+    if truth_reads.n_reads == 0:
+        return [], [], [], []
+    if realignment:
+        align_ref = fasta_handler.get_reference_sequence(
+            contig, start, end + ALIGNMENT_SAFE_BASES)
+        truth_reads = realign_reads(truth_reads, align_ref, start,
+                                    end + ALIGNMENT_SAFE_BASES)
+
+    truth_regions = [[int(truth_reads.pos[i]),
+                      int(truth_reads.pos_end[i]) - 1, i, True]
+                     for i in range(truth_reads.n_reads)]
+    truth_regions = remove_conflicting_regions(
+        truth_regions, start, end, min_length=min_truth_length)
+
+    all_images, all_labels, all_positions, all_chunk_ids = [], [], [], []
+    for region_start, region_end, truth_index, _ in truth_regions:
+        ref_start, ref_end = region_start, region_end + 1
+        ref_seq = fasta_handler.get_reference_sequence(contig, ref_start,
+                                                       ref_end + 1)
+        expected = ref_end - ref_start + 1
+        if len(ref_seq) < expected:
+            ref_seq += "N" * (expected - len(ref_seq))
+        reads = bam_handler.get_reads(contig, max(0, region_start),
+                                      region_end, False, 0, 0)
+        if reads.n_reads == 0:
+            continue
+        sample = reservoir_downsample_indices(
+            reads.n_reads, int(min(MAX_READS,
+                                   downsample_rate * reads.n_reads)))
+        if sample is not None:
+            reads = reads.subset(sample)
+        if realignment:
+            align_ref = fasta_handler.get_reference_sequence(
+                contig, region_start, region_end + ALIGNMENT_SAFE_BASES)
+            reads = realign_reads(reads, align_ref, region_start,
+                                  region_end + ALIGNMENT_SAFE_BASES)
+        summary = PolishSummary(ref_seq, contig, ref_start, ref_end)
+        summary.generate_train_summary(reads, truth_reads, truth_index)
+        images, labels, positions, chunk_ids = chunk_images_train(
+            summary, PolishImageOptions.SEQ_LENGTH,
+            PolishImageOptions.SEQ_OVERLAP)
+        all_images.extend(images)
+        all_labels.extend(labels)
+        all_positions.extend(positions)
+        all_chunk_ids.extend(chunk_ids)
+    return all_images, all_labels, all_positions, all_chunk_ids
+
+
+def make_polish_train_images(options, truth_bam: str, output_dir: str,
+                             min_truth_length: int = 1000):
+    """Labeled polish images for training (truth-read supervision), one
+    HDF5 file in the JAX package's layout (needs h5py)."""
+    from .datastore import PolishImageStore
+
+    os.makedirs(output_dir, exist_ok=True)
+    bam_handler = BamReader(options.bam)
+    truth_handler = BamReader(truth_bam)
+    fasta_handler = FastaReader(options.fasta)
+    chr_list = get_polish_chromosome_list(options.region, fasta_handler,
+                                          bam_handler, options.region_bed)
+    intervals = build_polish_intervals(chr_list, fasta_handler)
+    timestr = time.strftime("%m%d%Y_%H%M%S")
+    file_name = os.path.join(output_dir,
+                             f"pepper_train_images_{timestr}.hdf")
+    total = 0
+    with PolishImageStore(file_name, "w") as store:
+        for contig, start, end in intervals:
+            images, labels, positions, chunk_ids = summarize_interval_train(
+                bam_handler, truth_handler, fasta_handler, contig, start,
+                end, options.downsample_rate,
+                realignment=getattr(options, "realignment", True),
+                min_truth_length=min_truth_length)
+            region = (contig, start, end)
+            for i, image in enumerate(images):
+                name = f"{contig}_{start}_{end}_{chunk_ids[i]}_{i}"
+                store.write_summary(region, image, labels[i],
+                                    positions[i][:, 0], positions[i][:, 1],
+                                    chunk_ids[i], name)
+                total += 1
+    log_info(f"FINISHED TRAIN IMAGE GENERATION: {total} CHUNKS")
+    return file_name
 
 
 class PredictionStore:

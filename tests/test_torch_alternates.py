@@ -293,3 +293,138 @@ def test_transducer_train_path_takes_eager_bilstm(monkeypatch):
     fused = transducer.transducer_logits(tparams, torch.from_numpy(x))
     np.testing.assert_allclose(fused.numpy(), actual.numpy(), rtol=2e-4,
                                atol=2e-4)
+
+
+# ------------------------------------------- the polish ResNet and Seq2Seq
+
+
+def _trained_bn(model, run):
+    """A reference module with BatchNorm statistics of one train-mode
+    pass (tests/test_alternate_models.py), in eval mode."""
+    model.train()
+    with torch.no_grad():
+        run(model)(torch.randn(4, 1, 16, 20))
+    return model.eval()
+
+
+def _resnet_module():
+    from test_alternate_models import TorchResNet
+
+    torch.manual_seed(3)
+    return _trained_bn(TorchResNet(), lambda m: m)
+
+
+def _seq2seq_module():
+    from test_alternate_models import TorchSeq2Seq
+
+    torch.manual_seed(4)
+    return _trained_bn(TorchSeq2Seq(), lambda m: m.encode)
+
+
+def _assert_same_tree(ours, theirs, exact=True):
+    assert jax.tree_util.tree_structure(ours) == \
+        jax.tree_util.tree_structure(theirs)
+    for a, b in zip(jax.tree_util.tree_leaves(ours),
+                    jax.tree_util.tree_leaves(theirs)):
+        assert np.shape(a) == np.shape(b)
+        if exact:
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_resnet_and_seq2seq_converters_bit_equal():
+    for module, convert in (
+            (_resnet_module(), "resnet_params_from_state_dict"),
+            (_seq2seq_module(), "seq2seq_params_from_state_dict")):
+        state = module.state_dict()
+        _assert_same_tree(getattr(alternates, convert)(state),
+                          getattr(jalt, convert)(state))
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_resnet_apply_matches_jax_and_torch(train):
+    model = _resnet_module()
+    params = jalt.resnet_params_from_state_dict(model.state_dict())
+    x = np.random.default_rng(2).normal(size=(2, 1, 16, 20)).astype(
+        np.float32)
+    ours = alternates.resnet_apply(params_from_jax(params, "cpu"),
+                                   torch.from_numpy(x), train=train)
+    theirs = jalt.resnet_apply(jax.tree_util.tree_map(jnp.asarray, params),
+                               jnp.asarray(x), train=train)
+    assert ours.shape == (2, 1, 16, 5)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=2e-5)
+    if not train:
+        with torch.no_grad():
+            np.testing.assert_allclose(
+                ours.numpy(), model(torch.from_numpy(x)).numpy(), atol=2e-5)
+
+
+def test_seq2seq_encode_and_decode_step_match_jax_and_torch():
+    model = _seq2seq_module()
+    params = jalt.seq2seq_params_from_state_dict(model.state_dict())
+    tree = params_from_jax(params, "cpu")
+    jtree = jax.tree_util.tree_map(jnp.asarray, params)
+    rng = np.random.default_rng(3)
+    images = rng.normal(size=(2, 1, 16, 20)).astype(np.float32)
+    ctx, hidden = alternates.seq2seq_encode(tree, torch.from_numpy(images))
+    j_ctx, j_hidden = jalt.seq2seq_encode(jtree, jnp.asarray(images))
+    with torch.no_grad():
+        t_ctx, t_hidden = model.encode(torch.from_numpy(images))
+    for ours, theirs, reference in ((ctx, j_ctx, t_ctx),
+                                    (hidden[0], j_hidden[0], t_hidden[0]),
+                                    (hidden[1], j_hidden[1], t_hidden[1])):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs),
+                                   atol=2e-5)
+        np.testing.assert_allclose(ours.numpy(), reference.numpy(),
+                                   atol=2e-5)
+    onehot = np.eye(5, dtype=np.float32)[rng.integers(0, 5, size=2)]
+    logits, h2, attn = alternates.seq2seq_decode_step(
+        tree, torch.from_numpy(onehot), ctx, hidden)
+    j_logits, j_h2, j_attn = jalt.seq2seq_decode_step(
+        jtree, jnp.asarray(onehot), j_ctx, j_hidden)
+    with torch.no_grad():
+        t_logits, t_h2 = model.decode_step(torch.from_numpy(onehot), t_ctx,
+                                           t_hidden)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits),
+                               atol=2e-5)
+    np.testing.assert_allclose(logits.numpy(), t_logits.numpy(), atol=2e-5)
+    np.testing.assert_allclose(attn.numpy(), np.asarray(j_attn), atol=2e-5)
+    for d in (0, 1):
+        np.testing.assert_allclose(h2[d].numpy(), np.asarray(j_h2[d]),
+                                   atol=2e-5)
+        np.testing.assert_allclose(h2[d].numpy(), t_h2[d].numpy(), atol=2e-5)
+    assert attn.shape == (2, 1, 16)
+
+
+def test_resnet_and_seq2seq_init_shapes_match_jax():
+    _assert_same_tree(
+        alternates.init_resnet_params(torch.Generator().manual_seed(0)),
+        jalt.init_resnet_params(jax.random.PRNGKey(0)), exact=False)
+    config = alternates.Seq2SeqConfig(hidden=16)
+    params = alternates.init_seq2seq_params(torch.Generator().manual_seed(0),
+                                            config)
+    _assert_same_tree(params, jalt.init_seq2seq_params(
+        jax.random.PRNGKey(0), jalt.Seq2SeqConfig(hidden=16)), exact=False)
+    ctx, hidden = alternates.seq2seq_encode(params, torch.zeros(2, 1, 12, 20))
+    assert ctx.shape == (2, 12, 16)
+    logits, hidden, _ = alternates.seq2seq_decode_step(
+        params, torch.eye(5)[[0, 3]], ctx, hidden)
+    assert logits.shape == (2, 5)
+
+
+def test_attention_softmax_runs_in_float32_for_bfloat16():
+    """The attention softmax takes at least float32, as the transformer's
+    does: bfloat16 scores give the float32 weights rounded once."""
+    rng = np.random.default_rng(5)
+    output = torch.from_numpy(rng.normal(size=(2, 1, 8)).astype(np.float32))
+    context = torch.from_numpy(rng.normal(size=(2, 6, 8)).astype(np.float32))
+    linear = {"w": torch.from_numpy(rng.normal(size=(16, 8)).astype(
+        np.float32)), "b": torch.zeros(8)}
+    _, attn = alternates._attention(
+        output.bfloat16(), context.bfloat16(),
+        {k: v.bfloat16() for k, v in linear.items()})
+    scores = torch.einsum("bod,bid->boi", output.bfloat16(),
+                          context.bfloat16()).float()
+    assert attn.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        attn.float().numpy(),
+        torch.softmax(scores, dim=-1).bfloat16().float().numpy())

@@ -490,16 +490,18 @@ def _cli_merge_matches_jax(sim, jax_model_run):
     ("test_model", "item 11"), ("run_hyperband", "item 11"),
     ("download_models", "item 12")])
 def test_cli_unported_subcommands_raise(sim, jax_model_run, sub_command,
-                                        item, capsys):
-    """The JAX CLI's other subcommands are registered and raise naming
-    their item, whatever follows them (argparse would exit 2 on an unknown
-    subcommand or a missing option).  Those ported since, the staged
-    subcommands (item 14), merge_variants (item 16) and the training
-    subcommands (item 11), serve: each staged one runs its stage through
-    the CLI beside the JAX package's other stages, and the chain writes
-    the JAX package's float32 call_variant records (the merge: the JAX
-    merge's bytes); each training one runs on the CPU against the JAX
-    package's output on the same images (_cli_train_matches_jax)."""
+                                        item, capsys, tmp_path):
+    """The JAX CLI's other subcommands, each ported since it first raised
+    naming its item, serve: each staged one (item 14) runs its stage
+    through the CLI beside the JAX package's other stages, and the chain
+    writes the JAX package's float32 call_variant records; merge_variants
+    (item 16) writes the JAX merge's bytes; each training one (item 11)
+    runs on the CPU against the JAX package's output on the same images
+    (_cli_train_matches_jax); download_models (item 12) fetches the JAX
+    CLI's files from a file:// mirror and fails as it does offline."""
+    if item == "item 12":
+        _cli_download_matches_jax(tmp_path, capsys)
+        return
     if item == "item 16":
         _cli_merge_matches_jax(sim, jax_model_run)
         return
@@ -509,10 +511,32 @@ def test_cli_unported_subcommands_raise(sim, jax_model_run, sub_command,
     if item == "item 11":
         _cli_train_matches_jax(sim, sub_command, capsys)
         return
-    for tail in ([], ["-i", "images", "--bogus"]):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main([sub_command, *tail])
-    assert sub_command in cli.build_parser().format_help()
+    raise AssertionError(f"no case for {sub_command} ({item})")
+
+
+def _cli_download_matches_jax(tmp_path, capsys):
+    from pepper_tpu.cli.main import main as jax_main
+
+    from test_download_models import _make_mirror
+
+    url = _make_mirror(tmp_path)
+    printed = {}
+    for name, main in (("port", cli.main), ("jax", jax_main)):
+        capsys.readouterr()
+        assert main(["download_models", "-o", str(tmp_path / name),
+                     "--description_url", url]) == 0
+        printed[name] = capsys.readouterr().out
+        assert main(["download_models", "-o", str(tmp_path / "offline"),
+                     "--description_url",
+                     f"file://{tmp_path}/does_not_exist.csv"]) == 1
+    assert "2 model(s)" in printed["port"] and "2 model(s)" in printed["jax"]
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert sorted(os.listdir(tmp_path / "port")) == names == [
+        "PEPPER_POLISH.pkl", "PEPPER_VARIANT_ONT.pkl"]
+    for name in names:
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes()
+    assert "download_models" in cli.build_parser().format_help()
 
 
 def test_cli_version_and_backend_stat(capsys):

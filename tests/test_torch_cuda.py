@@ -1466,3 +1466,103 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad(device):
     with torch.no_grad():
         out = lstm_kernel.lstm_direction_fused(xs, ws, b, w_hh)
     assert out.shape == (33, 8, H)
+
+
+def _polish_step(device, tree, batch):
+    """One TBPTT step (19 window updates, lr 1e-4, weight decay 1e-4) on
+    `device`: each window's loss and gradients, and the params after."""
+    from pepper_tpu_torch.polish import train
+    from pepper_tpu_torch.train import step, trainer
+
+    params = trainer.trainable_params(tree, device)
+    leaves = [leaf for _, leaf in step.leaves(params)]
+    optimizer = torch.optim.Adam(leaves, lr=1e-4, weight_decay=1e-4)
+    grads, losses = [], []
+    optimizer.register_step_pre_hook(lambda *_: grads.append(
+        [leaf.grad.cpu().numpy().copy() for leaf in leaves]))
+    train.make_tbptt_step(optimizer)(params, *batch, losses_out=losses)
+    return losses, grads, [leaf.detach().cpu().numpy() for leaf in leaves]
+
+
+def _polish_batch(dtype=np.float32, B=16, seed=0):
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 255, (B, 1000, 10)).astype(dtype)
+    labels = rng.randint(0, 5, (B, 1000)).astype(np.int32)
+    mask = np.ones(B, dtype)
+    mask[-1] = 0.0
+    return images, labels, mask
+
+
+def test_polish_tbptt_step_on_card_matches_cpu(device):
+    """One full-width float64 TBPTT step on cuda against the same step on
+    the CPU (each window's loss rtol 1e-5, each gradient leaf within 2e-4
+    of its largest magnitude, params atol 1e-5), on the eager recurrence:
+    no GRU kernel launches."""
+    from pepper_tpu_torch.models.params import map_params
+    from pepper_tpu_torch.models.polish_gru import init_polish_params
+    from pepper_tpu_torch.ops import gru_kernel
+
+    tree = map_params(lambda p: p.double(), init_polish_params(
+        torch.Generator().manual_seed(0)))
+    batch = _polish_batch(np.float64, B=4)
+    for name in gru_kernel.KERNELS:
+        getattr(gru_kernel, name).launches = 0
+    losses, grads, params = _polish_step(device, tree, batch)
+    assert not any(getattr(gru_kernel, name).launches
+                   for name in gru_kernel.KERNELS)
+    cpu_losses, cpu_grads, cpu_params = _polish_step("cpu", tree, batch)
+    assert len(losses) == len(grads) == 19
+    np.testing.assert_allclose(losses, cpu_losses, rtol=1e-5)
+    for window, cpu_window in zip(grads, cpu_grads):
+        for grad, cpu_grad in zip(window, cpu_window):
+            bar = 2e-4 * max(np.abs(cpu_grad).max(), 1e-30)
+            assert np.abs(grad - cpu_grad).max() <= bar
+    for a, b in zip(params, cpu_params):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+def test_polish_eval_on_card_runs_row_5_at_full_chunk(device):
+    """The polish eval on cuda: one batch of 16 chunks of 1000 columns
+    through gru_direction_fused (4 launches: 2 layers x 2 directions),
+    whose output at T=1000 meets the kernel bar (1e-5) against its twin;
+    the loss within rtol 1e-5 of the CPU's and the confusion equal but at
+    positions whose CPU top-two logits lie within 1e-4."""
+    from pepper_tpu_torch.models.params import params_from_jax
+    from pepper_tpu_torch.models.polish_gru import (init_polish_params,
+                                                    polish_forward)
+    from pepper_tpu_torch.ops import gru_kernel
+    from pepper_tpu_torch.polish import train
+
+    tree = init_polish_params(torch.Generator().manual_seed(1))
+    images, labels, mask = _polish_batch(seed=1)
+    cuda_tree = params_from_jax(tree, device)
+    xt = torch.from_numpy(images).to(device).transpose(0, 1).contiguous()
+    h0 = torch.zeros((16, 128), device=device)
+    enc = cuda_tree["encoder"]
+    for d in ("f", "b"):
+        args = ((xt,), (enc[f"w_ih_{d}"],), enc[f"b_ih_{d}"],
+                enc[f"w_hh_{d}"], enc[f"b_hh_{d}"], h0)
+        with torch.no_grad():
+            out, hT = gru_kernel.gru_direction_fused(*args, reverse=d == "b")
+            ref, ref_hT = gru_kernel.gru_direction_fused_reference(
+                *args, reverse=d == "b")
+        assert (out - ref).abs().max().item() <= 1e-5
+        assert (hT - ref_hT).abs().max().item() <= 1e-5
+    eval_step = train.make_polish_eval_step()
+    gru_kernel.gru_direction_fused.launches = 0
+    loss, confusion = eval_step(cuda_tree, images, labels, mask)
+    assert gru_kernel.gru_direction_fused.launches == 4
+    cpu_loss, cpu_confusion = eval_step(tree, images, labels, mask)
+    assert loss == pytest.approx(cpu_loss, rel=1e-5)
+    with torch.inference_mode():
+        logits = {d: polish_forward(
+            params_from_jax(tree, d), torch.from_numpy(images).to(d),
+            torch.zeros((16, 2, 128), device=d),
+            allow_kernel=True)[0].cpu().numpy() for d in (device, "cpu")}
+    top2 = np.sort(logits["cpu"], axis=-1)[..., -2:]
+    differ = logits[device].argmax(-1) != logits["cpu"].argmax(-1)
+    differ &= mask[:, None] > 0
+    assert (np.diff(top2, axis=-1)[..., 0][differ] <= 1e-4).all()
+    if not differ.any():
+        np.testing.assert_array_equal(confusion, cpu_confusion)
+    assert confusion.sum() == 15 * 1000

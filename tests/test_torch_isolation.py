@@ -43,7 +43,8 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_no_jax_package():
     sources = _port_sources()
     assert len(sources) > 20 and (REPO / "chip_smoke.py").exists()
-    # the device-pileup and training modules are among the scanned sources
+    # the device-pileup, training and utility modules are among the
+    # scanned sources
     for module in ("ops/pileup_kernel.py", "ops/device_windows.py",
                    "infer/device_runner.py", "device.py",
                    "models/torch_convert.py", "models/alternates.py",
@@ -54,7 +55,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "parallel/mesh.py", "parallel/dist.py",
                    "train/__init__.py", "train/data.py", "train/step.py",
                    "train/trainer.py", "train/resume.py",
-                   "train/hyperband.py"):
+                   "train/hyperband.py", "polish/train.py",
+                   "polish/stitch_v2.py", "polish/legacy_variant_summary.py",
+                   "utils/__init__.py", "utils/download_model.py",
+                   "utils/vcf_compare.py", "utils/pileup_text.py",
+                   "utils/merge_images.py"):
         assert PORT / module in sources, module
     for path in sources:
         for module in _imported_modules(path):
@@ -285,3 +290,28 @@ def test_device_pileup_call_variant_without_device_raises_here(tmp_path):
         cli.main(["call_variant", "-b", str(bam), "-f", str(fasta),
                   "-m", str(model), "-o", str(tmp_path / "cli"),
                   "--device_pileup"])
+
+
+def test_polish_training_entry_points_without_device_raise_here(tmp_path):
+    """Polish training, its evals and the polish CLI's training
+    subcommands run on cuda unless asked for the CPU, and raise here
+    before they write anything."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable")
+    from pepper_tpu_torch.cli import polish_main
+    from pepper_tpu_torch.options import PepperOptions
+    from pepper_tpu_torch.polish import train
+
+    images = np.zeros((2, 1000, 10), np.float32)
+    labels = np.zeros((2, 1000), np.int32)
+    out = str(tmp_path / "run")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.train_polish_on_arrays(PepperOptions(), images, labels, out)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.test_polish_on_arrays(PepperOptions(), images, labels, {})
+    for argv in (["train_model", "-i", str(tmp_path), "-o", out],
+                 ["test_model", "-i", str(tmp_path), "-m", "m.npz"],
+                 ["run_hyperband", "-i", str(tmp_path), "-o", out]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            polish_main.main(argv)
+    assert not os.path.exists(out)

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from pepper_tpu.io.bam_writer import write_bam, write_fasta
+from pepper_tpu.io.bam_writer import BamRecord, write_bam, write_fasta
 from pepper_tpu.models import quantize as jq
 from pepper_tpu.models.checkpoint import save_params
 from pepper_tpu.models.polish_gru import init_polish_params
@@ -38,7 +38,8 @@ from pepper_tpu_torch.models.params import params_from_jax
 from pepper_tpu_torch.options import PepperOptions
 from pepper_tpu_torch.polish import consensus, pipeline
 
-from simulate import apply_variants, random_reference, simulate_reads
+from simulate import (apply_variants, random_reference, read_from_haplotype,
+                      simulate_reads)
 
 CONTIG = "ctg1"
 
@@ -311,11 +312,17 @@ def polish_sim(tmp_path_factory):
     bam, fasta = str(tmp / "reads.bam"), str(tmp / "draft.fa")
     write_bam(bam, [(CONTIG, len(draft))], records)
     write_fasta(fasta, {CONTIG: draft})
+    # one full-length truth read aligned to the draft (training's labels)
+    truth_seq, truth_cigar = read_from_haplotype(
+        draft, apply_variants(draft, variants), 0, len(draft))
+    truth_bam = str(tmp / "truth.bam")
+    write_bam(truth_bam, [(CONTIG, len(draft))], [BamRecord(
+        "truth", 0, 0, 60, truth_cigar, truth_seq, [60] * len(truth_seq))])
     params = _params(0)
     model = str(tmp / "polish.npz")
     save_params(model, params, {})
     return dict(tmp=tmp, bam=bam, fasta=fasta, truth=truth, params=params,
-                model=model, jax={})
+                model=model, truth_bam=truth_bam, jax={})
 
 
 def _jax_fasta(sim, mode):
@@ -393,6 +400,156 @@ def _cli_staged(sim, tag, images_by="port", consensus_by="port",
         return f.read()
 
 
+def _jax_train_images(sim, tag, *flags):
+    """The JAX package's train images of the scene (its
+    make_polish_train_images with the CLI's flags)."""
+    from pepper_tpu.polish import pipeline as jpipeline
+
+    out = str(sim["tmp"] / f"jax_train_images_{tag}")
+    options = JaxOptions(bam=sim["bam"], fasta=sim["fasta"])
+    if "--no_realignment" in flags:
+        options.realignment = False
+    if "-r" in flags:
+        options.region = flags[flags.index("-r") + 1]
+    if not os.path.isdir(out):
+        jpipeline.make_polish_train_images(options, sim["truth_bam"], out)
+    return out
+
+
+def _recording_steps(monkeypatch, module, recorded):
+    """Wraps a package's make_tbptt_step: each step also records its
+    batch's real rows."""
+    real = module.make_tbptt_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def recording(params, *rest, **kw):
+            images, labels, mask = rest[-3:]
+            recorded.append(int(np.asarray(mask).sum()))
+            return step(params, *rest, **kw)
+        return recording
+    monkeypatch.setattr(module, "make_tbptt_step", make)
+
+
+def _cli_train_matches_jax(sim, argv, monkeypatch, capsys):
+    """A polish training subcommand through the port's CLI on the CPU
+    against the JAX package on the same scene: make_train_images writes
+    JAX's train images (also without realignment, on a region);
+    train_model trains at batch 16 whatever --batch_size says, as JAX's
+    CLI, writes JAX's files and metadata, and its .npz polishes to the JAX
+    package's polish() bytes; test_model prints JAX's accuracy and
+    confusion of the same model and images; run_hyperband picks JAX's
+    configuration; download_models fetches JAX's files from a file://
+    mirror and fails as JAX's does offline."""
+    from pepper_tpu.cli import polish_main as jax_polish_main
+    from pepper_tpu.models.checkpoint import load_params as jax_load_params
+    from pepper_tpu.polish import train as jtrain
+    from pepper_tpu_torch.polish import train
+
+    base = sim["tmp"] / ("cli_" + "_".join(a.strip("-") for a in argv))
+    common = ["-b", sim["bam"], "-f", sim["fasta"]]
+    if argv[0] == "download_models":
+        from test_download_models import _make_mirror
+
+        base.mkdir()
+        url = _make_mirror(base)
+        outs = {}
+        for name, main in (("port", polish_main.main),
+                           ("jax", jax_polish_main.main)):
+            outs[name] = base / f"models_{name}"
+            assert main(["download_models", "-o", str(outs[name]),
+                         "--description_url", url]) == 0
+            assert main(["download_models", "-o", str(base / "x"),
+                         "--description_url",
+                         f"file://{base}/missing.csv"]) == 1
+        assert sorted(os.listdir(outs["port"])) == sorted(
+            os.listdir(outs["jax"])) == ["PEPPER_POLISH.pkl",
+                                        "PEPPER_VARIANT_ONT.pkl"]
+        for name in os.listdir(outs["jax"]):
+            assert (outs["port"] / name).read_bytes() == \
+                (outs["jax"] / name).read_bytes()
+        return
+    if argv[0] == "make_train_images":
+        flags = ([] if "--truth_bam" in argv
+                 else ["--no_realignment", "-r", f"{CONTIG}:0-1500"])
+        ours = str(base / "images")
+        assert polish_main.main(["make_train_images", *common, "--truth_bam",
+                                 sim["truth_bam"], "-o", ours, *flags]) == 0
+        expected = jtrain.load_polish_images(_jax_train_images(
+            sim, "_".join(flags), *flags))
+        got = jtrain.load_polish_images(ours)
+        assert len(got[0]) >= 2 and got[1].max() >= 1
+        for a, b in zip(got, expected):
+            np.testing.assert_array_equal(a, b)
+        return
+    images = _jax_train_images(sim, "")
+    n_chunks = len(jtrain.load_polish_images(images)[0])
+    if argv[0] == "test_model":
+        capsys.readouterr()
+        assert polish_main.main(["test_model", "-i", images, "-m",
+                                 sim["model"], "--batch_size", "2",
+                                 "--device", "cpu"]) == 0
+        printed = capsys.readouterr().err
+        result = jtrain.test_polish_model(JaxOptions(), images, sim["model"],
+                                          batch_size=2)
+        assert f"ACCURACY: {result['accuracy']:.2f}" in printed
+        assert ("CONFUSION MATRIX (rows=truth *ACGT, cols=pred):\n"
+                f"{result['confusion']}") in printed
+        assert result["confusion"].sum() == n_chunks * 1000
+        return
+    if argv[0] == "run_hyperband":
+        capsys.readouterr()
+        assert polish_main.main(["run_hyperband", "-i", images, "-o",
+                                 str(base / "port"), "--max_iter", "1",
+                                 "--eta", "2", "--batch_size", "4",
+                                 "--device", "cpu"]) == 0
+        printed = capsys.readouterr().err
+        best = jtrain.run_polish_hyperband(
+            JaxOptions(), images, str(base / "jax"), max_iter=1, eta=2,
+            batch_size=4)
+        assert f"config={best['config']}" in printed
+        assert os.path.isfile(base / "port" / "hb_s0_c0" /
+                              "polish_model_final.npz")
+        return
+    # train_model: one epoch at the CLI's batch (16, not --batch_size)
+    from pepper_tpu.polish import train as jtrain_module
+
+    recorded = {"port": [], "jax": []}
+    _recording_steps(monkeypatch, train, recorded["port"])
+    _recording_steps(monkeypatch, jtrain_module, recorded["jax"])
+    args = ["-i", images, "--epochs", "1", "--batch_size", "2",
+            "--learning_rate", "1e-3"]
+    if len(argv) > 1:
+        args += ["--weight_decay", "1e-4"]
+    assert polish_main.main(["train_model", *args, "-o", str(base / "port"),
+                             "--device", "cpu"]) == 0
+    assert jax_polish_main.main(["train_model", *args, "-o",
+                            str(base / "jax")]) == 0
+    n_train = n_chunks - max(1, int(n_chunks * 0.2))
+    assert n_train > 2
+    assert recorded["port"] == recorded["jax"] == [min(16, n_train)] * (
+        -(-n_train // 16))
+    names = sorted(os.listdir(base / "port"))
+    assert names == sorted(os.listdir(base / "jax")) == [
+        "polish_epoch_1_checkpoint.npz", "polish_model_final.npz"]
+    for name in names:
+        assert jax_load_params(str(base / "port" / name))[1] == \
+            jax_load_params(str(base / "jax" / name))[1]
+    params, _ = jax_load_params(str(base / "port" / "polish_model_final.npz"))
+    outputs = {}
+    for name, options, run in (
+            ("jax", JaxOptions, j_polish),
+            ("port", PepperOptions,
+             lambda o, p: pipeline.polish(o, p, device="cpu"))):
+        path = run(options(bam=sim["bam"], fasta=sim["fasta"],
+                           output_dir=str(base / f"polished_{name}"),
+                           threads=1, batch_size=8), params)
+        with open(path, "rb") as f:
+            outputs[name] = f.read()
+    assert outputs["port"] == outputs["jax"]
+
+
 @pytest.mark.parametrize("argv,item", [
     (["make_images", "-b", "x.bam"], "item 14"),
     (["call_consensus", "-i", "imgs"], "item 14"),
@@ -408,16 +565,21 @@ def _cli_staged(sim, tag, images_by="port", consensus_by="port",
     (["polish", "-m", "model.pkl", "--device", "cpu"], "item 13"),
     (["polish", "--num_devices", "2", "--device", "cpu"], "item 7"),
 ])
-def test_polish_cli_refuses_what_is_not_ported(polish_sim, argv, item):
-    """What the polish CLI refuses, naming the item (make_train_images is
-    training data, item 11); what it refused until its item was ported now
-    serves and writes the bytes of the JAX package's polish() on the same
-    weights: a reference .pkl (item 13), --num_devices 2 (item 7; on the
-    CPU it resolves to one device) and the staged make_images,
-    call_consensus and stitch (item 14), each case's own stage through
-    the port's CLI beside the JAX package's other stages (the bare
-    call_consensus case: every stage the port's), the consensus float
-    where the port runs it and dry elsewhere."""
+def test_polish_cli_refuses_what_is_not_ported(polish_sim, argv, item,
+                                               monkeypatch, capsys):
+    """The polish CLI now refuses nothing: what it refused until its item
+    was ported serves against the JAX package.  A reference .pkl (item
+    13), --num_devices 2 (item 7; on the CPU it resolves to one device)
+    and the staged make_images, call_consensus and stitch (item 14) write
+    the bytes of the JAX package's polish() on the same weights, each
+    staged case's own stage through the port's CLI beside the JAX
+    package's other stages (the bare call_consensus case: every stage the
+    port's), the consensus float where the port runs it and dry elsewhere;
+    the training subcommands (item 11) and download_models (item 12) run
+    as _cli_train_matches_jax says."""
+    if item in ("item 11", "item 12"):
+        _cli_train_matches_jax(polish_sim, argv, monkeypatch, capsys)
+        return
     if item == "item 14":
         stage = argv[0] if len(argv) > 1 else "all"
         kinds = {"make_images": ("port", "jax", "dry"),
@@ -464,5 +626,4 @@ def test_polish_cli_refuses_what_is_not_ported(polish_sim, argv, item):
                   "rb") as f:
             assert f.read() == _jax_fasta(polish_sim, "float")
         return
-    with pytest.raises(NotImplementedError, match=item):
-        polish_main.main(argv)
+    raise AssertionError(f"no case for {argv} ({item})")
