@@ -250,11 +250,28 @@ Phases, each printing one JSON line:
                cpu top-two logits lie within 1e-4, counted); two gloo
                processes on cuda:0 against one process over [cuda:0,
                cuda:0] (params within 2e-4, rank 1 writes nothing)
+ 22 measure    the measurement half, through the port's own scripts: the
+               bench (pepper_tpu_torch.bench) in its three modes at full
+               width and B=4096, each JSON line printed, each marginal
+               rate within 0.75-1.33x of 4096 over one event-timed batch
+               of the same forward (the loop stays queued), 4 launches a
+               batch of the mode's kernel (rows 2, 1, 4); utils.profiling's
+               trace() around one bfloat16 call_variant on phase 9's scene
+               (one worker, in a process of its own), whose trace parses and
+               holds as many events
+               of row 1's recurrence core (ptxas's entry names) as the
+               call's launches, with the call's StageTimer line in the JAX
+               package's format on stderr; bench_pipeline's main stages
+               (1 Mb) and one-core window generation (1 Mb, ONT errors)
+               with the host's CPU (lscpu); a reduced acceptance run
+               (examples/acceptance_run.run: train 0.2 Mb, call 0.5 Mb,
+               uniform errors, 12 epochs) on cuda held to
+               ACCEPTANCE_BARS per variant type
 
 Then the kernel summary line (rows 1-4 with their HP figures, row 1 with
 the training eval's launches, rows 5 and 7 with their hp_votes_scan
-figures, rows 5 and 6 with phase 21's launches), the nvidia-smi line and,
-last, the
+figures, rows 5 and 6 with phase 21's launches, rows 1, 2 and 4 with
+phase 22's), the nvidia-smi line and, last, the
 result line; the `done` line gives each phase's wall seconds.  `--phases
 6,13` runs phases 1 and 2 and the listed ones only, and prints neither the
 summary nor the result line.  Any failed check
@@ -4755,11 +4772,299 @@ def phase_polish_train(device, card):
             "max_abs_err_T1000": result["row_5_T1000"]["max_abs_err"]}
 
 
+# ---------------------------------------------------------------- phase 22
+
+# the bench's modes, each with the kernel wrapper it reaches (4 a batch)
+BENCH_ROUTES = {"int8_static": "lstm_direction_fused_static",
+                "bf16": "lstm_direction_fused",
+                "int8_dynamic": "lstm_recurrence"}
+BENCH_RATIO = (0.75, 1.33)   # marginal rate over 4096 / event-timed batch
+# the reduced acceptance run: its sizes, and its per-type bars, set from
+# a CPU run of the same sizes before the first run on the card (every
+# type's recall and precision 1.0000 there; PERF.md section 6)
+ACCEPTANCE_RUN = {"genome_mb": 0.5, "train_mb": 0.2, "epochs": 12,
+                  "error_model": "uniform"}
+ACCEPTANCE_BARS = {"ALL": 0.98, "SNP": 0.98, "INS": 0.95, "DEL": 0.95}
+TRACED_STAGE = "CALL_VARIANT (cuda bfloat16, traced)"
+
+
+def host_cpu():
+    """The host's CPU model (lscpu's, else /proc/cpuinfo's) and logical
+    CPU count."""
+    model = None
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30, check=True).stdout
+        model = next((line.split(":", 1)[1].strip()
+                      for line in out.splitlines()
+                      if line.startswith("Model name:")), None)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if model in (None, "unknown") and os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            model = next((line.split(":", 1)[1].strip() for line in f
+                          if line.startswith("model name")), model)
+    return {"model": model or "unknown", "cpus": os.cpu_count()}
+
+
+class _Tee:
+    """A text stream that writes to a stream and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def measure_bench(device, wrappers):
+    """Part 1: the bench in its three modes through pepper_tpu_torch.bench
+    at full width (B=4096), each JSON line printed, its marginal rate held
+    to one event-timed batch of the same forward, 4 launches a batch."""
+    import torch
+    from pepper_tpu_torch import bench
+
+    result = {}
+    for mode, name in BENCH_ROUTES.items():
+        wrapper = wrappers[name]
+        wrapper.launches = 0
+        start = time.time()
+        rate = bench.bench_torch(B_SERVE, mode=mode, device=device)
+        seconds = time.time() - start
+        launches = wrapper.launches
+        # warm-up and best of 3 at each of the two lengths
+        batches = 4 * (10 + 50)
+        check(launches == 4 * batches,
+              f"bench {mode}: {launches} {name} launches for {batches} "
+              "batches, not 4 a batch")
+        line = bench.result_line(rate)
+        print(json.dumps(line), flush=True)
+        forward, tree = bench.bench_forward(mode, device)
+        x = bench.bench_inputs(B_SERVE, device)
+        with torch.inference_mode():
+            wrapper.launches = 0
+            probs = forward(tree, x)
+            check(wrapper.launches == 4,
+                  f"{mode}: {wrapper.launches} launches a batch, not 4")
+            check(bool(torch.isfinite(probs).all())
+                  and tuple(probs.shape) == (B_SERVE, 3),
+                  f"{mode}: probabilities {tuple(probs.shape)}")
+            batch_ms = cuda_ms(lambda: forward(tree, x + 1), iters=10,
+                               queued=True)
+        ratio = rate / (B_SERVE / batch_ms * 1e3)
+        check(BENCH_RATIO[0] <= ratio <= BENCH_RATIO[1],
+              f"bench {mode}: {rate:.0f} windows/s is {ratio:.3f}x the "
+              f"event-timed batch's {B_SERVE / batch_ms * 1e3:.0f}")
+        result[mode] = {"line": line, "kernel": name,
+                        "bench_launches": launches, "batch_ms": batch_ms,
+                        "event_windows_per_s": B_SERVE / batch_ms * 1e3,
+                        "ratio": ratio, "seconds": round(seconds, 3)}
+    return result
+
+
+def traced_call(workdir, device_name):
+    """One bfloat16 call_variant on phase 9's scene (one worker thread)
+    inside trace(workdir/trace) and a StageTimer, in a process of its own
+    (in the process that had run phases 1-21, one whole run's trace held
+    1 of the call's 6 kernel events of row 1; earlier profiler sessions,
+    the bench and phase 8 in a fresh process do not cause it, and the
+    cause is not known: PERF.md): returns the call's kernel launches,
+    windows, the StageTimer's stderr text and seconds."""
+    import torch
+    from pepper_tpu_torch.cli import main as cli
+    from pepper_tpu_torch.infer.runner import InferenceRunner
+    from pepper_tpu_torch.utils.profiling import StageTimer, trace
+
+    bam, fasta, _ = write_scene(workdir)
+    model = save_model(os.path.join(workdir, "model.npz"), call_params())
+    argv = ["call_variant", "-b", bam, "-f", fasta, "-m", model, "-o",
+            os.path.join(workdir, "traced_call"), "-t", "1",
+            "--region_size", "10000", "--ont_r9_guppy5_sup",
+            "--compute_dtype", "bfloat16", "--device", device_name]
+    windows = []
+    resolve = InferenceRunner.resolve
+
+    def counting(runner, handle):
+        predictions = resolve(runner, handle)
+        windows.extend(predictions)
+        return predictions
+
+    wrappers = kernel_wrappers()
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    tee = _Tee(sys.stderr)
+    with contextlib.redirect_stderr(tee), mock.patch.object(
+            InferenceRunner, "resolve", counting):
+        with trace(os.path.join(workdir, "trace")):
+            with StageTimer(TRACED_STAGE, unit="windows") as timer:
+                check(cli.main(argv) == 0, "traced call_variant failed")
+                torch.cuda.synchronize()
+                timer.add(len(windows))
+    return {"launches": {name: w.launches for name, w in wrappers.items()
+                         if w.launches},
+            "windows": len(windows), "stderr": tee.text(),
+            "seconds": round(timer.elapsed, 3)}
+
+
+def measure_trace(device, workdir):
+    """Part 2: trace() around one bfloat16 call_variant on phase 9's scene
+    (traced_call); the trace's events of row 1's recurrence core, which
+    each launch runs once, against the launch counter; the call's
+    StageTimer line in the JAX package's format."""
+    import concurrent.futures
+    import multiprocessing
+    import re
+
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        call = pool.submit(traced_call, workdir, str(device)).result()
+    row_1 = call["launches"].get("lstm_direction_fused", 0)
+    check(set(call["launches"]) == {"lstm_direction_fused"} and row_1 > 0,
+          f"traced call launched {call['launches']}")
+    log_dir = os.path.join(workdir, "trace")
+    files = [os.path.join(log_dir, f) for f in os.listdir(log_dir)
+             if f.endswith(".json")]
+    check(len(files) == 1, f"trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    entries = [e["entry"] for e in ptxas_entries("lstm_direction_fused")
+               if "core_kernel" in e["entry"]]
+    names = set(entries) | set(demangled(entries))
+    core_events = [e for e in kernels if e.get("name") in names]
+    if len(core_events) != row_1:
+        print(json.dumps({"phase": "measure_trace_names",
+                          "entries": sorted(names),
+                          "trace_kernels": sorted(
+                              {e.get("name") for e in kernels})[:40]}),
+              flush=True)
+    check(len(core_events) == row_1 > 0,
+          f"trace: {len(core_events)} events of row 1's core, "
+          f"{row_1} launches")
+    pattern = (r"\[\d\d-\d\d-\d{4} \d\d:\d\d:\d\d\] INFO: "
+               + re.escape(TRACED_STAGE)
+               + r" ELAPSED TIME: \d+ Min \d+ Sec "
+               r"\(\d+ windows, \d+\.\d windows/s\)\n")
+    lines = re.findall(pattern, call["stderr"])
+    check(len(lines) == 1, f"StageTimer lines: {lines}")
+    return {"row_1_launches": row_1, "row_1_core_events": len(core_events),
+            "kernel_events": len(kernels),
+            "distinct_kernels": len({e["name"] for e in kernels}),
+            "trace_bytes": os.path.getsize(files[0]),
+            "windows": call["windows"], "seconds": call["seconds"],
+            "stage_line": lines[0].strip()}
+
+
+def demangled(names):
+    """The names as c++filt demangles them (as the profiler shows kernel
+    names); [] where c++filt is missing."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=30,
+                             check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    return out.splitlines()
+
+
+def measure_pipeline(device, workdir):
+    """Part 3: bench_pipeline's main stages and its one-core window
+    generation, at sizes that keep this part near a minute."""
+    from pepper_tpu_torch import bench_pipeline
+
+    threads = os.cpu_count() or 4
+    stages = bench_pipeline.main_stages(
+        1.0, threads, device=device, workdir=os.path.join(workdir, "main"))
+    windows = bench_pipeline.bench_windows(
+        1.0, "ont", 2, workdir=os.path.join(workdir, "windows"))
+    table = {name: {"seconds": round(s["seconds"], 3),
+                    "per_s": round(s["per_s"], 1), "unit": s["unit"]}
+             for name, s in stages["stages"].items()}
+    check(stages["stages"]["inference"]["count"]
+          == stages["stages"]["windows"]["windows"] > 0,
+          "bench_pipeline main: windows and inferences differ")
+    return {"host": host_cpu(), "main": {
+        "genome_mb": 1.0, "threads": threads, "reads": stages["reads"],
+        "aligned_bases": stages["aligned_bases"],
+        "windows": stages["stages"]["windows"]["windows"],
+        "aligned_per_s_per_core": round(
+            stages["stages"]["windows"]["per_core"], 1),
+        "candidates_per_s": table["decode"]["per_s"],
+        "inference_windows_per_s": table["inference"]["per_s"],
+        "records": stages["records"], "stages": table},
+        "windows": {k: round(v, 3) if isinstance(v, float) else v
+                    for k, v in windows.items()}}
+
+
+def measure_acceptance(device, workdir, wrappers):
+    """Part 4: the reduced acceptance run through
+    examples/acceptance_run.run on the card, held to ACCEPTANCE_BARS."""
+    from pepper_tpu_torch.examples import acceptance_run
+
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    start = time.time()
+    result = acceptance_run.run(
+        ACCEPTANCE_RUN["genome_mb"], os.cpu_count() or 4,
+        ACCEPTANCE_RUN["error_model"], device=device,
+        train_mb=ACCEPTANCE_RUN["train_mb"],
+        epochs=ACCEPTANCE_RUN["epochs"],
+        base=os.path.join(workdir, "acceptance"))
+    seconds = time.time() - start
+    stats = result["stats"]
+    for kind, bar in ACCEPTANCE_BARS.items():
+        check(stats[kind]["recall"] >= bar
+              and stats[kind]["precision"] >= bar,
+              f"acceptance {kind}: recall {stats[kind]['recall']:.4f}, "
+              f"precision {stats[kind]['precision']:.4f} below {bar}")
+    return {**ACCEPTANCE_RUN, "seconds": round(seconds, 3),
+            "train_accuracy": result["train_accuracy"],
+            "launches": {name: w.launches for name, w in wrappers.items()
+                         if w.launches},
+            "table": {kind: {key: stats[kind][key]
+                             for key in ("n", "tp", "fp", "fn", "recall",
+                                         "precision", "gt_concordance")}
+                      for kind in ("SNP", "INS", "DEL", "ALL")}}
+
+
+def phase_measure(device, card):
+    """The port's measurement half on the card (module docstring, phase
+    22); returns each part's result."""
+    wrappers = kernel_wrappers()
+    seconds = {}
+
+    def part(name, fn, *args):
+        start = time.time()
+        result = fn(*args)
+        seconds[name] = round(time.time() - start, 3)
+        emit({"phase": f"measure_{name}", "card": card, **result})
+        return result
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        result = {
+            "bench": part("bench", measure_bench, device, wrappers),
+            "trace": part("trace", measure_trace, device, workdir),
+            "pipeline": part("pipeline", measure_pipeline, device,
+                             workdir),
+            "acceptance": part("acceptance", measure_acceptance, device,
+                               workdir, wrappers)}
+    emit({"phase": "measure", "card": card, "seconds": seconds})
+    return result
+
+
 # ---------------------------------------------------------------- main
 
 
 def run_phases(device, smi, only):
-    """Some of phases 3-21 alone (after phases 1 and 2), for a short run:
+    """Some of phases 3-22 alone (after phases 1 and 2), for a short run:
     no kernel summary and no result line.  Phases 13, 14 and 17 walk phase
     9's scene without running phase 9."""
     simple = {3: phase_kernel, 4: phase_transducer, 5: phase_kernel_static,
@@ -4767,7 +5072,7 @@ def run_phases(device, smi, only):
               8: phase_transducer_quantized, 10: phase_kernel_gru,
               15: phase_kernel_hp, 16: phase_transducer_hp,
               18: phase_hp_votes, 19: phase_multi_device, 20: phase_train,
-              21: phase_polish_train}
+              21: phase_polish_train, 22: phase_measure}
     for number in sorted(set(simple) & only):
         simple[number](device, smi)
     if only & {9, 13, 14, 17}:
@@ -4793,14 +5098,14 @@ def run_phases(device, smi, only):
 
 
 def parse_phases(argv):
-    """`--phases 6,13`: the phases to run (3-21), or None for all."""
+    """`--phases 6,13`: the phases to run (3-22), or None for all."""
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases N[,N...]]")
     only = {int(n) for n in argv[1].split(",")}
-    if not only or not only <= set(range(3, 22)):
-        raise SystemExit(f"--phases takes numbers 3-21, got {argv[1]}")
+    if not only or not only <= set(range(3, 23)):
+        raise SystemExit(f"--phases takes numbers 3-22, got {argv[1]}")
     return only
 
 
@@ -4881,6 +5186,7 @@ def main(argv=()) -> int:
     timed("multi_device", phase_multi_device, device, smi)
     train_eval_launches = timed("train", phase_train, device, smi)
     polish_train = timed("polish_train", phase_polish_train, device, smi)
+    measure = timed("measure", phase_measure, device, smi)
     emit({"phase": "done", "seconds_total": round(time.time() - t0, 3),
           "phase_seconds": seconds})
 
@@ -5097,6 +5403,16 @@ def main(argv=()) -> int:
                 f"{hist['dispatch']['rows']} rows (one launch a dispatch; "
                 "its classifier is row 1's kernel)",
     }]
+    # phase 22's launches: the bench's run of each row's mode (4 a batch),
+    # row 1's traced call and the reduced acceptance run
+    for row in rows:
+        mode = {kernel: mode for mode, kernel in BENCH_ROUTES.items()}.get(
+            row["name"])
+        if mode:
+            row["launches_bench"] = measure["bench"][mode]["bench_launches"]
+    rows[0]["launches_traced_call"] = measure["trace"]["row_1_launches"]
+    rows[0]["launches_acceptance_run"] = measure["acceptance"][
+        "launches"].get("lstm_direction_fused", 0)
     # this slice's shapes beside each row's own: the HP classifier (rows
     # 1-4, phases 15 and 17) and the HP sliding predictor (rows 5 and 7,
     # phase 18)

@@ -15,3 +15,17 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' (--device cpu) to run "
             "on the CPU")
     return device
+
+
+def pop_device_arg(argv):
+    """The positional arguments of a script's argv without `--device X`,
+    and X (None when absent: cuda)."""
+    argv = list(argv)
+    if "--device" not in argv:
+        return argv, None
+    at = argv.index("--device")
+    if at + 1 >= len(argv):
+        raise SystemExit("--device takes a torch device (cuda, cpu)")
+    device = argv[at + 1]
+    del argv[at:at + 2]
+    return argv, device

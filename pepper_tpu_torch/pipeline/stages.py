@@ -11,6 +11,8 @@ from __future__ import annotations
 import os
 import time
 
+import numpy as np
+
 from ..decode.candidate_finder import (decode_predictions_parallel,
                                        find_candidates)
 from ..decode.vcf_writer import VCFWriter
@@ -23,45 +25,8 @@ from .regions import build_intervals, get_chromosome_list, log_info
 from .summarizer import create_region_summary
 
 
-def _image_worker(args):
-    """One worker process: its round-robin interval share -> one HDF5 file
-    (the reference's generate_image_and_save_to_file,
-    ImageGenerationUI.py:190-274).  Host code only."""
-    (options, intervals, bed_list, output_dir, process_id, n_workers,
-     timestr) = args
-    from .call_variant import _get_handles
-
-    bam_handler, fasta_handler = _get_handles(options.bam, options.fasta)
-    suffix = "_hp" if options.use_hp_info else ""
-    file_name = os.path.join(
-        output_dir,
-        f"pepper_variants_images_thread_{process_id}_{timestr}{suffix}"
-        ".hdf5")
-    my_intervals = [interval for i, interval in enumerate(intervals)
-                    if i % n_workers == process_id]
-    written = 0
-    with ImageStore(file_name, "w") as store:
-        for contig, start, end in my_intervals:
-            windows = create_region_summary(options, bam_handler,
-                                            fasta_handler, contig, start,
-                                            end, bed_list)
-            if windows:
-                store.write_summary(f"{contig}_{start}_{end}", windows,
-                                    options.train_mode)
-                written += 1
-    if written == 0:
-        os.remove(file_name)
-        return None
-    return file_name
-
-
-def make_images(options, output_dir: str):
-    """Generate candidate images and save to HDF5
-    (ImageGenerationUI.py:190-274 layout: one file per worker, one summary
-    group per interval)."""
-    from .call_variant import _process_pool
-
-    os.makedirs(output_dir, exist_ok=True)
+def _image_plan(options):
+    """make_images' intervals, BED regions and worker count."""
     bam_handler = BamReader(options.bam)
     fasta_handler = FastaReader(options.fasta)
     chr_list, bed_list = get_chromosome_list(options.region, fasta_handler,
@@ -71,20 +36,110 @@ def make_images(options, output_dir: str):
                                              options.train_mode)
     log_info(f"TOTAL CONTIGS: {len(chr_list)} TOTAL INTERVALS: "
              f"{len(intervals)} TOTAL BASES: {total_bases}")
+    return intervals, bed_list, max(1, min(options.threads, len(intervals)))
 
+
+def _share_summaries(options, intervals, bed_list, process_id, n_workers):
+    """Yield (summary name, windows) of one worker's round-robin interval
+    share, for each interval with windows.  Host code only."""
+    from .call_variant import _get_handles
+
+    bam_handler, fasta_handler = _get_handles(options.bam, options.fasta)
+    for i, (contig, start, end) in enumerate(intervals):
+        if i % n_workers != process_id:
+            continue
+        windows = create_region_summary(options, bam_handler, fasta_handler,
+                                        contig, start, end, bed_list)
+        if windows:
+            yield f"{contig}_{start}_{end}", windows
+
+
+def _image_worker(args):
+    """One worker process: its round-robin interval share -> one HDF5 file
+    (the reference's generate_image_and_save_to_file,
+    ImageGenerationUI.py:190-274)."""
+    (options, intervals, bed_list, output_dir, process_id, n_workers,
+     timestr) = args
+    suffix = "_hp" if options.use_hp_info else ""
+    file_name = os.path.join(
+        output_dir,
+        f"pepper_variants_images_thread_{process_id}_{timestr}{suffix}"
+        ".hdf5")
+    written = 0
+    with ImageStore(file_name, "w") as store:
+        for name, windows in _share_summaries(options, intervals, bed_list,
+                                              process_id, n_workers):
+            store.write_summary(name, windows, options.train_mode)
+            written += 1
+    if written == 0:
+        os.remove(file_name)
+        return None
+    return file_name
+
+
+def _map_workers(worker, tasks):
+    """worker over tasks, in a process pool when there are several."""
+    from .call_variant import _process_pool
+
+    if len(tasks) == 1:
+        return [worker(tasks[0])]
+    with _process_pool(len(tasks)) as pool:
+        return list(pool.map(worker, tasks))
+
+
+def make_images(options, output_dir: str):
+    """Generate candidate images and save to HDF5
+    (ImageGenerationUI.py:190-274 layout: one file per worker, one summary
+    group per interval)."""
+    os.makedirs(output_dir, exist_ok=True)
+    intervals, bed_list, n_workers = _image_plan(options)
     timestr = time.strftime("%m%d%Y_%H%M%S")
-    n_workers = max(1, min(options.threads, len(intervals)))
-    tasks = [(options, intervals, bed_list, output_dir, process_id,
-              n_workers, timestr)
-             for process_id in range(n_workers)]
-    if n_workers == 1:
-        files = [_image_worker(tasks[0])]
-    else:
-        with _process_pool(n_workers) as pool:
-            files = list(pool.map(_image_worker, tasks))
+    files = _map_workers(_image_worker, [
+        (options, intervals, bed_list, output_dir, process_id, n_workers,
+         timestr) for process_id in range(n_workers)])
     files = [f for f in files if f]
     log_info("FINISHED IMAGE GENERATION")
     return files[0] if len(files) == 1 else files
+
+
+def _array_worker(args):
+    """One worker's share as make_images stores it: [(summary name,
+    images int8, type labels uint8, base labels uint8)], the labels zeros
+    outside train mode, as the store reads them back."""
+    options, intervals, bed_list, process_id, n_workers = args
+    out = []
+    for name, windows in _share_summaries(options, intervals, bed_list,
+                                          process_id, n_workers):
+        labels = np.zeros((2, len(windows)), np.uint8)
+        if options.train_mode:
+            labels = np.array([[w.type_label for w in windows],
+                               [w.base_label for w in windows]], np.uint8)
+        out.append((name, np.array([w.image for w in windows], np.int8),
+                    *labels))
+    return out
+
+
+def image_arrays(options):
+    """make_images' windows in memory, with no HDF5 store: (images float32
+    (N, T, F), type labels int32 (N,), base labels int32 (N,)) in the
+    order train_model reads make_images' files back (train/data.py
+    load_image_dir): the files by name (worker i's holds `thread_{i}_`),
+    then each file's summaries by name, as HDF5 lists a group's
+    members."""
+    intervals, bed_list, n_workers = _image_plan(options)
+    shares = _map_workers(_array_worker, [
+        (options, intervals, bed_list, process_id, n_workers)
+        for process_id in range(n_workers)])
+    summaries = [summary
+                 for process_id in sorted(range(n_workers),
+                                          key=lambda i: f"{i}_")
+                 for summary in sorted(shares[process_id],
+                                       key=lambda item: item[0])]
+    if not summaries:
+        raise ValueError("no candidate windows in the given regions")
+    return tuple(np.concatenate([s[k] for s in summaries]).astype(dtype)
+                 for k, dtype in ((1, np.float32), (2, np.int32),
+                                  (3, np.int32)))
 
 
 def _image_files(input_dir: str):

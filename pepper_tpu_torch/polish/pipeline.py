@@ -242,6 +242,28 @@ def summarize_interval_train(bam_handler, truth_bam_handler, fasta_handler,
     return all_images, all_labels, all_positions, all_chunk_ids
 
 
+def _train_chunks(options, truth_bam: str, min_truth_length: int):
+    """Yield every labelled chunk in interval order, as
+    PolishImageStore.write_summary takes it: (region, image, label,
+    position, index, chunk_id, summary name)."""
+    bam_handler = BamReader(options.bam)
+    truth_handler = BamReader(truth_bam)
+    fasta_handler = FastaReader(options.fasta)
+    chr_list = get_polish_chromosome_list(options.region, fasta_handler,
+                                          bam_handler, options.region_bed)
+    for contig, start, end in build_polish_intervals(chr_list,
+                                                     fasta_handler):
+        images, labels, positions, chunk_ids = summarize_interval_train(
+            bam_handler, truth_handler, fasta_handler, contig, start, end,
+            options.downsample_rate,
+            realignment=getattr(options, "realignment", True),
+            min_truth_length=min_truth_length)
+        for i, image in enumerate(images):
+            yield ((contig, start, end), image, labels[i],
+                   positions[i][:, 0], positions[i][:, 1], chunk_ids[i],
+                   f"{contig}_{start}_{end}_{chunk_ids[i]}_{i}")
+
+
 def make_polish_train_images(options, truth_bam: str, output_dir: str,
                              min_truth_length: int = 1000):
     """Labeled polish images for training (truth-read supervision), one
@@ -249,32 +271,36 @@ def make_polish_train_images(options, truth_bam: str, output_dir: str,
     from .datastore import PolishImageStore
 
     os.makedirs(output_dir, exist_ok=True)
-    bam_handler = BamReader(options.bam)
-    truth_handler = BamReader(truth_bam)
-    fasta_handler = FastaReader(options.fasta)
-    chr_list = get_polish_chromosome_list(options.region, fasta_handler,
-                                          bam_handler, options.region_bed)
-    intervals = build_polish_intervals(chr_list, fasta_handler)
     timestr = time.strftime("%m%d%Y_%H%M%S")
     file_name = os.path.join(output_dir,
                              f"pepper_train_images_{timestr}.hdf")
     total = 0
     with PolishImageStore(file_name, "w") as store:
-        for contig, start, end in intervals:
-            images, labels, positions, chunk_ids = summarize_interval_train(
-                bam_handler, truth_handler, fasta_handler, contig, start,
-                end, options.downsample_rate,
-                realignment=getattr(options, "realignment", True),
-                min_truth_length=min_truth_length)
-            region = (contig, start, end)
-            for i, image in enumerate(images):
-                name = f"{contig}_{start}_{end}_{chunk_ids[i]}_{i}"
-                store.write_summary(region, image, labels[i],
-                                    positions[i][:, 0], positions[i][:, 1],
-                                    chunk_ids[i], name)
-                total += 1
+        for chunk in _train_chunks(options, truth_bam, min_truth_length):
+            store.write_summary(*chunk)
+            total += 1
     log_info(f"FINISHED TRAIN IMAGE GENERATION: {total} CHUNKS")
     return file_name
+
+
+def polish_train_arrays(options, truth_bam: str,
+                        min_truth_length: int = 1000):
+    """make_polish_train_images' chunks in memory, with no HDF5 store:
+    (images float32 (N, 1000, 10), labels int32 (N, 1000)) in the order
+    train_polish_model reads its file back (polish/train.py
+    load_polish_images): each name once, the first written, sorted by name
+    as HDF5 lists a group's members."""
+    chunks = {}
+    for _, image, label, *_, name in _train_chunks(options, truth_bam,
+                                                   min_truth_length):
+        chunks.setdefault(name, (np.asarray(image, np.uint8),
+                                 np.asarray(label, np.uint8)))
+    if not chunks:
+        raise ValueError("no labelled polish chunks in the given regions")
+    names = sorted(chunks)
+    log_info(f"FINISHED TRAIN IMAGE GENERATION: {len(names)} CHUNKS")
+    return (np.stack([chunks[n][0] for n in names]).astype(np.float32),
+            np.stack([chunks[n][1] for n in names]).astype(np.int32))
 
 
 class PredictionStore:

@@ -1566,3 +1566,40 @@ def test_polish_eval_on_card_runs_row_5_at_full_chunk(device):
     if not differ.any():
         np.testing.assert_array_equal(confusion, cpu_confusion)
     assert confusion.sum() == 15 * 1000
+
+
+def test_trace_keeps_every_kernel_event_across_sessions(device, tmp_path):
+    """A plain torch.profiler session, then two trace() sessions in one
+    process, each around one bfloat16 transducer batch (4 launches of row
+    1, 6 kernels): each trace file holds all 6 of the port's kernel events
+    and trace() warns of none dropped."""
+    import glob
+    import json
+    import os
+    import warnings
+
+    from pepper_tpu_torch import bench
+    from pepper_tpu_torch.utils import profiling
+
+    forward, tree = bench.bench_forward("bf16", device)
+    x = bench.bench_inputs(256, device)
+    with torch.inference_mode():
+        forward(tree, x)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]):
+            forward(tree, x).sum().item()
+        for session in range(2):
+            log_dir = str(tmp_path / f"trace{session}")
+            before = lstm_kernel.lstm_direction_fused.launches
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)
+                with profiling.trace(log_dir):
+                    forward(tree, x + session).sum().item()
+            assert lstm_kernel.lstm_direction_fused.launches - before == 4
+            (path,) = glob.glob(os.path.join(log_dir, "*.json"))
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            names = [e.get("name", "") for e in events
+                     if e.get("cat") == "kernel"]
+            assert profiling.port_kernel_events(names) == 6

@@ -18,7 +18,8 @@ from pepper_tpu_torch.ops import cuda_build, lstm_kernel
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = pathlib.Path(pepper_tpu_torch.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "pepper_tpu")
+# tests/simulate.py imports the JAX package; the port has its own copy
+FORBIDDEN = ("jax", "jaxlib", "pepper_tpu", "simulate")
 
 
 def _port_sources():
@@ -43,8 +44,8 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_no_jax_package():
     sources = _port_sources()
     assert len(sources) > 20 and (REPO / "chip_smoke.py").exists()
-    # the device-pileup, training and utility modules are among the
-    # scanned sources
+    # the device-pileup, training, utility, bench and example modules are
+    # among the scanned sources
     for module in ("ops/pileup_kernel.py", "ops/device_windows.py",
                    "infer/device_runner.py", "device.py",
                    "models/torch_convert.py", "models/alternates.py",
@@ -59,7 +60,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "polish/stitch_v2.py", "polish/legacy_variant_summary.py",
                    "utils/__init__.py", "utils/download_model.py",
                    "utils/vcf_compare.py", "utils/pileup_text.py",
-                   "utils/merge_images.py"):
+                   "utils/merge_images.py", "utils/profiling.py",
+                   "utils/simulate.py", "bench.py", "bench_pipeline.py",
+                   "bench_multihost.py", "examples/__init__.py",
+                   "examples/simulated_quickstart.py",
+                   "examples/acceptance_run.py", "examples/chr_scale_run.py",
+                   "examples/hp_acceptance_run.py",
+                   "examples/polish_scale_run.py"):
         assert PORT / module in sources, module
     for path in sources:
         for module in _imported_modules(path):
@@ -131,6 +138,35 @@ def test_call_variant_without_device_raises_here(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call_variant(options)
     assert not (tmp_path / "out").exists()
+
+
+def test_bench_and_example_runs_without_device_raise_here(tmp_path):
+    """Asked for cuda (or given no device) without a card, the bench, the
+    pipeline bench and every example run raise before they simulate or
+    write anything; none falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable")
+    from pepper_tpu_torch import bench, bench_pipeline
+    from pepper_tpu_torch.examples import (acceptance_run, chr_scale_run,
+                                           hp_acceptance_run,
+                                           polish_scale_run,
+                                           simulated_quickstart)
+
+    calls = [lambda: bench.main([]),
+             lambda: bench.bench_torch(device="cuda"),
+             lambda: bench_pipeline.main(["consensus"]),
+             lambda: bench_pipeline.main(["device", "--device", "cuda"]),
+             lambda: bench_pipeline.main_stages(workdir=str(tmp_path)),
+             lambda: simulated_quickstart.main([str(tmp_path / "qs")]),
+             lambda: acceptance_run.run(base=str(tmp_path / "a")),
+             lambda: chr_scale_run.run(device="cuda",
+                                       base=str(tmp_path / "c")),
+             lambda: hp_acceptance_run.main(["--device", "cuda"]),
+             lambda: polish_scale_run.run(base=str(tmp_path / "p"))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert os.listdir(tmp_path) == []
 
 
 # what the JAX package's own build writes next to its sources, maybe in
