@@ -16,11 +16,14 @@ Phases, each printing one JSON line:
                behind a device sleep, in bfloat16 at B=32, 128, 512 and
                4096 (the decoder's input projection and recurrence also
                apart, through the library's entries, whose outputs must
-               equal the kernel's), in float32 at 4096, the twin at 4096,
-               with the bfloat16 core's launch plan (rows and CTAs a
-               cluster, clusters, and how many run at once); ptxas's
-               registers, shared memory and spills of both float LSTM
-               kernels
+               equal the kernel's), in float32 at 4096 (both widths'
+               projection and recurrence apart; cuDNN with
+               torch.backends.cudnn.allow_tf32 False, checked; both
+               bounds, 3xTF32 on the TF32 tensor cores and float32 FMAs),
+               the twin at 4096, with the core's launch plan in each dtype
+               (rows and CTAs a cluster, clusters, and how many run at
+               once); ptxas's registers, shared memory and spills of both
+               float LSTM kernels
   4 transducer transducer_infer on 4096 int8 windows through the kernel
                against the twin path on the card (probabilities atol 2e-4
                float32, 1e-2 bfloat16), and windows/s
@@ -38,19 +41,21 @@ Phases, each printing one JSON line:
                ptxas's registers and spills of the library's entries
   6 kernel_recurrence
                lstm_recurrence against its twin, xw (33, B, 1024) in
-               bfloat16 (atol 2e-2) and float32 (atol 1e-5), B=4096, 37 and
-               512, both directions; times queued behind a device sleep
-               (unqueued beside them) of the kernel at B=4096, 37 and 512
-               in bfloat16 and at 4096 in float32, and of cuDNN's
-               torch.nn.LSTM with W_ih = I on xw, checked against the twin
-               in float32; the bfloat16 core's launch plan and ptxas's
-               registers and spills of the library's entries
+               bfloat16 (atol 2e-2) and float32 (atol 1e-5), phase 3's
+               batches, both directions; times queued behind a device
+               sleep (unqueued beside them) of the kernel at B=4096, 37 and
+               512 in bfloat16 and at 4096 in float32, and of cuDNN's
+               torch.nn.LSTM with W_ih = I on xw in both dtypes, checked
+               against the twin in float32; the core's launch plan in both
+               dtypes and ptxas's registers and spills of the library's
+               entries
   7 kernel_dual
                bilstm_dual_fused against its twin (two twins of phase 3's
                kernel) at phase 3's batches, and its largest difference
-               from two single launches; times at B=4096 in bfloat16 as
-               phase 3's (the decoder's projection and recurrence apart),
-               with cuDNN's bidirectional torch.nn.LSTM
+               from two single launches; times at B=4096 in bfloat16 and
+               float32 as phase 3's (projection and recurrence apart where
+               x is projected first), with cuDNN's bidirectional
+               torch.nn.LSTM
   8 transducer_quantized
                4096 int8 windows through the static, static_rec and
                dynamic int8 modes on the kernels against the twin path on
@@ -70,9 +75,11 @@ Phases, each printing one JSON line:
                --device_pileup on cuda in float32 must give the set of a
                cpu --device_pileup run and of the cuda host flow, in
                bfloat16 the cpu --device_pileup bfloat16 set up to the ALT
-               order (counted).  Every kernel's launch count is set to 0
-               before each cuda run and read after it; --device_pileup
-               runs the images flow, which launches no histogram.
+               order (counted); cuda float32 with PEPPER_LSTM_DUAL=1 must
+               give the cpu float32 set.  Every kernel's launch count is
+               set to 0 before each cuda run and read after it;
+               --device_pileup runs the images flow, which launches no
+               histogram.
  10 kernel_gru the three GRU kernels of polish against their twins at the
                consensus model's width (encoder F=10, decoder 2x128, H=128,
                T=100; encoder inputs 0..40), B=128, 4096 and 37, both
@@ -147,11 +154,13 @@ Phases, each printing one JSON line:
                launches) and lstm_recurrence against their twins in float32
                (atol 1e-5) and bfloat16 (2e-2); lstm_direction_fused_static
                in static and static_rec, bfloat16 and float32, codes within
-               1 and phase 5's equal shares (the encoder's 48 features run
-               the first, scalar body); per-launch times at B=4096 in
-               bfloat16 queued beside the bound, the twin and cuDNN's
-               torch.nn.LSTM, with the route (fused, or projection first)
-               and the launch plan; models/rnn.py's bilstm on the card
+               1 and phase 5's equal shares (every served combination on
+               lstm_core.cuh, the encoder's 48 features projected first);
+               per-launch times at B=4096 in bfloat16 queued beside the
+               bound, the twin and cuDNN's torch.nn.LSTM, with the route
+               (fused, or projection first) and the launch plan, the static
+               encoder's recurrence also alone; models/rnn.py's bilstm on
+               the card
                (bilstm_pallas, two lstm_recurrence launches) over each HP
                layer against the twin path at the same bars
  16 transducer_hp
@@ -257,10 +266,10 @@ Phases, each printing one JSON line:
                of the same forward (the loop stays queued), 4 launches a
                batch of the mode's kernel (rows 2, 1, 4); utils.profiling's
                trace() around one bfloat16 call_variant on phase 9's scene
-               (one worker, in a process of its own), whose trace parses and
-               holds as many events
-               of row 1's recurrence core (ptxas's entry names) as the
-               call's launches, with the call's StageTimer line in the JAX
+               (one worker, in a process of its own: PERF.md section 7),
+               whose trace parses and holds as many events of row 1's
+               recurrence core (ptxas's entry names) as the call's
+               launches, with the call's StageTimer line in the JAX
                package's format on stderr; bench_pipeline's main stages
                (1 Mb) and one-core window generation (1 Mb, ONT errors)
                with the host's CPU (lscpu); a reduced acceptance run
@@ -268,8 +277,9 @@ Phases, each printing one JSON line:
                uniform errors, 12 epochs) on cuda held to
                ACCEPTANCE_BARS per variant type
 
-Then the kernel summary line (rows 1-4 with their HP figures, row 1 with
-the training eval's launches, rows 5 and 7 with their hp_votes_scan
+Then the kernel summary line (rows 1-4 with their HP figures, rows 1, 3
+and 4 with their float32 figures, row 1 with the training eval's
+launches, rows 5 and 7 with their hp_votes_scan
 figures, rows 5 and 6 with phase 21's launches, rows 1, 2 and 4 with
 phase 22's), the nvidia-smi line and, last, the
 result line; the `done` line gives each phase's wall seconds.  `--phases
@@ -300,6 +310,7 @@ H = 256
 T = 33
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12       # H100 SXM dense TF32 tensor-core peak
 PEAK_INT8_OPS = 1979e12        # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3
 KERNEL_BARS = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -418,20 +429,35 @@ def launch_work(shape, B, itemsize, steps=T, features=26):
     return flops, nbytes
 
 
-def split_work(B):
-    """The bfloat16 decoder's two launches alone, (operations, bytes) each:
-    the projection reads x, W_ih and b and writes the float32 xw; the
+def split_work(B, features=2 * H, itemsize=2):
+    """The two launches alone of a layer projected first (the bfloat16
+    decoder; float32 at both widths), (operations, bytes) each: the
+    projection reads x, W_ih and b and writes the float32 xw; the
     recurrence reads xw and W_hh and writes h."""
-    F, G = 2 * H, 4 * H
-    projection = (2 * T * B * F * G, 2 * (T * B * F + F * G + G)
+    F, G = features, 4 * H
+    projection = (2 * T * B * F * G, itemsize * (T * B * F + F * G + G)
                   + 4 * T * B * G)
-    recurrence = (2 * T * B * H * G, 4 * T * B * G + 2 * H * G
-                  + 2 * T * B * H)
+    recurrence = (2 * T * B * H * G, 4 * T * B * G + itemsize * H * G
+                  + itemsize * T * B * H)
     return projection, recurrence
 
 
 def bound_ms(flops, nbytes, peak_flops):
     return max(flops / peak_flops, nbytes / PEAK_BYTES) * 1e3
+
+
+def float32_bounds(flops, nbytes):
+    """A float32 launch's two bounds: its operations at the float32 FMA
+    peak, and as three TF32 products each (3xTF32, the kernels' products)
+    on the TF32 tensor cores; each against its bytes, and which binds."""
+    tensor = bound_ms(3 * flops, nbytes, PEAK_TF32_FLOPS)
+    return {"bound_ms": tensor,
+            "bound_by": ("bytes" if nbytes / PEAK_BYTES
+                         > 3 * flops / PEAK_TF32_FLOPS else "operations"),
+            "bound_ms_f32_fma": bound_ms(flops, nbytes, PEAK_F32_FLOPS),
+            "bound_note": "bound_ms: 3xTF32 (3 products an operation) at "
+                          "495 TFLOP/s; bound_ms_f32_fma: float32 FMAs at "
+                          "67 TFLOP/s"}
 
 
 def device_ms(fn, iters=10):
@@ -442,9 +468,12 @@ def device_ms(fn, iters=10):
 
 def cudnn_ms(lstm, x, queued=False):
     """Time of one torch.nn.LSTM call (cuDNN), the library yardstick that
-    the port never uses."""
+    the port never uses; in float32 with TF32 off (main sets
+    torch.backends.cudnn.allow_tf32 = False: cuDNN's default is TF32)."""
     import torch
 
+    check(x.dtype != torch.float32 or not torch.backends.cudnn.allow_tf32,
+          "cuDNN float32 would be timed with TF32 products")
     with torch.no_grad():
         return cuda_ms(lambda: lstm(x), queued=queued)
 
@@ -476,29 +505,36 @@ LSTM_CHECKED_BATCHES = (B_SERVE, 37, 128, 512)
 LSTM_TIMED_BATCHES = (32, 128, 512, B_SERVE)
 
 
-def decoder_launches(device, name, xs, weights, biases, w_hhs, B):
-    """The bfloat16 decoder's two launches through the library's entries
+def decoder_launches(device, name, xs, weights, biases, w_hhs, B,
+                     dtype_name="bfloat16"):
+    """The two launches of a layer whose input is projected first (the
+    bfloat16 decoder; float32 at both widths) through the library's entries
     (<name>_projection, <name>_recurrence) for one direction (the forward
     one with `reverse`=0 after it) or, for bilstm_dual_fused, both:
     (project, recur, outs)."""
     import torch
     from pepper_tpu_torch.ops import cuda_build
 
+    code = {"float32": 0, "bfloat16": 1}[dtype_name]
     dual = name == "bilstm_dual_fused"
     xws = [torch.empty((T, B, 4 * H), device=device)
            for _ in range(2 if dual else 1)]
-    outs = [torch.empty((T, B, H), dtype=torch.bfloat16, device=device)
+    outs = [torch.empty((T, B, H), dtype=xs[0].dtype, device=device)
             for _ in xws]
-    ptrs = [t.data_ptr() for t in xs]
-    w_ptrs = [w.data_ptr() for parts in weights for w in parts]
+
+    def two(parts):
+        return [t.data_ptr() for t in parts] + [None] * (2 - len(parts))
+
+    features = [x.shape[2] for x in xs] + [0] * (2 - len(xs))
 
     def project():
-        cuda_build.launch(f"{name}_projection", device, 1, *ptrs, *w_ptrs,
-                          H, H, *(b.data_ptr() for b in biases),
+        cuda_build.launch(f"{name}_projection", device, code, *two(xs),
+                          *(p for parts in weights for p in two(parts)),
+                          *features, *(b.data_ptr() for b in biases),
                           *(xw.data_ptr() for xw in xws), T, B, H)
 
     def recur():
-        cuda_build.launch(f"{name}_recurrence", device, 1,
+        cuda_build.launch(f"{name}_recurrence", device, code,
                           *(xw.data_ptr() for xw in xws),
                           *(w.data_ptr() for w in w_hhs),
                           *(o.data_ptr() for o in outs), T, B, H,
@@ -507,16 +543,17 @@ def decoder_launches(device, name, xs, weights, biases, w_hhs, B):
     return project, recur, outs
 
 
-def core_plan(device, B, fused, dirs=1):
-    """The bfloat16 LSTM core's launch plan at width H, as its library
-    reports it: rows and CTAs a cluster, clusters a direction, and how many
-    clusters the card runs at once."""
+def core_plan(device, B, fused, dirs=1, dtype_name="bfloat16"):
+    """The LSTM core's launch plan at width H (the bfloat16 core, or the
+    float32 one), as its library reports it: rows and CTAs a cluster,
+    clusters a direction, and how many clusters the card runs at once."""
     import ctypes
 
     from pepper_tpu_torch.ops import cuda_build
 
     out = (ctypes.c_int * 4)()
-    cuda_build.launch("lstm_direction_fused_plan", device, B, H, dirs,
+    cuda_build.launch("lstm_direction_fused_plan", device,
+                      {"float32": 0, "bfloat16": 1}[dtype_name], B, H, dirs,
                       int(fused), ctypes.addressof(out))
     return dict(zip(("rows", "cluster_ctas", "clusters", "max_clusters"),
                     out))
@@ -554,15 +591,14 @@ def phase_kernel(device, card):
     timings = {}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32)):
-        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-        # bfloat16 at every timed batch, float32 (the scalar body) at the
-        # serving batch
+        # bfloat16 at every timed batch, float32 at the serving batch
         batches = LSTM_TIMED_BATCHES if dtype == torch.bfloat16 else (
             B_SERVE,)
         for B in batches:
             for shape in ("encoder", "decoder"):
                 xs, ws, b, w_hh = lstm_inputs(gen, shape, B, dtype, device)
-                flops, nbytes = launch_work(shape, B, xs[0].element_size())
+                itemsize = xs[0].element_size()
+                flops, nbytes = launch_work(shape, B, itemsize)
                 x_cat = torch.cat(xs, dim=-1)
                 lstm = cudnn_lstm([(ws, b, w_hh)], dtype, device)
                 with torch.no_grad():
@@ -573,38 +609,51 @@ def phase_kernel(device, card):
                     "kernel_ms": device_ms(lambda: kernel(xs, ws, b, w_hh)),
                     "cudnn_ms": cudnn_ms(lstm, x_cat, queued=True),
                     "cudnn_max_abs_diff": lib_diff,
-                    "bound_ms": bound_ms(flops, nbytes, peak),
+                    "bound_ms": bound_ms(flops, nbytes, PEAK_BF16_FLOPS),
                     "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                 }
+                if dtype == torch.float32:
+                    entry.update(float32_bounds(flops, nbytes),
+                                 cudnn_allow_tf32=(
+                                     torch.backends.cudnn.allow_tf32))
                 if B == B_SERVE:
                     entry["plain_ms"] = device_ms(
                         lambda: twin(xs, ws, b, w_hh), iters=3)
                     # back to back from Python, unqueued
                     entry["kernel_ms_unqueued"] = cuda_ms(
                         lambda: kernel(xs, ws, b, w_hh))
-                if dtype == torch.bfloat16 and shape == "decoder":
+                # float32 projects every width first, bfloat16 the decoder
+                projected = dtype == torch.float32 or shape == "decoder"
+                if projected:
                     project, recur, (split,) = decoder_launches(
                         device, "lstm_direction_fused", xs, [ws], [b],
-                        [w_hh], B)
+                        [w_hh], B, dtype_name)
                     project()
                     recur()
                     torch.cuda.synchronize()
                     check(torch.equal(split, out),
-                          f"decoder B={B}: projection + recurrence differ "
-                          "from the kernel")
-                    (p_ops, p_bytes), (r_ops, r_bytes) = split_work(B)
+                          f"{dtype_name} {shape} B={B}: projection + "
+                          "recurrence differ from the kernel")
+                    (p_ops, p_bytes), (r_ops, r_bytes) = split_work(
+                        B, x_cat.shape[2], itemsize)
+                    if dtype == torch.float32:
+                        p_bound = float32_bounds(p_ops, p_bytes)["bound_ms"]
+                        r_bound = float32_bounds(r_ops, r_bytes)["bound_ms"]
+                    else:
+                        p_bound = bound_ms(p_ops, p_bytes, PEAK_BF16_FLOPS)
+                        r_bound = bound_ms(r_ops, r_bytes, PEAK_BF16_FLOPS)
                     entry.update(
                         projection_ms=device_ms(project),
                         recurrence_ms=device_ms(recur),
-                        projection_bound_ms=bound_ms(p_ops, p_bytes, peak),
-                        recurrence_bound_ms=bound_ms(r_ops, r_bytes, peak))
-                elif dtype == torch.bfloat16:
+                        projection_bound_ms=p_bound,
+                        recurrence_bound_ms=r_bound)
+                else:
                     # the encoder's features join the step: one launch, the
                     # recurrence
                     entry.update(projection_ms=0.0,
                                  recurrence_ms=entry["kernel_ms"])
-                if dtype == torch.bfloat16:
-                    entry["plan"] = core_plan(device, B, shape == "encoder")
+                entry["plan"] = core_plan(device, B, not projected,
+                                          dtype_name=dtype_name)
                 timings[f"{shape}_{dtype_name}_B{B}"] = entry
     emit({"phase": "kernel", "kernel_names": ["lstm_direction_fused"],
           "card": card, "max_abs_err": max_err,
@@ -930,15 +979,17 @@ def static_split(device, xs, w, B, rec_int8, codes):
 # ---------------------------------------------------------------- phase 6
 
 
-def recurrence_plan(device, B):
-    """The bfloat16 core's launch plan as lstm_recurrence runs it: rows and
-    CTAs a cluster, clusters, and how many clusters run at once."""
+def recurrence_plan(device, B, dtype_name="bfloat16"):
+    """The core's launch plan as lstm_recurrence runs it (bfloat16 or
+    float32): rows and CTAs a cluster, clusters, and how many clusters run
+    at once."""
     import ctypes
 
     from pepper_tpu_torch.ops import cuda_build
 
     out = (ctypes.c_int * 4)()
-    cuda_build.launch("lstm_recurrence_plan", device, B, H,
+    cuda_build.launch("lstm_recurrence_plan", device,
+                      {"float32": 0, "bfloat16": 1}[dtype_name], B, H,
                       ctypes.addressof(out))
     return dict(zip(("rows", "cluster_ctas", "clusters", "max_clusters"),
                     out))
@@ -963,7 +1014,7 @@ def phase_kernel_recurrence(device, card):
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
         worst = 0.0
-        for B in (B_SERVE, 37, 512):
+        for B in LSTM_CHECKED_BATCHES:
             xw, w_hh = inputs(B, dtype)
             for reverse in (False, True):
                 out = kernel(xw, w_hh, reverse=reverse)
@@ -992,6 +1043,18 @@ def phase_kernel_recurrence(device, card):
     check(lib_diff <= KERNEL_BARS["float32"],
           f"identity-W_ih torch.nn.LSTM: {lib_diff}")
     f32_ms = device_ms(lambda: kernel(xw, w_hh))
+    nbytes = 4 * (xw.numel() + w_hh.numel() + T * B_SERVE * H)
+    flops = 2 * T * B_SERVE * H * 4 * H
+    float32 = {"kernel_ms": f32_ms,
+               "kernel_ms_reverse": device_ms(
+                   lambda: kernel(xw, w_hh, reverse=True)),
+               "kernel_ms_unqueued": cuda_ms(lambda: kernel(xw, w_hh)),
+               "plain_ms": cuda_ms(lambda: twin(xw, w_hh), iters=5),
+               "cudnn_ms": cudnn_ms(lstm, xw, queued=True),
+               "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+               **float32_bounds(flops, nbytes),
+               "mbytes": nbytes / 1e6, "gflop": flops / 1e9,
+               "plan": recurrence_plan(device, B_SERVE, "float32")}
     xw, w_hh = inputs(B_SERVE, torch.bfloat16)
     lstm = cudnn_lstm([((eye,), torch.zeros(4 * H, device=device), w_hh)],
                       torch.bfloat16, device)
@@ -1011,7 +1074,7 @@ def phase_kernel_recurrence(device, card):
               "bound_by": ("bytes" if nbytes / PEAK_BYTES
                            > flops / PEAK_BF16_FLOPS else "operations"),
               "mbytes": nbytes / 1e6, "gflop": flops / 1e9,
-              "kernel_ms_float32": f32_ms}
+              "kernel_ms_float32": f32_ms, "float32": float32}
     for B in (37, 512):
         small = inputs(B, torch.bfloat16)
         timing[f"kernel_ms_B{B}"] = device_ms(lambda: kernel(*small))
@@ -1019,11 +1082,11 @@ def phase_kernel_recurrence(device, card):
           "card": card, "max_abs_err": max_err, "B": B_SERVE,
           "plan": {f"B{B}": recurrence_plan(device, B)
                    for B in (37, 512, B_SERVE)},
-          # the library's own entries: the float32 body and the core's
+          # the library's own entries: the float32 core and the core's
           # bfloat16-xw instances (it also builds the fused ones it never
           # launches)
           "ptxas": [e for e in ptxas_entries("lstm_recurrence")
-                    if "lstm_recurrence_kernel" in e["entry"]
+                    if "f32_core_kernel" in e["entry"]
                     or "nv_bfloat16" in e["entry"]],
           "per_launch_bfloat16": timing})
     return max_err, timing
@@ -1072,40 +1135,49 @@ def phase_kernel_dual(device, card):
         max_err[dtype_name] = worst
 
     timings = {}
-    dtype = torch.bfloat16
-    for shape in ("encoder", "decoder"):
-        args = inputs(shape, B_SERVE, dtype)
-        xs, wf, wb, b_f, b_b, w_hh_f, w_hh_b = args
-        flops, nbytes = launch_work(shape, B_SERVE, 2)
-        x_cat = torch.cat(xs, dim=-1)
-        lstm = cudnn_lstm([(wf, b_f, w_hh_f), (wb, b_b, w_hh_b)], dtype,
-                          device)
-        entry = {
-            "kernel_ms": device_ms(lambda: kernel(*args)),
-            "two_single_launches_ms": device_ms(lambda: (
-                single(xs, wf, b_f, w_hh_f),
-                single(xs, wb, b_b, w_hh_b, reverse=True))),
-            "plain_ms": device_ms(lambda: twin(*args), iters=3),
-            "cudnn_bidirectional_ms": cudnn_ms(lstm, x_cat, queued=True),
-            "bound_ms": 2 * bound_ms(flops, nbytes, PEAK_BF16_FLOPS),
-        }
-        if shape == "decoder":
-            project, recur, split = decoder_launches(
-                device, "bilstm_dual_fused", xs, [wf, wb], [b_f, b_b],
-                [w_hh_f, w_hh_b], B_SERVE)
-            project()
-            recur()
-            whole = kernel(*args)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(split, whole)),
-                  "dual decoder: projection + recurrence differ from the "
-                  "kernel")
-            entry.update(projection_ms=device_ms(project),
-                         recurrence_ms=device_ms(recur))
-        else:
-            entry.update(projection_ms=0.0, recurrence_ms=entry["kernel_ms"])
-        entry["plan"] = core_plan(device, B_SERVE, shape == "encoder", 2)
-        timings[f"{shape}_bfloat16"] = entry
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        for shape in ("encoder", "decoder"):
+            args = inputs(shape, B_SERVE, dtype)
+            xs, wf, wb, b_f, b_b, w_hh_f, w_hh_b = args
+            flops, nbytes = launch_work(shape, B_SERVE,
+                                        xs[0].element_size())
+            x_cat = torch.cat(xs, dim=-1)
+            lstm = cudnn_lstm([(wf, b_f, w_hh_f), (wb, b_b, w_hh_b)], dtype,
+                              device)
+            entry = {
+                "kernel_ms": device_ms(lambda: kernel(*args)),
+                "two_single_launches_ms": device_ms(lambda: (
+                    single(xs, wf, b_f, w_hh_f),
+                    single(xs, wb, b_b, w_hh_b, reverse=True))),
+                "plain_ms": device_ms(lambda: twin(*args), iters=3),
+                "cudnn_bidirectional_ms": cudnn_ms(lstm, x_cat, queued=True),
+                "bound_ms": 2 * bound_ms(flops, nbytes, PEAK_BF16_FLOPS),
+            }
+            if dtype == torch.float32:
+                bounds = float32_bounds(2 * flops, 2 * nbytes)
+                entry.update(bounds, cudnn_allow_tf32=(
+                    torch.backends.cudnn.allow_tf32))
+            projected = dtype == torch.float32 or shape == "decoder"
+            if projected:
+                project, recur, split = decoder_launches(
+                    device, "bilstm_dual_fused", xs, [wf, wb], [b_f, b_b],
+                    [w_hh_f, w_hh_b], B_SERVE, dtype_name)
+                project()
+                recur()
+                whole = kernel(*args)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(split, whole)),
+                      f"dual {dtype_name} {shape}: projection + recurrence "
+                      "differ from the kernel")
+                entry.update(projection_ms=device_ms(project),
+                             recurrence_ms=device_ms(recur))
+            else:
+                entry.update(projection_ms=0.0,
+                             recurrence_ms=entry["kernel_ms"])
+            entry["plan"] = core_plan(device, B_SERVE, not projected, 2,
+                                      dtype_name)
+            timings[f"{shape}_{dtype_name}"] = entry
     emit({"phase": "kernel_dual", "kernel_names": ["bilstm_dual_fused"],
           "card": card, "max_abs_err": max_err,
           "max_abs_diff_from_single_launches": max_vs_single, "B": B_SERVE,
@@ -1353,6 +1425,8 @@ CALL_RUNS = (
      "lstm_direction_fused", 4, "cpu_float32"),
     ("cpu_float32", "cpu", "float32", (), False, None, 0, None),
     ("cuda_dual_bfloat16", "cuda", "bfloat16", (), True,
+     "bilstm_dual_fused", 2, "cpu_float32"),
+    ("cuda_dual_float32", "cuda", "float32", (), True,
      "bilstm_dual_fused", 2, "cpu_float32"),
     ("cuda_static_bfloat16", "cuda", "bfloat16", ("--quantized",), False,
      "lstm_direction_fused_static", 4, "cpu_static_bfloat16"),
@@ -2759,17 +2833,19 @@ def hp_bilstm_pallas(device):
     """models/rnn.py's bilstm on the card: bilstm_pallas, two
     lstm_recurrence launches, over each layer of the HP transducer at
     B=4096, against the twin path at the kernel bars; returns the largest
-    error by dtype."""
+    error and the launches (of the library call, before its twin path) by
+    dtype."""
     import torch
     from pepper_tpu_torch.models import rnn
     from pepper_tpu_torch.ops import lstm_kernel
 
     params = hp_params()
     gen = torch.Generator(device=device).manual_seed(2122)
-    errors = {}
+    errors, launches = {}, {}
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
         errors[dtype_name] = 0.0
+        launches[dtype_name] = 0
         for layer in ("encoder", "decoder"):
             tree = {k: v.to(device=device, dtype=dtype)
                     for k, v in params[layer].items()}
@@ -2784,12 +2860,92 @@ def hp_bilstm_pallas(device):
             out = rnn.bilstm(x, tree)
             n = lstm_kernel.lstm_recurrence.launches - before
             check(n == 2, f"HP bilstm {layer}: {n} lstm_recurrence launches")
+            launches[dtype_name] += n
             with twin_path():
                 ref = rnn.bilstm(x, tree)
             errors[dtype_name] = max(errors[dtype_name], within(
                 out, ref, KERNEL_BARS[dtype_name],
                 f"HP bilstm_pallas {dtype_name} {layer}"))
-    return errors
+    return errors, launches
+
+
+def _hp_static_encoder_kernels(device_name):
+    """The device kernels one HP static encoder launch runs (48 bf16
+    features, int8 codes out), static and static_rec, as torch.profiler
+    names them; run in a process of its own, whose first profiler session
+    this is (PERF.md section 7)."""
+    import torch
+    from torch.autograd import DeviceType
+    from pepper_tpu_torch.ops import lstm_kernel
+
+    device = torch.device(device_name)
+    gen = torch.Generator(device=device).manual_seed(2123)
+    names = {}
+    for mode in ("static", "static_rec"):
+        w = static_weights(gen, "encoder", torch.bfloat16,
+                           mode == "static_rec", device, features=HP_F)
+        x = torch.randint(-125, 126, (HP_T, 64, HP_F), generator=gen,
+                          device=device).to(torch.bfloat16)
+
+        def run():
+            lstm_kernel.lstm_direction_fused_static(
+                (x,), w["w_ih"], w["b"], w["w_hh"],
+                rec_scale=w["rec_scale"], out_int8=True)
+            torch.cuda.synchronize()
+
+        run()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+        names[mode] = sorted({e.name for e in prof.events()
+                              if e.device_type == DeviceType.CUDA})
+    return names
+
+
+def hp_static_encoder_route(device):
+    """Row 2's HP static encoder in a trace: the core's bf16 projection
+    with the codes kinds' sums (projection_kernel<.., true>) and the
+    core's codes body over its xw (core_kernel<.., false, Kind<float,
+    signed char, ..>>), and not the first body (lstm_static_kernel)."""
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        names = pool.submit(_hp_static_encoder_kernels, str(device)).result()
+    for mode, kernels in names.items():
+        check(any("projection_kernel<" in k and ", true>" in k
+                  for k in kernels)
+              and any("core_kernel<" in k and ", false, " in k
+                      and "signed char" in k for k in kernels)
+              and not any("lstm_static_kernel" in k for k in kernels),
+              f"HP {mode} encoder: kernels {kernels}")
+    return names
+
+
+def hp_static_encoder_split(device, x, w, rec_int8):
+    """The HP static encoder's recurrence alone on lstm_core.cuh (the
+    library's recurrence entry over a float32 xw = b + x @ W_ih), beside
+    the whole launch, which first projects x (48 bfloat16 features) into
+    such an xw: the projection's time is the difference."""
+    import torch
+    from pepper_tpu_torch.ops import cuda_build
+
+    xw = (w["b"] + x.float() @ w["w_ih"][0].float()).contiguous()
+    w_rec = cuda_build.int8_kmajor(w["w_hh"]) if rec_int8 else w["w_hh"]
+    out = torch.empty((HP_T, x.shape[1], H), dtype=torch.int8, device=device)
+
+    def recur():
+        cuda_build.launch("lstm_direction_fused_static_recurrence", device,
+                          2 if rec_int8 else 1, xw.data_ptr(),
+                          w_rec.data_ptr(),
+                          w["rec_scale"].data_ptr() if rec_int8 else None,
+                          out.data_ptr(), HP_T, x.shape[1], H, 0)
+
+    return {"recurrence_ms": device_ms(recur),
+            "recurrence_plan": static_plan(device, x.shape[1], False,
+                                           rec_int8)}
 
 
 def phase_kernel_hp(device, card):
@@ -2863,7 +3019,8 @@ def phase_kernel_hp(device, card):
                     within(out, rec_twin(xw, w_hh, reverse=reverse), bar,
                            f"HP row 4 {dtype_name} B={B} reverse={reverse}"))
         max_err[dtype_name] = worst
-    max_err["bilstm_pallas"] = hp_bilstm_pallas(device)
+    max_err["bilstm_pallas"], max_err["bilstm_pallas_launches"] = (
+        hp_bilstm_pallas(device))
 
     def run(fn, xs, w, reverse=False, **kw):
         return fn(xs, w["w_ih"], w["b"], w["w_hh"], acc_scale=w["acc_scale"],
@@ -2950,9 +3107,12 @@ def phase_kernel_hp(device, card):
         dec = static_weights(gen, "decoder", dtype, rec_int8, device)
         for layer, xs, w in (("encoder", (x,), enc),
                              ("decoder", streams, dec)):
+            features = sum(part.shape[2] for part in xs)
             on_core = lstm_kernel.static_on_core(
-                xs[0].dtype, w["w_hh"].dtype, True,
-                sum(part.shape[2] for part in xs))
+                xs[0].dtype, w["w_hh"].dtype, True, features)
+            check(on_core, f"HP {mode} {layer}: not on lstm_core.cuh")
+            joins = (layer == "encoder"
+                     and features <= lstm_kernel.FUSED_X_MAX)
             entry = {
                 "kernel_ms": device_ms(lambda: run(static, xs, w,
                                                    out_int8=True)),
@@ -2960,12 +3120,12 @@ def phase_kernel_hp(device, card):
                                                 out_int8=True), iters=3),
                 "bound_ms": static_bound_ms(layer, B_SERVE, dtype, rec_int8,
                                             HP_T, HP_F),
-                "body": ("lstm_core.cuh" if on_core else
-                         "the first (scalar) body, k-quad int8 weights: "
-                         f"{HP_F} features > FUSED_X_MAX")}
-            if on_core:
-                entry["plan"] = static_plan(device, B_SERVE,
-                                            layer == "encoder", rec_int8)
+                "body": "lstm_core.cuh, " + (
+                    "x joins each step" if joins else
+                    "projection first into a float32 xw"),
+                "plan": static_plan(device, B_SERVE, joins, rec_int8)}
+            if layer == "encoder" and not joins:
+                entry.update(hp_static_encoder_split(device, x, w, rec_int8))
             timings[f"row2_{mode}_{layer}"] = entry
     xw, w_hh = hp_xw(B_SERVE, dtype)
     eye = torch.eye(4 * H, device=device)
@@ -3000,7 +3160,11 @@ def phase_kernel_hp(device, card):
     emit({"phase": "kernel_hp", "card": card, "T": HP_T, "features": HP_F,
           "max_abs_err": max_err, "max_code_diff": max_code_diff,
           "equal_share": codes, "B": B_SERVE, "per_launch": timings,
-          "per_batch_bfloat16": per_batch})
+          "per_batch_bfloat16": per_batch,
+          "static_encoder_kernels": hp_static_encoder_route(device),
+          "static_ptxas": [e["entry"] for e in ptxas_entries(
+              "lstm_direction_fused_static")
+              if "projection_kernelILb1ELb1" in e["entry"]]})
     return max_err, max_code_diff, per_batch
 
 
@@ -4871,11 +5035,11 @@ def measure_bench(device, wrappers):
 
 def traced_call(workdir, device_name):
     """One bfloat16 call_variant on phase 9's scene (one worker thread)
-    inside trace(workdir/trace) and a StageTimer, in a process of its own
-    (in the process that had run phases 1-21, one whole run's trace held
-    1 of the call's 6 kernel events of row 1; earlier profiler sessions,
-    the bench and phase 8 in a fresh process do not cause it, and the
-    cause is not known: PERF.md): returns the call's kernel launches,
+    inside trace(workdir/trace) and a StageTimer, in a process of its own:
+    in the process that ran phases 1-21 the trace holds none of the
+    call's kernel events, because a torch.profiler session run minutes
+    after the first one in a process loses the kernel records, PyTorch's
+    own too (PERF.md section 7): returns the call's kernel launches,
     windows, the StageTimer's stderr text and seconds."""
     import torch
     from pepper_tpu_torch.cli import main as cli
@@ -5234,8 +5398,28 @@ def main(argv=()) -> int:
     lstm_status = ("redesigned: bfloat16 on the tensor cores (mma.sync), "
                    "W_hh split over a cluster of 4 CTAs in shared memory, "
                    "the decoder's input projection a tiled tensor-core "
-                   "product of its own; earlier design: PERF.md section 6, "
-                   "row {}")
+                   "product of its own; float32 on the core's float32 kind "
+                   "(3xTF32 on mma.sync m16n8k8, W_hh over a cluster of 8 "
+                   "CTAs, every width projected first); earlier designs: "
+                   "PERF.md section 6, row {}")
+
+    def float32_batch(per_layer, runs, launches_f32, library="cudnn_ms"):
+        """A row's float32 figures for one batch of B_SERVE windows, with
+        the kernels line's names: both bounds, cuDNN in float32 with TF32
+        off, the main path's float32 launches."""
+        keys = ("kernel_ms", "plain_ms", "bound_ms", "bound_ms_f32_fma",
+                library, "projection_ms", "recurrence_ms")
+        fig = batch(per_layer, [k for k in keys if k in per_layer[0]], runs)
+        return {"ms": fig["kernel_ms"], "plain_ms": fig["plain_ms"],
+                "bound_ms": fig["bound_ms"],
+                "bound_by": per_layer[0]["bound_by"],
+                "bound_ms_f32_fma": fig["bound_ms_f32_fma"],
+                "bound_note": per_layer[0]["bound_note"],
+                "library_ms": fig[library],
+                "library_allow_tf32": per_layer[0]["cudnn_allow_tf32"],
+                **{k: fig[k] for k in ("projection_ms", "recurrence_ms")
+                   if k in fig},
+                "launches": launches_f32}
     rows = [{
         "name": "lstm_direction_fused", "route": "cuda",
         "source": "pepper_tpu_torch/ops/csrc/lstm_direction_fused.cu",
@@ -5252,6 +5436,13 @@ def main(argv=()) -> int:
         "status": lstm_status.format(1),
         "work": f"one batch of {B_SERVE} windows, bfloat16: encoder and "
                 "decoder, forward and backward (4 launches)",
+        "float32": {**float32_batch(
+            [per_launch[f"encoder_float32_B{B_SERVE}"],
+             per_launch[f"decoder_float32_B{B_SERVE}"]], 2,
+            launches["cuda_float32"]["lstm_direction_fused"]),
+            "launches_train_eval": train_eval_launches,
+            "work": f"one batch of {B_SERVE} windows, float32 (phase 9's "
+                    "cuda_float32 run, the training evals): 4 launches"},
     }, {
         "name": "lstm_direction_fused_static", "route": "cuda",
         "source": "pepper_tpu_torch/ops/csrc/lstm_direction_fused_static.cu",
@@ -5275,8 +5466,10 @@ def main(argv=()) -> int:
         "status": "redesigned: the bfloat16 and int8 combinations with int8 "
                   "codes out on lstm_core.cuh (the decoder's int8 "
                   "projection and static_rec's int8 recurrence on the "
-                  "tensor cores, mma.sync m16n8k32), int8 weights relaid "
-                  "once per tree; float32 and the float epilogue keep the "
+                  "tensor cores, mma.sync m16n8k32; the HP encoder's 48 "
+                  "bfloat16 features projected first, PR 14), int8 "
+                  "weights relaid once per tree; float32 x or W_hh and the "
+                  "float epilogue, which no served mode runs, keep the "
                   "first body; earlier design: PERF.md section 6, row 2",
         "work": f"one batch of {B_SERVE} windows in the static mode, "
                 "bfloat16: encoder and decoder, forward and backward (4 "
@@ -5295,8 +5488,17 @@ def main(argv=()) -> int:
         "status": "redesigned: bfloat16 on lstm_core.cuh's tensor-core "
                   "body over the caller's bfloat16 xw (mma.sync, W_hh split "
                   "over a cluster of 4 CTAs), reverse in the kernel; "
-                  "float32 keeps the first body; earlier design: PERF.md "
-                  "section 6, row 4",
+                  "float32 on the core's float32 kind (3xTF32, a cluster "
+                  "of 8 CTAs); earlier designs: PERF.md section 6, row 4",
+        "float32": {**float32_batch(
+            [rec_launch["float32"]], 4,
+            hp_err["bilstm_pallas_launches"]["float32"]),
+            "library_note": "torch.nn.LSTM(1024, 256) with W_ih = I in "
+                            "float32, TF32 off (an upper bound)",
+            "work": f"four float32 recurrences over a (33, {B_SERVE}, "
+                    "1024) xw; launches: models/rnn.py's bilstm "
+                    "(bilstm_pallas) over the HP transducer in float32, "
+                    "phase 15"},
         "library_note": "torch.nn.LSTM(1024, 256) (cuDNN) with W_ih = I and "
                         "zero biases on xw: the same function plus an extra "
                         "(T*B, 1024) x (1024, 1024) input product, so an "
@@ -5319,6 +5521,13 @@ def main(argv=()) -> int:
         "status": lstm_status.format(3),
         "work": f"one batch of {B_SERVE} windows, bfloat16, "
                 "PEPPER_LSTM_DUAL=1: encoder and decoder (2 launches)",
+        "float32": {**float32_batch(
+            [dual_launch["encoder_float32"], dual_launch["decoder_float32"]],
+            1, launches["cuda_dual_float32"]["bilstm_dual_fused"],
+            library="cudnn_bidirectional_ms"),
+            "work": f"one batch of {B_SERVE} windows, float32, "
+                    "PEPPER_LSTM_DUAL=1 (phase 9's cuda_dual_float32 run): "
+                    "2 launches"},
     }, {
         "name": "gru_direction_fused", "route": "cuda",
         "source": "pepper_tpu_torch/ops/csrc/gru_direction_fused.cu",

@@ -1,15 +1,16 @@
-// Device code shared by the port's LSTM kernels for Hopper (sm_90a): dtype
-// conversions, the gate nonlinearity, the staged-row products and the
-// float32 body of one fused LSTM direction (bfloat16 runs lstm_core.cuh).
-// Included by lstm_core.cuh, lstm_direction_fused_static.cu and
-// lstm_recurrence.cu; each kernel builds into a library of its own.
+// Device code shared by the port's LSTM and GRU kernels for Hopper
+// (sm_90a): dtype conversions, the gate nonlinearity and the staged-row
+// products of the first static LSTM body (lstm_direction_fused_static.cu,
+// body (b)) and the GRU's (gru_cell.cuh).  The float LSTM kernels run
+// lstm_core.cuh in both dtypes.  Each kernel builds into a library of its
+// own.
 //
-// Layout every kernel shares: a block owns kRows batch rows for all T steps
-// and has H threads; thread j owns hidden unit j and accumulates the four
-// gate columns j, H+j, 2H+j, 3H+j of its rows in f32 registers, so the cell
-// update needs no exchange and c never leaves registers.  Shared memory
-// holds the step's staged inputs laid out [feature][row], so one 16-byte
-// broadcast read feeds four rows.
+// Layout of the staged-row bodies: a block owns kRows batch rows for all T
+// steps and has H threads; thread j owns hidden unit j and accumulates the
+// four gate columns j, H+j, 2H+j, 3H+j of its rows in f32 registers, so the
+// cell update needs no exchange and c never leaves registers.  Shared
+// memory holds the step's staged inputs laid out [feature][row], so one
+// 16-byte broadcast read feeds four rows.
 
 #pragma once
 
@@ -88,70 +89,6 @@ __device__ __forceinline__ void stage(float* __restrict__ s,
     const int row = b0 + r;
     s[k * kRows + r] =
         row < B ? to_f32(x[(base + row) * F_part + k]) : 0.0f;
-  }
-}
-
-// One fused LSTM direction for the block that owns rows [b0, b0+kRows):
-//
-//   gates = f32(b) + sum_i x_i[t] @ W_ih_i + bf(h) @ W_hh      (f32 sums)
-//   i, f, g, o = sigmoid, sigmoid, tanh, sigmoid of the four H-wide slices
-//   c = f * c + i * g ;  h = o * tanh(c)                        (f32 state)
-//   out[t] = h rounded to T
-//
-// where bf(h) is h rounded to T before the recurrent product and t runs
-// T-1..0 when `reverse`.  smem holds (F0 + F1 + H) * kRows floats.
-template <typename T>
-__device__ __forceinline__ void direction_body(
-    float* __restrict__ smem, const T* __restrict__ x0,
-    const T* __restrict__ x1, const T* __restrict__ w0,
-    const T* __restrict__ w1, int F0, int F1, const T* __restrict__ bias,
-    const T* __restrict__ w_hh, T* __restrict__ out, int steps, int B, int H,
-    int reverse, int b0) {
-  float* xs = smem;                          // [F0 + F1][kRows]
-  float* hs = smem + (F0 + F1) * kRows;      // [H][kRows]
-  const int j = threadIdx.x;
-
-  const float b_q[4] = {to_f32(bias[j]), to_f32(bias[H + j]),
-                        to_f32(bias[2 * H + j]), to_f32(bias[3 * H + j])};
-  float c[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    c[r] = 0.0f;
-    hs[j * kRows + r] = 0.0f;
-  }
-
-  for (int step = 0; step < steps; ++step) {
-    const int t = reverse ? steps - 1 - step : step;
-    stage(xs, x0, F0, t, B, b0);
-    if (F1 > 0) stage(xs + F0 * kRows, x1, F1, t, B, b0);
-    __syncthreads();  // x staged; last step's h visible
-
-    float acc[kRows][4];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r][q] = b_q[q];
-    }
-    accumulate(acc, xs, w0, F0, H, j);
-    if (F1 > 0) accumulate(acc, xs + F0 * kRows, w1, F1, H, j);
-    accumulate(acc, hs, w_hh, H, H, j);
-    __syncthreads();  // every thread is done reading xs and hs
-
-    const size_t base = static_cast<size_t>(t) * B;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float ig = sigmoid(acc[r][0]);
-      const float fg = sigmoid(acc[r][1]);
-      const float gg = tanhf(acc[r][2]);
-      const float og = sigmoid(acc[r][3]);
-      c[r] = fg * c[r] + ig * gg;
-      const float h = og * tanhf(c[r]);
-      const T h_out = from_f32<T>(h);
-      // the recurrent product reads h rounded to the weight dtype
-      hs[j * kRows + r] = to_f32(h_out);
-      const int row = b0 + r;
-      if (row < B) out[(base + row) * H + j] = h_out;
-    }
   }
 }
 

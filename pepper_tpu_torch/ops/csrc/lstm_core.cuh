@@ -1,6 +1,8 @@
-// The bfloat16 LSTM core that lstm_direction_fused.cu, bilstm_dual_fused.cu,
+// The LSTM core that lstm_direction_fused.cu, bilstm_dual_fused.cu,
 // lstm_recurrence.cu and lstm_direction_fused_static.cu share, for Hopper
-// (sm_90a).  Together with the
+// (sm_90a): the bfloat16 core below and, at the end of this file, its
+// float32 kind (3xTF32 products; the float kernels' float32 path).
+// Together with the
 // input projection below it replaces the bf16 path of the TPU kernels
 // pepper_tpu/ops/lstm_kernel.py::lstm_direction_fused (body
 // _make_fused_kernel) and ::bilstm_dual_fused (body _make_dual_kernel), and
@@ -121,6 +123,8 @@ using ptx::ldmatrix_x4;
 using ptx::ldmatrix_x4_trans;
 using ptx::mma_bf16;
 using ptx::mma_s8;
+using ptx::mma_tf32;
+using ptx::split_tf32;
 
 constexpr int kXMax = 32;          // input features that join the step's K
 constexpr int kPad = 8;            // bf16 elements past each shared row
@@ -914,7 +918,7 @@ constexpr int kPStages = 4;  // k-tiles in flight
 struct ProjDir {
   const bf16* w0;     // (F0, N)
   const bf16* w1;     // (F1, N) or null
-  const bf16* bias;   // (N,)
+  const void* bias;   // (N,): bf16, or float32 for the codes kinds
   float* xw;          // (M, N)
 };
 
@@ -974,7 +978,10 @@ struct ProjStage {
   unsigned short b[kPK][kPN + kPad];
 };
 
-template <bool kVec>
+// kCodes: the static kernels' projection (their codes kinds' sums): a
+// float32 bias, and each k16 step's product summed from zero and added
+// with a rounded add, as the core's fused x part of those kinds is.
+template <bool kVec, bool kCodes = false>
 __global__ void __launch_bounds__(kPThreads, 2)
     projection_kernel(const ProjArgs a) {
   extern __shared__ __align__(16) unsigned char proj_smem[];
@@ -1063,8 +1070,18 @@ __global__ void __launch_bounds__(kPThreads, 2)
                                [kk + (lane >> 4) * 8]);
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) {
-            mma_bf16(acc[mt][nt], af, bf[nt / 2][2 * (nt % 2)],
-                     bf[nt / 2][2 * (nt % 2) + 1]);
+            if constexpr (kCodes) {
+              float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              mma_bf16(part, af, bf[nt / 2][2 * (nt % 2)],
+                       bf[nt / 2][2 * (nt % 2) + 1]);
+#pragma unroll
+              for (int v = 0; v < 4; ++v) {
+                acc[mt][nt][v] = __fadd_rn(acc[mt][nt][v], part[v]);
+              }
+            } else {
+              mma_bf16(acc[mt][nt], af, bf[nt / 2][2 * (nt % 2)],
+                       bf[nt / 2][2 * (nt % 2) + 1]);
+            }
           }
         }
       }
@@ -1073,8 +1090,14 @@ __global__ void __launch_bounds__(kPThreads, 2)
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const int n = n0 + wn * 32 + nt * 8 + 2 * (lane % 4);
-      const float b_lo = __bfloat162float(d.bias[n]);
-      const float b_hi = __bfloat162float(d.bias[n + 1]);
+      float b_lo, b_hi;
+      if constexpr (kCodes) {
+        b_lo = static_cast<const float*>(d.bias)[n];
+        b_hi = static_cast<const float*>(d.bias)[n + 1];
+      } else {
+        b_lo = __bfloat162float(static_cast<const bf16*>(d.bias)[n]);
+        b_hi = __bfloat162float(static_cast<const bf16*>(d.bias)[n + 1]);
+      }
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
@@ -1094,13 +1117,13 @@ __global__ void __launch_bounds__(kPThreads, 2)
   }
 }
 
-template <bool kVec>
+template <bool kVec, bool kCodes>
 struct ProjTag {};
 
 // xw of dirs directions from one read of x: M = steps * B rows, N = 4H
 // columns a direction (a multiple of kPN since H % 32 == 0).
-inline cudaError_t launch_projection(ProjArgs a, int dirs,
-                                     cudaStream_t stream) {
+template <bool kCodes = false>
+cudaError_t launch_projection(ProjArgs a, int dirs, cudaStream_t stream) {
   auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
@@ -1117,10 +1140,11 @@ inline cudaError_t launch_projection(ProjArgs a, int dirs,
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  auto kernel = vec ? projection_kernel<true> : projection_kernel<false>;
-  err = vec ? ensure_smem_limit<ProjTag<true>>(
+  auto kernel = vec ? projection_kernel<true, kCodes>
+                    : projection_kernel<false, kCodes>;
+  err = vec ? ensure_smem_limit<ProjTag<true, kCodes>>(
                     reinterpret_cast<const void*>(kernel), device)
-            : ensure_smem_limit<ProjTag<false>>(
+            : ensure_smem_limit<ProjTag<false, kCodes>>(
                     reinterpret_cast<const void*>(kernel), device);
   if (err != cudaSuccess) return err;
   const int m_tiles = (a.M + kPM - 1) / kPM;
@@ -1207,8 +1231,7 @@ inline cudaError_t launch_projections(const void* x0, const void* x1,
   p.N = 4 * H;
   for (int i = 0; i < dirs; ++i) {
     p.dir[i] = {static_cast<const bf16*>(w0[i]),
-                static_cast<const bf16*>(w1[i]),
-                static_cast<const bf16*>(bias[i]), xw[i]};
+                static_cast<const bf16*>(w1[i]), bias[i], xw[i]};
   }
   return launch_projection(p, dirs, stream);
 }
@@ -1299,6 +1322,755 @@ inline cudaError_t static_plan(int B, int H, bool fused_x, bool int_rec,
   return int_rec ? plan_of<Kind<float, int8_t, true>>(B, H, 1, fused_x, out)
                  : plan_of<Kind<float, int8_t, false>>(B, H, 1, fused_x,
                                                        out);
+}
+
+// ---------------------------------------------------------------------------
+// The float32 core: the recurrence of the float kernels in float32 (rows 1,
+// 3 and 4), per step
+//
+//   gates = xw[t] + h @ W_hh      (f32 products and sums, f32 h)
+//
+// over the xw that the float32 projection below (or lstm_recurrence's
+// caller) wrote; the cell and out[t] = h as the bf16 core's, in float32,
+// with the library's expf and tanhf (the plain version's functions).
+//
+// Products.  3xTF32 on mma.sync m16n8k8: each float32 operand splits into
+// hi = tf32(v) and lo = v - hi when its fragment is loaded
+// (mma_ptx.cuh:split_tf32), and a k16 step sums a_lo b_hi + a_hi b_lo +
+// a_hi b_hi from zero on the tensor cores and adds that to the gates with
+// a rounded add.  Plain TF32 keeps 11 bits and fails the twin's 1e-5; the
+// split keeps about 21, and the rounded adds keep the tensor cores'
+// truncating running sum out of a sum over 16 k16 steps.  Each of the
+// three products is issued over all the warp's tiles before the next, so
+// that no mma waits on the one before it.
+//
+// Layout.  A float32 W_hh is 1 MB at H=256, so its split is wider than the
+// bf16 core's: every CTA holds kF32Units = 32 units, so a cluster has H/32
+// CTAs (8 at H=256, the portable maximum) and each holds its slice's 128
+// gate columns k-major, [4U][H] floats (128 KB at H=256), transposed from
+// W_hh's (H, 4H) once per launch.  k-major, so that a B fragment is an
+// ldmatrix matrix as it stands (ldmatrix moves 16-bit elements: its
+// transposing form cannot turn 32-bit ones).  The A tile holds f32 h,
+// [R][H + 4].  The A tile's pad, and the slice's swizzle of its 16-byte
+// chunks (f32_w_at), put the 8 rows of an ldmatrix matrix on 8 distinct
+// bank groups.
+// * 4 x kGroups warps: warp w runs the 8 units w % 4 of the CTA's four
+//   groups for the kMT m16 tiles of row group w / 4, so kGroups warps of
+//   each scheduler take turns between product and cell.
+// * R = 16 * kMT * kGroups rows a cluster is 32, 64 or 96 (pick_f32_rows,
+//   as pick_rows; 96 fills 226 KB of the 227): an H100 runs 15 clusters of
+//   8 at once, so B=4096 takes 3 waves of 96 rows where 64 would take 5.
+//   The plan is printed by lstm_direction_fused_plan and
+//   lstm_recurrence_plan with dtype 0.
+// * Each row's sums run in one order whatever the plan (k8 steps in order,
+//   the three products in order, one rounded add a k16 step), so a row's
+//   result does not depend on B or on the rows beside it.
+// * h is exchanged as the bf16 core's is: each CTA writes its 32 units of
+//   its R rows into its own A tile and pushes them into its peers' tiles
+//   (st.shared::cluster, 16 bytes a store), between split cluster
+//   barriers.
+//
+// Bound.  2*T*B*H*4H operations of the recurrence (70.9 GFLOP at B=4096,
+// T=33, H=256), three times that on the TF32 tensor cores: 0.43 ms at 495
+// TFLOP/s against 1.06 ms at the 67 TFLOP/s of float32 FMAs; xw in (553
+// MB, 0.17 ms) is below both.
+
+constexpr int kF32Units = 32;
+constexpr int kF32Pad = 4;         // floats past each shared row
+constexpr int kF32MaxCluster = kMaxHidden / kF32Units;
+
+inline int f32_cluster_size(int H) { return H / kF32Units; }
+
+// W_hh's slice [4U][H] (swizzled, no pad) and the A tile [R][H + 4]
+inline size_t f32_smem_bytes(int H, int rows) {
+  return (static_cast<size_t>(4 * kF32Units) * H +
+          static_cast<size_t>(rows) * (H + kF32Pad)) *
+         sizeof(float);
+}
+
+// Where W_hh's slice keeps element k of local column lc: the 16-byte chunk
+// k / 4 of the row moves to chunk (k / 4) ^ (lc % 8), so that the 8 rows
+// of an ldmatrix matrix (8 consecutive columns) fall on 8 distinct bank
+// groups without a pad (a pad of 4 floats a row would leave no room for a
+// 96-row A tile).
+__device__ __forceinline__ int f32_w_at(int lc, int k, int H) {
+  return lc * H + ((((k >> 2) ^ (lc & 7))) << 2) + (k & 3);
+}
+
+struct F32Direction {
+  const float* w_hh;  // (H, 4H)
+  const float* xw;    // (T, B, 4H)
+  float* out;         // (T, B, H)
+  int reverse;
+};
+
+struct F32Args {
+  int steps, B, H;
+  F32Direction dir[2];  // blockIdx.y picks one
+};
+
+template <int kGroups, int kMT>
+__global__ void __launch_bounds__(128 * kGroups, 1)
+    f32_core_kernel(const F32Args a) {
+  constexpr int R = 16 * kMT * kGroups;
+  constexpr int kThreads = 128 * kGroups;
+  constexpr int U = kF32Units;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const F32Direction d = blockIdx.y ? a.dir[1] : a.dir[0];
+  const int B = a.B, steps = a.steps, H = a.H;
+  const int G = 4 * H;
+  const int b0 = static_cast<int>(blockIdx.x) / n * R;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int quad = lane / 4, pair = 2 * (lane % 4);
+  const int group = warp % 4;
+  const int row0 = warp / 4 * 16 * kMT;  // the warp's first row
+  const int unit = rank * U + group * 8 + pair;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = H + kF32Pad;
+  float* ws = reinterpret_cast<float*>(smem_raw);  // [4U][H], k-major
+  float* hs = ws + 4 * U * H;                       // [R][ld]
+
+  // W_hh's slice, transposed: local column g'*32 + q*8 + j is gate q of
+  // unit rank*U + g'*8 + j.  Thread i reads 4 columns of row k = i % H (a
+  // warp writes 32 consecutive k of a column: no bank conflict).
+  for (int i = tid; i < H * (4 * U / 4); i += kThreads) {
+    const int k = i % H, lc = i / H * 4;
+    const float4 v = *reinterpret_cast<const float4*>(
+        d.w_hh + static_cast<size_t>(k) * G + (lc % 32) / 8 * H + rank * U +
+        lc / 32 * 8 + lc % 8);
+    ws[f32_w_at(lc + 0, k, H)] = v.x;
+    ws[f32_w_at(lc + 1, k, H)] = v.y;
+    ws[f32_w_at(lc + 2, k, H)] = v.z;
+    ws[f32_w_at(lc + 3, k, H)] = v.w;
+  }
+  for (int i = tid; i < R * ld / 4; i += kThreads) {
+    reinterpret_cast<float4*>(hs)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+
+  // acc[mt][q][2e+j]: gate q of unit `unit + j`, row row0 + mt*16 + quad +
+  // 8e of the cluster, from xw[t] (loaded into nxt a step ahead)
+  float nxt[kMT][4][4];
+  auto load_xw = [&](int t) {
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = b0 + row0 + mt * 16 + quad + 8 * e;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float2 v = make_float2(0.0f, 0.0f);
+          if (row < B) {
+            v = load_pair(d.xw + (static_cast<size_t>(t) * B + row) * G +
+                          q * H + unit);
+          }
+          nxt[mt][q][2 * e] = v.x;
+          nxt[mt][q][2 * e + 1] = v.y;
+        }
+      }
+    }
+  };
+  load_xw(d.reverse ? steps - 1 : 0);
+  __syncthreads();  // W_hh's slice and h0 in place
+
+  float c[kMT][4];
+  float2 hw[kMT][2];  // the thread's two units of h by row
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[mt][i] = 0.0f;
+  }
+
+  // ldmatrix addresses: A rows by lane (matrices: rows 0-7 and 8-15 of k
+  // 0-3, then of k 4-7); B columns by lane (gate q's b0 and b1, then gate
+  // q+1's, 16 columns further for gates 2 and 3), each lane's chunk of k8
+  // step kk being (kk / 4 + b_half) ^ (lane % 8) (f32_w_at)
+  const float* a_base = hs + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                        (lane >> 4) * 4;
+  const float* b_row = ws + (group * 32 + (lane >> 4) * 8 + (lane & 7)) * H;
+  const int b_half = (lane >> 3) & 1, b_swz = lane & 7;
+
+  for (int s = 0; s < steps; ++s) {
+    const int t = d.reverse ? steps - 1 - s : s;
+    const bool more = s + 1 < steps;
+    float acc[kMT][4][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[mt][q][v] = nxt[mt][q][v];
+      }
+    }
+    // a k16 step's products from zero into part, then one rounded add
+    for (int kk = 0; kk < H; kk += 16) {
+      float part[kMT][4][4] = {};
+#pragma unroll
+      for (int k8 = kk; k8 < kk + 16; k8 += 8) {
+        unsigned bw[2][4], b_hi[2][4], b_lo[2][4];
+        const float* b_at = b_row + ((((k8 >> 2) + b_half) ^ b_swz) << 2);
+        ldmatrix_x4(bw[0], b_at);
+        ldmatrix_x4(bw[1], b_at + 16 * H);
+        split_tf32(bw[0], b_hi[0], b_lo[0]);
+        split_tf32(bw[1], b_hi[1], b_lo[1]);
+        unsigned a_hi[kMT][4], a_lo[kMT][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          unsigned af[4];
+          ldmatrix_x4(af, a_base + mt * 16 * ld + k8);
+          split_tf32(af, a_hi[mt], a_lo[mt]);
+        }
+        // a_lo b_hi, then a_hi b_lo, then a_hi b_hi, each over every tile
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int p = q / 2, r = 2 * (q % 2);
+              const unsigned(&af)[4] = pass == 0 ? a_lo[mt] : a_hi[mt];
+              const unsigned(&bf)[4] = pass == 1 ? b_lo[p] : b_hi[p];
+              mma_tf32(part[mt][q], af, bf[r], bf[r + 1]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            acc[mt][q][v] = __fadd_rn(acc[mt][q][v], part[mt][q][v]);
+          }
+        }
+      }
+    }
+    cluster_arrive();  // done reading the A tile
+    if (more) load_xw(d.reverse ? t - 1 : t + 1);
+
+    const size_t base = static_cast<size_t>(t) * B;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float h[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int v = 2 * e + j;
+          const float ig = sigmoid(acc[mt][0][v]);
+          const float fg = sigmoid(acc[mt][1][v]);
+          const float gg = tanhf(acc[mt][2][v]);
+          const float og = sigmoid(acc[mt][3][v]);
+          float& cv = c[mt][v];
+          cv = fg * cv + ig * gg;
+          h[j] = og * tanhf(cv);
+        }
+        hw[mt][e] = make_float2(h[0], h[1]);
+        const int row = b0 + row0 + mt * 16 + quad + 8 * e;
+        if (row < B) {
+          *reinterpret_cast<float2*>(d.out + (base + row) * H + unit) =
+              hw[mt][e];
+        }
+      }
+    }
+    if (!more) break;
+    cluster_wait();  // every CTA of the cluster is done with its A tile
+
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        *reinterpret_cast<float2*>(
+            hs + (row0 + mt * 16 + quad + 8 * e) * ld + unit) = hw[mt][e];
+      }
+    }
+    __syncthreads();  // the slice is whole
+    // U floats a row, in 16-byte pieces
+    constexpr int kSliceChunks = U / 4;
+    for (int i = tid; i < R * kSliceChunks; i += kThreads) {
+      const int r = i / kSliceChunks;
+      const int off = r * ld + rank * U + (i - r * kSliceChunks) * 4;
+      const uint4 v = *reinterpret_cast<const uint4*>(hs + off);
+#pragma unroll
+      for (int p = 0; p < kF32MaxCluster; ++p) {
+        if (p < n && p != rank) st_cluster_v4(map_rank(hs + off, p), v);
+      }
+    }
+    cluster_arrive();
+    cluster_wait();  // every slice of h in place
+  }
+  cluster_wait();  // pairs the last step's arrive
+}
+
+template <int kGroups, int kMT>
+struct F32Tag {};
+
+template <int kGroups, int kMT>
+void fill_f32_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                     int H, int clusters, int dirs, cudaStream_t stream) {
+  const int n = f32_cluster_size(H);
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(clusters * n, dirs, 1);
+  cfg.blockDim = dim3(128 * kGroups, 1, 1);
+  cfg.dynamicSmemBytes = f32_smem_bytes(H, 16 * kMT * kGroups);
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = n;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+}
+
+// How many clusters of the float32 core run at once on `device` at width H
+// (asked once per device and H).
+template <int kGroups, int kMT>
+cudaError_t max_f32_clusters(int device, int H, int* count) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int>, int> memo;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(device, H);
+  const auto found = memo.find(key);
+  if (found != memo.end()) {
+    *count = found->second;
+    return cudaSuccess;
+  }
+  auto kernel = f32_core_kernel<kGroups, kMT>;
+  cudaError_t err = ensure_smem_limit<F32Tag<kGroups, kMT>>(
+      reinterpret_cast<const void*>(kernel), device);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  fill_f32_config<kGroups, kMT>(cfg, attr, H, 1, 1, nullptr);
+  err = cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  memo[key] = *count;
+  return cudaSuccess;
+}
+
+// The plans of the float32 core, (kGroups, kMT): 32 rows a cluster (two
+// row groups of one m16 tile), 64 (two of two) and 96 (three of two).
+#define LSTM_F32_32 2, 1
+#define LSTM_F32_64 2, 2
+#define LSTM_F32_96 3, 2
+
+// The rows a cluster of the float32 core for dirs directions of B rows:
+// the fewest of 32, 64 and 96 whose clusters all run in one wave, else 96.
+inline cudaError_t pick_f32_rows(int B, int H, int dirs, int device,
+                                 int* rows, int* count) {
+  cudaError_t err;
+#define LSTM_F32_TRY(ROWS, PLAN)                                            \
+  err = max_f32_clusters<PLAN>(device, H, count);                         \
+  if (err != cudaSuccess) return err;                                     \
+  *rows = ROWS;                                                           \
+  if (static_cast<long long>(dirs) * ((B + ROWS - 1) / ROWS) <= *count) {  \
+    return cudaSuccess;                                                   \
+  }
+  LSTM_F32_TRY(32, LSTM_F32_32)
+  LSTM_F32_TRY(64, LSTM_F32_64)
+#undef LSTM_F32_TRY
+  *rows = 96;
+  return max_f32_clusters<LSTM_F32_96>(device, H, count);
+}
+
+template <int kGroups, int kMT>
+cudaError_t launch_f32_rows(const F32Args& a, int dirs, int device,
+                            cudaStream_t stream) {
+  auto kernel = f32_core_kernel<kGroups, kMT>;
+  cudaError_t err = ensure_smem_limit<F32Tag<kGroups, kMT>>(
+      reinterpret_cast<const void*>(kernel), device);
+  if (err != cudaSuccess) return err;
+  constexpr int rows = 16 * kMT * kGroups;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  fill_f32_config<kGroups, kMT>(cfg, attr, a.H, (a.B + rows - 1) / rows,
+                                dirs, stream);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The float32 recurrence of dirs directions over their xw (which holds the
+// input projection and the bias); direction i runs reversed where
+// reverse[i].  xw must start on 8 bytes and W_hh on 16.
+inline cudaError_t launch_recurrence_f32(const float* const* xw,
+                                         const void* const* w_hh,
+                                         void* const* out, const int* reverse,
+                                         int dirs, int steps, int B, int H,
+                                         cudaStream_t stream) {
+  F32Args a{};
+  a.steps = steps;
+  a.B = B;
+  a.H = H;
+  for (int i = 0; i < dirs; ++i) {
+    if (reinterpret_cast<uintptr_t>(w_hh[i]) % 16 != 0 ||
+        xw[i] == nullptr || reinterpret_cast<uintptr_t>(xw[i]) % 8 != 0) {
+      return cudaErrorMisalignedAddress;
+    }
+    a.dir[i] = {static_cast<const float*>(w_hh[i]), xw[i],
+                static_cast<float*>(out[i]), reverse[i]};
+  }
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  int rows = 0, count = 0;
+  err = pick_f32_rows(B, H, dirs, device, &rows, &count);
+  if (err != cudaSuccess) return err;
+  switch (rows) {
+    case 32:
+      return launch_f32_rows<LSTM_F32_32>(a, dirs, device, stream);
+    case 64:
+      return launch_f32_rows<LSTM_F32_64>(a, dirs, device, stream);
+    default:
+      return launch_f32_rows<LSTM_F32_96>(a, dirs, device, stream);
+  }
+}
+
+#undef LSTM_F32_32
+#undef LSTM_F32_64
+#undef LSTM_F32_96
+
+// The float32 core's plan (as plan_of reports the bf16 core's).
+inline cudaError_t f32_plan(int B, int H, int dirs, int* out) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  int rows = 0, count = 0;
+  err = pick_f32_rows(B, H, dirs, device, &rows, &count);
+  if (err != cudaSuccess) return err;
+  out[0] = rows;
+  out[1] = f32_cluster_size(H);
+  out[2] = (B + rows - 1) / rows;
+  out[3] = count;
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// The float32 input projection (rows 1 and 3 in float32, every F): for each
+// direction xw[m][n] = sum_k [x_0 x_1][m][k] * [W_ih_0; W_ih_1][k][n] + b[n],
+// the bias added to the finished sum.  Two kernels, by F.
+// * More than kNarrowMax features (the decoder's 512): 3xTF32 on the tensor
+//   cores, with the bf16 projection's tiling: 128 x 128 tiles of one
+//   direction a block, 8 warps of 64 x 32, k-tiles of 16 floats in a ring
+//   of kPStages, cp.async where every row of x and W starts on 16 bytes.
+//   The A tile [128][16 + 4] loads by ldmatrix; the B tile [16][128 + 8]
+//   by 32-bit loads (b0 is row i, column g: the pad of 8 puts a warp's 32
+//   on 32 banks).  A k8 step's three products go into a sum from zero a
+//   column tile and join the tile's sum with a rounded add (a k16 step's
+//   sums of all 16 tiles would not fit in the registers of two blocks an
+//   SM).  Bound: 2*M*F*4H operations, three times that on the TF32 tensor
+//   cores (the decoder's 425 GFLOP-equivalent at B=4096: 0.86 ms at 495
+//   TFLOP/s), above x in and xw out.
+// * At most kNarrowMax (the encoders' 26 or, at HP, 48 window values,
+//   integers up to 127): float32 FMAs, k in order from zero
+//   (projection_narrow_kernel).  3xTF32 keeps ~21 bits of each product,
+//   and with such inputs the HP encoder's h strayed 1.2e-5 from the
+//   twin's; FMAs keep float32's 24.  Its products are 5-8% of the
+//   encoder's; its bound is the xw it writes (553 MB at B=4096: 0.165 ms).
+
+constexpr int kQK = 16;
+constexpr int kNarrowMax = 64;    // features the FMA projection takes
+constexpr int kNarrowRows = 32;   // rows a block of it
+constexpr int kNarrowCols = 128;  // columns a block, one a thread
+constexpr int kNarrowBlocks = 128;  // row tiles walked at once
+
+struct ProjF32Dir {
+  const float* w0;    // (F0, N)
+  const float* w1;    // (F1, N) or null
+  const float* bias;  // (N,)
+  float* xw;          // (M, N)
+};
+
+struct ProjF32Args {
+  const float* x0;    // (M, F0)
+  const float* x1;    // (M, F1) or null
+  int F0, F1, M, N;
+  ProjF32Dir dir[2];
+};
+
+struct ProjF32Stage {
+  float a[kPM][kQK + kF32Pad];
+  float b[kQK][kPN + 8];
+};
+
+// 4 consecutive floats of row m of [x0 x1] (or of W's row k) from k (from
+// n), element by element, zeros past the ends
+__device__ __forceinline__ float4 x_chunk_f32(const float* x0,
+                                              const float* x1, int F0,
+                                              int F1, int M, int m, int k) {
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kk = k + i;
+    v[i] = m >= M || kk >= F0 + F1 ? 0.0f
+           : kk < F0               ? x0[static_cast<size_t>(m) * F0 + kk]
+                     : x1[static_cast<size_t>(m) * F1 + kk - F0];
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ float4 w_chunk_f32(const float* w0,
+                                              const float* w1, int F0,
+                                              int F1, int N, int k, int n) {
+  if (k >= F0 + F1) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float* row = k < F0 ? w0 + static_cast<size_t>(k) * N
+                            : w1 + static_cast<size_t>(k - F0) * N;
+  return make_float4(row[n], row[n + 1], row[n + 2], row[n + 3]);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kPThreads, 2)
+    projection_f32_kernel(const ProjF32Args a) {
+  extern __shared__ __align__(16) unsigned char proj_smem[];
+  ProjF32Stage* stage = reinterpret_cast<ProjF32Stage*>(proj_smem);
+  const int tiles_n = a.N / kPN;
+  const int dir = static_cast<int>(blockIdx.x) / tiles_n;
+  const ProjF32Dir d = dir ? a.dir[1] : a.dir[0];
+  const float* x0 = a.x0;
+  const float* x1 = a.x1;
+  const int F0 = a.F0, F1 = a.F1, M = a.M, N = a.N;
+  const int n0 = (static_cast<int>(blockIdx.x) % tiles_n) * kPN;
+  const int K = F0 + F1;
+  const int k_tiles = (K + kQK - 1) / kQK;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int quad = lane / 4, col = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;  // a 64 x 32 warp tile
+
+  for (int m0 = static_cast<int>(blockIdx.y) * kPM; m0 < M;
+       m0 += static_cast<int>(gridDim.y) * kPM) {
+    auto load = [&](int st, int kt) {
+      const int k0 = kt * kQK;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = tid + i * kPThreads;
+        const int m = m0 + c / 4, k = k0 + (c % 4) * 4;  // A: 128 x 4 chunks
+        float* a_dst = &stage[st].a[c / 4][(c % 4) * 4];
+        const int kb = k0 + c / 32, n = n0 + (c % 32) * 4;  // B: 16 x 32
+        float* b_dst = &stage[st].b[c / 32][(c % 32) * 4];
+        if constexpr (kVec) {
+          const bool a_ok = m < M && k < K;
+          const float* a_src =
+              !a_ok ? x0
+              : k < F0 ? x0 + static_cast<size_t>(m) * F0 + k
+                       : x1 + static_cast<size_t>(m) * F1 + k - F0;
+          cp_async16_zfill(a_dst, a_src, a_ok);
+          const bool b_ok = kb < K;
+          const float* b_src =
+              !b_ok ? d.w0
+              : kb < F0 ? d.w0 + static_cast<size_t>(kb) * N + n
+                        : d.w1 + static_cast<size_t>(kb - F0) * N + n;
+          cp_async16_zfill(b_dst, b_src, b_ok);
+        } else {
+          *reinterpret_cast<float4*>(a_dst) =
+              x_chunk_f32(x0, x1, F0, F1, M, m, k);
+          *reinterpret_cast<float4*>(b_dst) =
+              w_chunk_f32(d.w0, d.w1, F0, F1, N, kb, n);
+        }
+      }
+    };
+    float acc[4][4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int st = 0; st < kPStages - 1; ++st) {
+      if (st < k_tiles) load(st, st);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      cp_async_wait<kPStages - 2>();
+      __syncthreads();  // k-tile kt is in place; stage (kt-1) % S is free
+      if (kt + kPStages - 1 < k_tiles) {
+        load((kt + kPStages - 1) % kPStages, kt + kPStages - 1);
+      }
+      cp_async_commit();
+      const ProjF32Stage& sm = stage[kt % kPStages];
+#pragma unroll
+      for (int kk = 0; kk < kQK; kk += 8) {
+        unsigned b_hi[4][2], b_lo[4][2];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int n = wn * 32 + nt * 8 + quad;
+          const unsigned bw[2] = {__float_as_uint(sm.b[kk + col][n]),
+                                  __float_as_uint(sm.b[kk + col + 4][n])};
+          split_tf32(bw, b_hi[nt], b_lo[nt]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          unsigned af[4], a_hi[4], a_lo[4];
+          ldmatrix_x4(af, &sm.a[wm * 64 + mt * 16 + (lane & 7) +
+                                ((lane >> 3) & 1) * 8][kk + (lane >> 4) * 4]);
+          split_tf32(af, a_hi, a_lo);
+          // a_lo b_hi, then a_hi b_lo, then a_hi b_hi, each over the four
+          // column tiles
+          float part[4][4] = {};
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              const unsigned(&ap)[4] = pass == 0 ? a_lo : a_hi;
+              const unsigned(&bp)[2] = pass == 1 ? b_lo[nt] : b_hi[nt];
+              mma_tf32(part[nt], ap, bp[0], bp[1]);
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              acc[mt][nt][v] = __fadd_rn(acc[mt][nt][v], part[nt][v]);
+            }
+          }
+        }
+      }
+    }
+    // the bias goes onto the finished sum
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = n0 + wn * 32 + nt * 8 + 2 * col;
+      const float b_lo = d.bias[n], b_hi = d.bias[n + 1];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + wm * 64 + mt * 16 + quad + 8 * e;
+          if (m < M) {
+            *reinterpret_cast<float2*>(d.xw + static_cast<size_t>(m) * N +
+                                       n) =
+                make_float2(__fadd_rn(acc[mt][nt][2 * e], b_lo),
+                            __fadd_rn(acc[mt][nt][2 * e + 1], b_hi));
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every stage is read before the next rows' loads
+  }
+}
+
+// The narrow float32 projection: a block owns kNarrowCols columns of one
+// direction (a thread each, its column of W in registers, kF of them: the
+// features rounded up to 32 or 64) and steps over rows kNarrowRows at a
+// time, staged in shared memory and read as broadcasts; xw[m][n] = (sum_k
+// x[m][k] * W[k][n], FMAs from zero, k in order) + b[n].  A block walks
+// many row tiles (kNarrowBlocks of them cover the rows), so W is read
+// once a block.
+template <int kF>
+__global__ void __launch_bounds__(kNarrowCols)
+    projection_narrow_kernel(const ProjF32Args a) {
+  __shared__ __align__(16) float xs[kNarrowRows][kF];
+  const int tiles_n = a.N / kNarrowCols;
+  const int dir = static_cast<int>(blockIdx.x) / tiles_n;
+  const ProjF32Dir d = dir ? a.dir[1] : a.dir[0];
+  const int F0 = a.F0, F1 = a.F1, F = F0 + F1, M = a.M, N = a.N;
+  const int n = (static_cast<int>(blockIdx.x) % tiles_n) * kNarrowCols +
+                static_cast<int>(threadIdx.x);
+  float w[kF];
+#pragma unroll
+  for (int k = 0; k < kF; ++k) {
+    w[k] = k >= F   ? 0.0f
+           : k < F0 ? d.w0[static_cast<size_t>(k) * N + n]
+                    : d.w1[static_cast<size_t>(k - F0) * N + n];
+  }
+  const float bias = d.bias[n];
+  for (int m0 = static_cast<int>(blockIdx.y) * kNarrowRows; m0 < M;
+       m0 += static_cast<int>(gridDim.y) * kNarrowRows) {
+    __syncthreads();  // the last rows are read
+    for (int i = threadIdx.x; i < kNarrowRows * kF; i += kNarrowCols) {
+      const int r = i / kF, k = i % kF, m = m0 + r;
+      xs[r][k] = m >= M || k >= F ? 0.0f
+                 : k < F0         ? a.x0[static_cast<size_t>(m) * F0 + k]
+                          : a.x1[static_cast<size_t>(m) * F1 + k - F0];
+    }
+    __syncthreads();
+    const int rows = M - m0 < kNarrowRows ? M - m0 : kNarrowRows;
+    for (int r = 0; r < rows; ++r) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kF; ++k) acc = __fmaf_rn(xs[r][k], w[k], acc);
+      d.xw[static_cast<size_t>(m0 + r) * N + n] = __fadd_rn(acc, bias);
+    }
+  }
+}
+
+template <bool kVec>
+struct ProjF32Tag {};
+
+// The float32 xw_i = [x0 x1] @ [w0_i; w1_i] + bias_i for dirs directions,
+// from one read of x.
+inline cudaError_t launch_projections_f32(
+    const void* x0, const void* x1, int F0, int F1, const void* const* w0,
+    const void* const* w1, const void* const* bias, float* const* xw,
+    int dirs, int steps, int B, int H, cudaStream_t stream) {
+  ProjF32Args p{};
+  p.x0 = static_cast<const float*>(x0);
+  p.x1 = static_cast<const float*>(x1);
+  p.F0 = F0;
+  p.F1 = F1;
+  p.M = steps * B;
+  p.N = 4 * H;
+  auto aligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  bool vec = F0 % 4 == 0 && F1 % 4 == 0 && aligned(x0) && aligned(x1);
+  for (int i = 0; i < dirs; ++i) {
+    if (xw[i] == nullptr || reinterpret_cast<uintptr_t>(xw[i]) % 8 != 0) {
+      return cudaErrorInvalidValue;
+    }
+    vec = vec && aligned(w0[i]) && aligned(w1[i]);
+    p.dir[i] = {static_cast<const float*>(w0[i]),
+                static_cast<const float*>(w1[i]),
+                static_cast<const float*>(bias[i]), xw[i]};
+  }
+  if (F0 + F1 <= kNarrowMax) {
+    const int m_tiles = (p.M + kNarrowRows - 1) / kNarrowRows;
+    const dim3 grid(dirs * (p.N / kNarrowCols),
+                    m_tiles < kNarrowBlocks ? m_tiles : kNarrowBlocks);
+    if (F0 + F1 <= 32) {
+      projection_narrow_kernel<32><<<grid, kNarrowCols, 0, stream>>>(p);
+    } else {
+      projection_narrow_kernel<kNarrowMax>
+          <<<grid, kNarrowCols, 0, stream>>>(p);
+    }
+    return cudaGetLastError();
+  }
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  auto kernel = vec ? projection_f32_kernel<true> : projection_f32_kernel<false>;
+  err = vec ? ensure_smem_limit<ProjF32Tag<true>>(
+                  reinterpret_cast<const void*>(kernel), device)
+            : ensure_smem_limit<ProjF32Tag<false>>(
+                  reinterpret_cast<const void*>(kernel), device);
+  if (err != cudaSuccess) return err;
+  const int m_tiles = (p.M + kPM - 1) / kPM;
+  const dim3 grid(dirs * (p.N / kPN), m_tiles < 65535 ? m_tiles : 65535);
+  kernel<<<grid, kPThreads, kPStages * sizeof(ProjF32Stage), stream>>>(p);
+  return cudaGetLastError();
+}
+
+// dirs float32 LSTM directions over the feature parts x0, x1: every F is
+// projected into each direction's float32 xw first, then the float32 core
+// runs over it.
+inline cudaError_t launch_directions_f32(
+    const void* x0, const void* x1, int F0, int F1, const void* const* w0,
+    const void* const* w1, const void* const* bias, const void* const* w_hh,
+    float* const* xw, void* const* out, const int* reverse, int dirs,
+    int steps, int B, int H, cudaStream_t stream) {
+  cudaError_t err = launch_projections_f32(x0, x1, F0, F1, w0, w1, bias, xw,
+                                           dirs, steps, B, H, stream);
+  if (err != cudaSuccess) return err;
+  const float* xws[2] = {xw[0], dirs > 1 ? xw[1] : nullptr};
+  return launch_recurrence_f32(xws, w_hh, out, reverse, dirs, steps, B, H,
+                               stream);
 }
 
 }  // namespace

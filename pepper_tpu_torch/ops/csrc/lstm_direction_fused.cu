@@ -24,63 +24,24 @@
 // apart, and the core's launch plan (lstm_direction_fused_plan_launch,
 // which launches nothing).
 //
-// float32: lstm::direction_body (lstm_cell.cuh), scalar f32 FMAs with the
-// weights read from L2 every step, a block of kRows rows and H threads, the
-// input product inside the step.  It holds the twin to 1e-5, which TF32
-// products do not.  Bound, both dtypes: 2*T*B*(F+H)*4H operations against
-// x in and h out, so operations.
+// float32: lstm_core.cuh's float32 core.  Every F is first projected by
+// its float32 projection into the float32 scratch xw (3xTF32 products on
+// the tensor cores), and the recurrence runs over xw with W_hh split over
+// a cluster of H/32 CTAs, its products 3xTF32 too; the twin's 1e-5 holds,
+// which plain TF32 products do not.  The exports above take dtype 0 as
+// well.  Bound, both dtypes: 2*T*B*(F+H)*4H operations against x in and h
+// out, so operations.
 //
 // Binding: a plain C launcher (no PyTorch headers) loaded with ctypes; it
 // launches on the caller's stream and returns cudaGetLastError().
 
 #include "lstm_core.cuh"
 
-namespace {
-
-using lstm::kMaxHidden;
-using lstm::kRows;
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxHidden)
-    lstm_direction_fused_kernel(const T* __restrict__ x0,
-                                const T* __restrict__ x1,
-                                const T* __restrict__ w0,
-                                const T* __restrict__ w1, int F0, int F1,
-                                const T* __restrict__ bias,
-                                const T* __restrict__ w_hh,
-                                T* __restrict__ out, int steps, int B, int H,
-                                int reverse) {
-  extern __shared__ __align__(16) float smem[];
-  lstm::direction_body(smem, x0, x1, w0, w1, F0, F1, bias, w_hh, out, steps,
-                       B, H, reverse, static_cast<int>(blockIdx.x) * kRows);
-}
-
-struct F32Tag {};
-
-cudaError_t launch_f32(const float* x0, const float* x1, const float* w0,
-                       const float* w1, int F0, int F1, const float* bias,
-                       const float* w_hh, float* out, int steps, int B, int H,
-                       int reverse, cudaStream_t stream) {
-  auto kernel = lstm_direction_fused_kernel<float>;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  err = lstm::ensure_smem_limit<F32Tag>(reinterpret_cast<const void*>(kernel),
-                                        device);
-  if (err != cudaSuccess) return err;
-  const size_t smem = static_cast<size_t>(F0 + F1 + H) * kRows * sizeof(float);
-  kernel<<<(B + kRows - 1) / kRows, H, smem, stream>>>(
-      x0, x1, w0, w1, F0, F1, bias, w_hh, out, steps, B, H, reverse);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  x1/w1 may be null with F1 == 0.  xw: a
-// float32 scratch of steps * B * 4H values where the bfloat16 input
-// projection leaves the step (F0 + F1 > 32), else null; the bfloat16
+// float32 scratch of steps * B * 4H values where the input projection
+// leaves the step (float32, or bfloat16 with F0 + F1 > 32), else null; the
 // weights 16-byte aligned.  Returns a cudaError_t value (0 on success).
 int lstm_direction_fused_launch(int dtype, const void* x0, const void* x1,
                                 const void* w0, const void* w1, int F0,
@@ -92,11 +53,9 @@ int lstm_direction_fused_launch(int dtype, const void* x0, const void* x1,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return static_cast<int>(launch_f32(
-        static_cast<const float*>(x0), static_cast<const float*>(x1),
-        static_cast<const float*>(w0), static_cast<const float*>(w1), F0, F1,
-        static_cast<const float*>(bias), static_cast<const float*>(w_hh),
-        static_cast<float*>(out), steps, B, H, reverse, s));
+    return static_cast<int>(lstm::launch_directions_f32(
+        x0, x1, F0, F1, &w0, &w1, &bias, &w_hh, &xw, &out, &reverse, 1, steps,
+        B, H, s));
   }
   if (dtype == 1) {
     return static_cast<int>(lstm::launch_directions(
@@ -106,47 +65,58 @@ int lstm_direction_fused_launch(int dtype, const void* x0, const void* x1,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The bfloat16 input projection alone (the first of the decoder's two
-// launches), with the same arguments: xw = [x0 x1] @ [w0; w1] + bias in
-// float32 for all steps * B rows.
+// The input projection alone (the first of the two launches where x does
+// not join the step), with the same arguments: xw = [x0 x1] @ [w0; w1] +
+// bias in float32 for all steps * B rows.
 int lstm_direction_fused_projection_launch(int dtype, const void* x0,
                                            const void* x1, const void* w0,
                                            const void* w1, int F0, int F1,
                                            const void* bias, float* xw,
                                            int steps, int B, int H,
                                            void* stream) {
-  if (dtype != 1 || !lstm::valid_shape(F0, F1, steps, B, H)) {
+  if ((dtype != 0 && dtype != 1) || !lstm::valid_shape(F0, F1, steps, B, H)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      lstm::launch_projections(x0, x1, F0, F1, &w0, &w1, &bias, &xw, 1, steps,
-                               B, H, static_cast<cudaStream_t>(stream)));
+      dtype == 0 ? lstm::launch_projections_f32(x0, x1, F0, F1, &w0, &w1,
+                                                &bias, &xw, 1, steps, B, H, s)
+                 : lstm::launch_projections(x0, x1, F0, F1, &w0, &w1, &bias,
+                                            &xw, 1, steps, B, H, s));
 }
 
-// The bfloat16 recurrence alone (the decoder's second launch) over a
-// float32 xw (steps, B, 4H) that holds the input projection and the bias.
+// The recurrence alone (the second launch) over a float32 xw (steps, B,
+// 4H) that holds the input projection and the bias.
 int lstm_direction_fused_recurrence_launch(int dtype, const float* xw,
                                            const void* w_hh, void* out,
                                            int steps, int B, int H,
                                            int reverse, void* stream) {
-  if (dtype != 1 || !lstm::valid_steps(steps, B, H)) {
+  if ((dtype != 0 && dtype != 1) || !lstm::valid_steps(steps, B, H)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(lstm::launch_recurrence(
-      &xw, &w_hh, &out, &reverse, 1, steps, B, H,
-      static_cast<cudaStream_t>(stream)));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dtype == 0 ? lstm::launch_recurrence_f32(&xw, &w_hh, &out, &reverse, 1,
+                                               steps, B, H, s)
+                 : lstm::launch_recurrence(&xw, &w_hh, &out, &reverse, 1,
+                                           steps, B, H, s));
 }
 
-// The bfloat16 core's launch plan for dirs (1 or 2) directions of B rows at
-// width H, fused (1: x joins the step's product) or over xw: out[0] rows a
-// cluster, out[1] CTAs a cluster, out[2] clusters a direction, out[3]
-// clusters that run at once.  Launches nothing.
-int lstm_direction_fused_plan_launch(int B, int H, int dirs, int fused,
-                                     int* out, void* /*stream*/) {
-  if (!lstm::valid_steps(1, B, H) || dirs < 1 || dirs > 2) {
+// The core's launch plan for dtype (0 = float32, 1 = bfloat16) and dirs (1
+// or 2) directions of B rows at width H, fused (1: x joins the step's
+// product, bfloat16 only) or over xw: out[0] rows a cluster, out[1] CTAs a
+// cluster, out[2] clusters a direction, out[3] clusters that run at once.
+// Launches nothing.
+int lstm_direction_fused_plan_launch(int dtype, int B, int H, int dirs,
+                                     int fused, int* out,
+                                     void* /*stream*/) {
+  if (!lstm::valid_steps(1, B, H) || dirs < 1 || dirs > 2 ||
+      (dtype != 1 && (dtype != 0 || fused))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(lstm::core_plan(B, H, dirs, fused != 0, out));
+  return static_cast<int>(dtype == 0
+                              ? lstm::f32_plan(B, H, dirs, out)
+                              : lstm::core_plan(B, H, dirs, fused != 0, out));
 }
 
 const char* lstm_direction_fused_error_string(int err) {

@@ -37,16 +37,19 @@
 // projected for all T*B rows by int8_projection.cuh (mma.sync m16n8k32 s8
 // on the tensor cores) into a float32 xw scratch the caller allocates,
 // xw = b + f32(acc) * acc_scale (f32, as the TPU kernel's gates: bf16
-// would change the math), and the core's hoisted body runs over it.  An
-// int8 W_hh (static_rec) is held k-major in the cluster's shared memory
-// and multiplied by the codes of h on the s8 tensor cores
-// (lstm_core.cuh).  int8 weights arrive k-major ((N, K), relaid once per
-// weight tree: ops/cuda_build.py:int8_kmajor), W_ih as one (4H, F0 + F1)
-// matrix for both parts.
-// (b) The first body, for the rest: float32 x or a float32 W_hh, a float
-// epilogue (out_int8=False), or bf16 x of more than kXMax features (the
-// HP classifier's 48-feature encoder in the static modes; the rest no
-// served mode runs in bfloat16).  The layout of lstm_cell.cuh:
+// would change the math), and the core's hoisted body runs over it.  bf16
+// x of more than kXMax features (the HP classifier's 48-feature encoder)
+// is projected the same way by the core's bf16 projection, xw = b + x @
+// W_ih with the codes kinds' sums (each k16 step's product from zero,
+// joined by rounded adds; the float32 bias added last, as the plain
+// version adds it).  An int8 W_hh (static_rec) is held k-major in the
+// cluster's shared memory and multiplied by the codes of h on the s8
+// tensor cores (lstm_core.cuh).  int8 weights arrive k-major ((N, K),
+// relaid once per weight tree: ops/cuda_build.py:int8_kmajor), W_ih as one
+// (4H, F0 + F1) matrix for both parts.
+// (b) The first body, for the rest: float32 x or a float32 W_hh, or a
+// float epilogue (out_int8=False), which no served mode runs.  The layout
+// of lstm_cell.cuh:
 // a block owns kRows batch rows for all T steps, thread j owns hidden unit
 // j and its four gate columns, c stays in registers; while a float part
 // is summed from zero, the gates' first sum waits in shared memory, so the
@@ -385,9 +388,8 @@ bool valid_args(int x_dtype, int whh_dtype, int out_kind, int F0, int F1,
 // Whether a combination runs on lstm_core.cuh (body (a)); the wrapper
 // (ops/lstm_kernel.py:static_on_core) applies the same rule to pick the
 // weights' layout.
-bool on_core(int x_dtype, int whh_dtype, int out_kind, int F) {
-  return out_kind == kOutInt8 && x_dtype != kF32 && whh_dtype != kF32 &&
-         (x_dtype == kInt8 || F <= lstm::kXMax);
+bool on_core(int x_dtype, int whh_dtype, int out_kind) {
+  return out_kind == kOutInt8 && x_dtype != kF32 && whh_dtype != kF32;
 }
 
 // xw = b + f32([x0 x1] @ W) * acc_scale for all steps * B rows; w_t is W
@@ -402,6 +404,25 @@ cudaError_t project(const void* x0, const void* x1, int F0, int F1,
       4 * H, stream);
 }
 
+// xw = b + [x0 x1] @ [w0; w1] in float32 for all steps * B rows with the
+// codes kinds' sums and a float32 bias: the static kernels' bf16 x of more
+// than kXMax features (the HP classifier's 48), which the core then runs
+// over as over the int8 projection's xw.
+cudaError_t project_bf16(const bf16* x0, const bf16* x1, int F0, int F1,
+                         const bf16* w0, const bf16* w1, const float* bias,
+                         float* xw, int steps, int B, int H,
+                         cudaStream_t stream) {
+  lstm::ProjArgs p{};
+  p.x0 = x0;
+  p.x1 = x1;
+  p.F0 = F0;
+  p.F1 = F1;
+  p.M = steps * B;
+  p.N = 4 * H;
+  p.dir[0] = {w0, w1, bias, xw};
+  return lstm::launch_projection<true>(p, 1, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -411,10 +432,10 @@ extern "C" {
 // x, rec_scale for an int8 W_hh; bias is float32.  x1/w1 may be null with
 // F1 == 0.  On the core (on_core: int8 codes out, bf16 or int8 x and
 // W_hh): an int8 W_ih is w0, k-major (4H, F0 + F1), w1 unused; an int8 W_hh
-// is k-major (4H, H); int8 x is projected into xw, a float32 scratch of
-// steps * B * 4H values.  Otherwise int8 weights are in k-quad words (w0,
-// w1 a part each) and xw is unused.  Returns a cudaError_t value (0 on
-// success).
+// is k-major (4H, H); int8 x, and bf16 x of more than 32 features, are
+// projected into xw, a float32 scratch of steps * B * 4H values.
+// Otherwise int8 weights are in k-quad words (w0, w1 a part each) and xw
+// is unused.  Returns a cudaError_t value (0 on success).
 int lstm_direction_fused_static_launch(
     int x_dtype, int whh_dtype, int out_kind, const void* x0, const void* x1,
     const void* w0, const void* w1, int F0, int F1, const float* acc_scale,
@@ -426,11 +447,18 @@ int lstm_direction_fused_static_launch(
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool int_rec = whh_dtype == kInt8;
-  if (on_core(x_dtype, whh_dtype, out_kind, F0 + F1)) {
+  if (on_core(x_dtype, whh_dtype, out_kind)) {
     int8_t* codes = static_cast<int8_t*>(out);
-    if (x_dtype == kInt8) {
-      const cudaError_t err = project(x0, x1, F0, F1, w0, acc_scale, bias, xw,
-                                      steps, B, H, s);
+    if (x_dtype == kInt8 || F0 + F1 > lstm::kXMax) {
+      const cudaError_t err =
+          x_dtype == kInt8
+              ? project(x0, x1, F0, F1, w0, acc_scale, bias, xw, steps, B, H,
+                        s)
+              : project_bf16(static_cast<const bf16*>(x0),
+                             static_cast<const bf16*>(x1), F0, F1,
+                             static_cast<const bf16*>(w0),
+                             static_cast<const bf16*>(w1), bias, xw, steps, B,
+                             H, s);
       if (err != cudaSuccess) return static_cast<int>(err);
       return static_cast<int>(lstm::launch_static(
           nullptr, nullptr, 0, 0, nullptr, nullptr, nullptr, xw, w_hh,

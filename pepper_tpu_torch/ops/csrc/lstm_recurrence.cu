@@ -29,11 +29,11 @@
 //   one bfloat162 for a thread's two adjacent units and widened to f32, so
 //   a step streams half the bytes of the fused decoder's f32 xw.  The core
 //   takes every H this launcher takes (a multiple of 32 up to 256).
-// * float32 keeps the first design, the layout of lstm_cell.cuh: a block
-//   owns kRows batch rows for all T steps, thread j owns hidden unit j and
-//   its four gate columns, h is staged in shared memory, c stays in
-//   registers, and the recurrent product is scalar f32 FMAs over W_hh
-//   streamed from L2 (tensor-core float32, 3xTF32, is later work).
+// * float32 runs lstm_core.cuh's float32 core over the caller's float32 xw:
+//   3xTF32 products on the tensor cores, W_hh split over a cluster of H/32
+//   CTAs (8 at H=256, 128 KB of float32 W_hh each), f32 h exchanged
+//   through distributed shared memory.  Its bound is 70.9 GFLOP, three
+//   times that on the TF32 tensor cores, against xw's 553 MB in float32.
 //
 // Binding: a plain C launcher (no PyTorch headers) loaded with ctypes; it
 // launches on the caller's stream and returns the first CUDA error.  The
@@ -41,81 +41,11 @@
 
 #include "lstm_core.cuh"
 
-namespace {
-
-using lstm::kMaxHidden;
-using lstm::kRows;
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxHidden)
-    lstm_recurrence_kernel(const T* __restrict__ xw,
-                           const T* __restrict__ w_hh, T* __restrict__ out,
-                           int steps, int B, int H, int reverse) {
-  extern __shared__ __align__(16) float hs[];  // [H][kRows]
-  const int j = threadIdx.x;
-  const int b0 = static_cast<int>(blockIdx.x) * kRows;
-  const int G = 4 * H;
-
-  float c[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    c[r] = 0.0f;
-    hs[j * kRows + r] = 0.0f;
-  }
-
-  for (int s = 0; s < steps; ++s) {
-    const int t = reverse ? steps - 1 - s : s;
-    const size_t base = static_cast<size_t>(t) * B;
-    float acc[kRows][4];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = b0 + r;
-      const T* xr = xw + (base + (row < B ? row : 0)) * G + j;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        acc[r][q] = row < B ? lstm::to_f32(xr[q * H]) : 0.0f;
-      }
-    }
-    __syncthreads();  // last step's h visible
-    lstm::accumulate(acc, hs, w_hh, H, H, j);
-    __syncthreads();  // every thread is done reading hs
-
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float ig = lstm::sigmoid(acc[r][0]);
-      const float fg = lstm::sigmoid(acc[r][1]);
-      const float gg = tanhf(acc[r][2]);
-      const float og = lstm::sigmoid(acc[r][3]);
-      c[r] = fg * c[r] + ig * gg;
-      const float h = og * tanhf(c[r]);
-      const T h_out = lstm::from_f32<T>(h);
-      hs[j * kRows + r] = lstm::to_f32(h_out);
-      const int row = b0 + r;
-      if (row < B) out[(base + row) * H + j] = h_out;
-    }
-  }
-}
-
-int launch_f32(const float* xw, const float* w_hh, float* out, int steps,
-               int B, int H, int reverse, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(H) * kRows * sizeof(float);
-  auto kernel = lstm_recurrence_kernel<float>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kRows - 1) / kRows);
-  kernel<<<grid, H, smem, stream>>>(xw, w_hh, out, steps, B, H, reverse);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; reverse: run t = T-1..0.  In bfloat16
-// xw must start on 4 bytes and W_hh on 16.  Returns a cudaError_t value (0
-// on success).
+// dtype: 0 = float32, 1 = bfloat16; reverse: run t = T-1..0.  xw must
+// start on two of its elements and W_hh on 16 bytes.  Returns a
+// cudaError_t value (0 on success).
 int lstm_recurrence_launch(int dtype, const void* xw, const void* w_hh,
                            void* out, int steps, int B, int H, int reverse,
                            void* stream) {
@@ -124,9 +54,9 @@ int lstm_recurrence_launch(int dtype, const void* xw, const void* w_hh,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_f32(static_cast<const float*>(xw),
-                      static_cast<const float*>(w_hh),
-                      static_cast<float*>(out), steps, B, H, reverse, s);
+    const float* xwf = static_cast<const float*>(xw);
+    return static_cast<int>(lstm::launch_recurrence_f32(
+        &xwf, &w_hh, &out, &reverse, 1, steps, B, H, s));
   }
   if (dtype == 1) {
     const lstm::bf16* xws = static_cast<const lstm::bf16*>(xw);
@@ -136,15 +66,18 @@ int lstm_recurrence_launch(int dtype, const void* xw, const void* w_hh,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The bfloat16 core's launch plan for B rows at width H, as
-// lstm_direction_fused_plan_launch reports it (out[4]: rows and CTAs a
-// cluster, clusters, clusters that run at once); launches nothing.
-int lstm_recurrence_plan_launch(int B, int H, int* out, void* /*stream*/) {
-  if (!lstm::valid_steps(1, B, H)) {
+// The core's launch plan for dtype (0 = float32, 1 = bfloat16) and B rows
+// at width H, as lstm_direction_fused_plan_launch reports it (out[4]: rows
+// and CTAs a cluster, clusters, clusters that run at once); launches
+// nothing.
+int lstm_recurrence_plan_launch(int dtype, int B, int H, int* out,
+                                void* /*stream*/) {
+  if (!lstm::valid_steps(1, B, H) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(
-      lstm::core_plan<lstm::bf16>(B, H, 1, false, out));
+      dtype == 0 ? lstm::f32_plan(B, H, 1, out)
+                 : lstm::core_plan<lstm::bf16>(B, H, 1, false, out));
 }
 
 const char* lstm_recurrence_error_string(int err) {

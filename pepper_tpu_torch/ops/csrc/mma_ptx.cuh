@@ -1,6 +1,7 @@
 // The PTX wrappers the port's tensor-core kernels share, for Hopper
 // (sm_90a): cp.async copies into shared memory, ldmatrix fragment loads and
-// the two mma.sync shapes, bf16 m16n8k16 and s8 m16n8k32.  Included by
+// the three mma.sync shapes, bf16 m16n8k16, s8 m16n8k32 and tf32 m16n8k8
+// (with the 3xTF32 split that gives float32 products).  Included by
 // lstm_core.cuh and int8_projection.cuh.
 //
 // Fragments (PTX ISA, "Matrix fragments for mma.m16n8k16 / m16n8k32"), lane
@@ -90,6 +91,41 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x8, row) @ b (8x8, col), tf32 in, f32 sums.  Fragments: a0 row
+// g k i, a1 row g + 8 k i, a2 row g k i + 4, a3 row g + 8 k i + 4; b0 k i
+// column g, b1 k i + 4; d as above.  An 8 x 4 block of floats is one
+// ldmatrix matrix (8 rows of 16 bytes): lane 4g + i takes element i of row
+// g, so A rows of k and B columns stored k-major load as they stand.
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 3xTF32 split of a float32 fragment: v = hi + lo, hi = v rounded to
+// tf32 (11 significant bits, ties away from zero, by integer ops) and lo =
+// v - hi, exact in float32.  lo goes to the tensor cores as it stands,
+// which read its top 11 bits: v's error is below 2^-21 of v.  A product
+// in float32 accuracy is then a_lo b_hi + a_hi b_lo + a_hi b_hi (a_lo b_lo,
+// below 2^-21 of it, is left out), three mma_tf32 into one sum; callers
+// issue each of the three over all their independent tiles before the
+// next, so that no mma waits on the one just issued.
+template <int N>
+__device__ __forceinline__ void split_tf32(const unsigned (&v)[N],
+                                           unsigned (&hi)[N],
+                                           unsigned (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    hi[i] = (v[i] + 0x1000u) & 0xFFFFE000u;
+    lo[i] = __float_as_uint(
+        __fsub_rn(__uint_as_float(v[i]), __uint_as_float(hi[i])));
+  }
 }
 
 }  // namespace

@@ -65,19 +65,20 @@ KERNELS = {
 # further launchers a kernel's library exports, <entry>_launch: entry ->
 # (the kernel, argument types)
 ENTRIES = {
-    # the two bfloat16 LSTM kernels' input projection and recurrence alone
+    # the two float LSTM kernels' input projection and recurrence alone
+    # (dtype first: 0 float32, 1 bfloat16)
     "lstm_direction_fused_projection": (
         "lstm_direction_fused", [_I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
                                  _I, _P]),
     "lstm_direction_fused_recurrence": (
         "lstm_direction_fused", [_I, _P, _P, _P, _I, _I, _I, _I, _P]),
-    # the bfloat16 core's launch plan (B, H, dirs, fused, int out[4]);
+    # the core's launch plan (dtype, B, H, dirs, fused, int out[4]);
     # launches nothing
     "lstm_direction_fused_plan": (
-        "lstm_direction_fused", [_I, _I, _I, _I, _P, _P]),
-    # the bfloat16 core's plan as lstm_recurrence runs it (B, H, int
-    # out[4]); launches nothing
-    "lstm_recurrence_plan": ("lstm_recurrence", [_I, _I, _P, _P]),
+        "lstm_direction_fused", [_I, _I, _I, _I, _I, _P, _P]),
+    # the core's plan as lstm_recurrence runs it (dtype, B, H, int out[4]);
+    # launches nothing
+    "lstm_recurrence_plan": ("lstm_recurrence", [_I, _I, _I, _P, _P]),
     "bilstm_dual_fused_projection": (
         "bilstm_dual_fused", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
                               _P, _I, _I, _I, _P]),

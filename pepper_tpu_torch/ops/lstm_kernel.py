@@ -24,19 +24,22 @@ The float kernels compute, per step, gates = f32(b) + sum_i x_i[t] @ W_ih_i
 + bf(h) @ W_hh with f32 accumulation and f32 h/c state, where bf(h) is h
 rounded to the weight dtype; h is emitted in the input dtype.  The bias is
 upcast from whatever dtype the caller holds it in (transducer_infer casts
-every param to the compute dtype first, as the JAX package does).  In
-bfloat16 the two float kernels run on the tensor cores; inputs wider than
-FUSED_X_MAX features are first projected into a float32 xw scratch that
-the wrapper allocates (csrc/lstm_core.cuh).  The
-static kernel's int8 products are exact int32 sums with one float32
-rescale, and its int8 codes are round(h*127), round-half-to-even.  Its
-combinations with int8 codes out, bfloat16 or int8 x and a bfloat16 or
-int8 W_hh (static_on_core: the static and static_rec modes in bfloat16)
-run on the same core, on the tensor cores for the int8 products too; the
-rest keep the first, scalar body.  The two bodies read int8 weights in two
-layouts (cuda_build.INT8_LAYOUTS): the served path relays each weight once
-per weight tree (models/quantize.py:prepare_static, cuda_build.keep_relaid),
-and a launch handed a weight that has no kept copy relays it then.
+every param to the compute dtype first, as the JAX package does).  All
+three float kernels run on the tensor cores (csrc/lstm_core.cuh): bfloat16
+products directly, float32 ones as three TF32 products each (3xTF32,
+within the twin's 1e-5).  bfloat16 inputs wider than FUSED_X_MAX
+features, and float32 inputs of any width, are first projected into a
+float32 xw scratch that the wrapper allocates.  The static kernel's int8
+products are exact int32 sums with one float32 rescale, and its int8 codes
+are round(h*127), round-half-to-even.  Its combinations with int8 codes
+out, bfloat16 or int8 x and a bfloat16 or int8 W_hh (static_on_core: the
+static and static_rec modes in bfloat16, at any width) run on the same
+core, on the tensor cores for the int8 products too; the rest (float32 x
+or W_hh, a float epilogue: no served mode) keep the first, scalar body.
+The two bodies read int8 weights in two layouts (cuda_build.INT8_LAYOUTS):
+the served path relays each weight once per weight tree
+(models/quantize.py:prepare_static, cuda_build.keep_relaid), and a launch
+handed a weight that has no kept copy relays it then.
 """
 
 from __future__ import annotations
@@ -54,8 +57,8 @@ from .int8_matmul import int8_matmul
 KERNELS = ("lstm_direction_fused", "bilstm_dual_fused",
            "lstm_direction_fused_static", "lstm_recurrence")
 # kXMax in csrc/lstm_core.cuh: bfloat16 feature parts of at most this many
-# features in all join the step's product; wider ones are projected first,
-# into a float32 xw scratch
+# features in all join the step's product; wider ones (and float32 ones of
+# any width) are projected first, into a float32 xw scratch
 FUSED_X_MAX = 32
 
 
@@ -135,12 +138,13 @@ def _check_kernel_args(x_parts, w_ih_parts, b, w_hh):
 
 
 def _projection_scratch(x_parts, H):
-    """The float32 xw (T, B, 4H) that the bfloat16 kernels project wide
-    inputs into, or None where the features join the step's product (and
-    in float32, whose kernel projects inside the step)."""
+    """The float32 xw (T, B, 4H) that the float kernels project their
+    input into first: every float32 input, and bfloat16 inputs of more
+    than FUSED_X_MAX features; None where the features join the step's
+    product."""
     x0 = x_parts[0]
-    if (x0.dtype != torch.bfloat16
-            or sum(x.shape[2] for x in x_parts) <= FUSED_X_MAX):
+    if (x0.dtype == torch.bfloat16
+            and sum(x.shape[2] for x in x_parts) <= FUSED_X_MAX):
         return None
     return torch.empty((*x0.shape[:2], 4 * H), dtype=torch.float32,
                        device=x0.device)
@@ -332,12 +336,13 @@ def _check_static_args(x_parts, w_ih_parts, b, w_hh, acc_scale, rec_scale):
 def static_on_core(x_dtype, whh_dtype, out_int8, features) -> bool:
     """Whether lstm_direction_fused_static runs a combination on the
     tensor-core core (csrc/lstm_core.cuh): int8 codes out, bfloat16 or int8
-    x (bfloat16 of at most FUSED_X_MAX features) and a bfloat16 or int8
-    W_hh.  csrc/lstm_direction_fused_static.cu:on_core applies the same
-    rule."""
+    x and a bfloat16 or int8 W_hh, whatever the number of features (int8
+    x, and bfloat16 x of more than FUSED_X_MAX, are projected first: see
+    _static_scratch).  csrc/lstm_direction_fused_static.cu:on_core applies
+    the same rule."""
+    del features  # every width runs on the core
     return (bool(out_int8) and x_dtype != torch.float32
-            and whh_dtype != torch.float32
-            and (x_dtype == torch.int8 or features <= FUSED_X_MAX))
+            and whh_dtype != torch.float32)
 
 
 def static_layout(x_dtype, whh_dtype, out_int8, features) -> str:
@@ -345,6 +350,19 @@ def static_layout(x_dtype, whh_dtype, out_int8, features) -> str:
     a combination reads: k-major on the core, k-quads on the first body."""
     return ("kmajor" if static_on_core(x_dtype, whh_dtype, out_int8,
                                        features) else "quads")
+
+
+def _static_scratch(x_parts, layout, H):
+    """The float32 xw (T, B, 4H) that the static kernel's core projects x
+    into first (int8 x, and bfloat16 x of more than FUSED_X_MAX features),
+    or None (the features join the step, or the first body runs)."""
+    x0 = x_parts[0]
+    if layout != "kmajor" or (
+            x0.dtype != torch.int8
+            and sum(x.shape[2] for x in x_parts) <= FUSED_X_MAX):
+        return None
+    return torch.empty((*x0.shape[:2], 4 * H), dtype=torch.float32,
+                       device=x0.device)
 
 
 def lstm_direction_fused_static(x_parts, w_ih_parts, b, w_hh, acc_scale=None,
@@ -395,9 +413,7 @@ def lstm_direction_fused_static(x_parts, w_ih_parts, b, w_hh, acc_scale=None,
         return None if t is None else t.reshape(-1).float().contiguous()
 
     acc, rec, bias = f32(acc_scale), f32(rec_scale), f32(b)
-    # the core projects int8 x into a float32 xw first
-    xw = (torch.empty((T, B, 4 * H), dtype=torch.float32, device=x0.device)
-          if layout == "kmajor" and x_int8 else None)
+    xw = _static_scratch(x_parts, layout, H)
     launch("lstm_direction_fused_static", x0.device, DTYPE_CODE[x0.dtype],
            DTYPE_CODE[w_hh.dtype], DTYPE_CODE[out_kind], ptr(x0),
            ptr(x_parts[1] if two else None), ptr(w_parts[0]),
@@ -450,8 +466,8 @@ def lstm_recurrence(xw, w_hh, reverse=False):
     float32 or bfloat16; w_hh: (H, 4H) in xw's dtype; reverse=True runs
     the backward direction by stepping t = T-1..0 (what flipping xw,
     running forward and flipping the output computes).  Returns (T, B, H)
-    in natural order, in xw's dtype.  In bfloat16 it runs on the tensor
-    cores (csrc/lstm_core.cuh); float32 keeps the scalar body."""
+    in natural order, in xw's dtype.  It runs on the tensor cores
+    (csrc/lstm_core.cuh): bfloat16 products, or 3xTF32 in float32."""
     if xw.device.type == "cpu":
         return lstm_recurrence_reference(xw, w_hh, reverse=reverse)
     require_cuda(xw, "lstm_recurrence")

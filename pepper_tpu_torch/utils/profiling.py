@@ -61,11 +61,10 @@ class StageTimer:
 
 # the __global__ functions of ops/csrc: each kernel wrapper's launch runs
 # at least one of them
-PORT_KERNELS = ("bilstm_dual_fused_kernel", "core_kernel",
-                "core_smem_kernel", "core_stream_kernel",
-                "lstm_direction_fused_kernel", "lstm_recurrence_kernel",
-                "lstm_static_kernel", "pileup_histogram_kernel",
-                "projection_kernel")
+PORT_KERNELS = ("core_kernel", "core_smem_kernel", "core_stream_kernel",
+                "f32_core_kernel", "lstm_static_kernel",
+                "pileup_histogram_kernel", "projection_f32_kernel",
+                "projection_kernel", "projection_narrow_kernel")
 
 
 def port_kernel_events(names) -> int:
@@ -84,8 +83,11 @@ def trace(log_dir: str | None):
 
     With CUDA activity it warns (RuntimeWarning) when the trace holds
     fewer of the port's kernel events than the kernel wrappers launched
-    inside the block: a whole run of chip_smoke.py once saw a trace keep
-    1 of 6 such events, and the cause is not known (PERF.md)."""
+    inside the block.  On the card machine a torch.profiler session run a
+    minute or more after the process's first one loses kernel records,
+    PyTorch's own too (all of them after two idle minutes; PERF.md
+    section 7): trace in a fresh process, or soon after the first
+    session."""
     if not log_dir:
         yield
         return

@@ -87,8 +87,9 @@ def test_kernel_matches_twin(device, dtype, parts, B):
 @pytest.mark.parametrize("layer", ["encoder", "decoder"])
 @pytest.mark.parametrize("hidden", [32, 96, 128, 256])
 def test_kernel_widths_match_twin(device, dtype, layer, hidden):
-    """The cluster sizes: one CTA at H=32, two at 96 and 128, four at
-    256."""
+    """The cluster sizes: in bfloat16 one CTA at H=32, two at 96 and 128,
+    four at 256; in float32 (32 units a CTA) one, three, four and
+    eight."""
     parts = (26,) if layer == "encoder" else (hidden, hidden)
     _check_direction(_inputs(device, dtype, parts, 37, hidden=hidden), dtype,
                      37, hidden)
@@ -129,36 +130,93 @@ def test_projection_entry_matches_float_product(device):
                                                      reverse=bool(reverse))
             torch.testing.assert_close(out, whole, atol=0, rtol=0)
     with pytest.raises(RuntimeError, match="projection launch failed"):
-        cuda_build.launch("lstm_direction_fused_projection", device, 0,
+        cuda_build.launch("lstm_direction_fused_projection", device, 2,
                           *(t.data_ptr() for t in (*xs, *ws)), H, H,
                           b.data_ptr(), xw.data_ptr(), 33, B, H)
 
 
+@pytest.mark.parametrize("parts", [(26,), (H, H)], ids=["encoder", "decoder"])
+def test_float32_entries_split_the_kernel(device, parts):
+    """float32 projects every F first: the projection alone (3xTF32) is
+    within 1e-5 of a float64 product, and the recurrence entry over its xw
+    gives the kernel's output bit for bit, one direction and both."""
+    from pepper_tpu_torch.ops import cuda_build
+
+    for B in (37, 512):
+        xs, ws, b, w_hh = _inputs(device, torch.float32, parts, B, seed=2)
+        x1, w1 = (xs[1], ws[1]) if len(xs) > 1 else (None, None)
+        ptr = (lambda t: None if t is None else t.data_ptr())
+        xw = torch.full((33, B, 4 * H), float("nan"), device=device)
+        cuda_build.launch("lstm_direction_fused_projection", device, 0,
+                          ptr(xs[0]), ptr(x1), ptr(ws[0]), ptr(w1),
+                          parts[0], parts[1] if x1 is not None else 0,
+                          b.data_ptr(), xw.data_ptr(), 33, B, H)
+        exact = (torch.cat(xs, dim=-1).double() @ torch.cat(ws).double()
+                 + b.double())
+        torch.cuda.synchronize()
+        torch.testing.assert_close(xw.double(), exact, atol=1e-5, rtol=0)
+        for reverse in (0, 1):
+            out = torch.empty((33, B, H), device=device)
+            cuda_build.launch("lstm_direction_fused_recurrence", device, 0,
+                              xw.data_ptr(), w_hh.data_ptr(), out.data_ptr(),
+                              33, B, H, reverse)
+            whole = lstm_kernel.lstm_direction_fused(xs, ws, b, w_hh,
+                                                     reverse=bool(reverse))
+            torch.testing.assert_close(out, whole, atol=0, rtol=0)
+        _, wb, b_b, w_hh_b = _inputs(device, torch.float32, parts, B, seed=3)
+        xws = [torch.empty((33, B, 4 * H), device=device) for _ in range(2)]
+        outs = [torch.empty((33, B, H), device=device) for _ in range(2)]
+        cuda_build.launch("bilstm_dual_fused_projection", device, 0,
+                          ptr(xs[0]), ptr(x1), ptr(ws[0]), ptr(w1),
+                          ptr(wb[0]), ptr(wb[1] if x1 is not None else None),
+                          parts[0], parts[1] if x1 is not None else 0,
+                          b.data_ptr(), b_b.data_ptr(),
+                          *(t.data_ptr() for t in xws), 33, B, H)
+        cuda_build.launch("bilstm_dual_fused_recurrence", device, 0,
+                          *(t.data_ptr() for t in (*xws, w_hh, w_hh_b,
+                                                   *outs)), 33, B, H)
+        whole = lstm_kernel.bilstm_dual_fused(xs, ws, wb, b, b_b, w_hh,
+                                              w_hh_b)
+        torch.cuda.synchronize()
+        for out, ref in zip(outs, whole):
+            torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
 def test_core_plan_covers_the_batch_in_one_wave(device):
-    """The bfloat16 core's launch plan: 4 CTAs a cluster at H=256, clusters
-    that cover B, and one wave unless even 144 rows a cluster need more."""
+    """The core's launch plans: in bfloat16 4 CTAs a cluster at H=256,
+    clusters that cover B, and one wave unless even 144 rows a cluster
+    need more; in float32 8 CTAs a cluster (32 units each), 32, 64 or 96
+    rows, one wave unless even 96 rows need more."""
     import ctypes
 
     from pepper_tpu_torch.ops import cuda_build
 
-    for B in (1, 37, 512, 4096):
-        for fused in (0, 1):
-            for dirs in (1, 2):
-                out = (ctypes.c_int * 4)()
-                cuda_build.launch("lstm_direction_fused_plan", device, B, H,
-                                  dirs, fused, ctypes.addressof(out))
-                rows, ctas, clusters, at_once = out
-                assert ctas == 4 and rows in (16, 32, 48, 96, 144)
-                assert rows * (clusters - 1) < B <= rows * clusters
-                assert dirs * clusters <= at_once or rows == 144
-        # lstm_recurrence's instance of the core, over a bfloat16 xw
-        out = (ctypes.c_int * 4)()
-        cuda_build.launch("lstm_recurrence_plan", device, B, H,
-                          ctypes.addressof(out))
-        rows, ctas, clusters, at_once = out
-        assert ctas == 4 and rows in (16, 32, 48, 96, 144)
-        assert rows * (clusters - 1) < B <= rows * clusters
-        assert clusters <= at_once or rows == 144
+    plans = {1: (4, (16, 32, 48, 96, 144)), 0: (8, (32, 64, 96))}
+    for dtype, (cluster, row_plans) in plans.items():
+        for B in (1, 37, 512, 4096):
+            for fused in ((0, 1) if dtype else (0,)):
+                for dirs in (1, 2):
+                    out = (ctypes.c_int * 4)()
+                    cuda_build.launch("lstm_direction_fused_plan", device,
+                                      dtype, B, H, dirs, fused,
+                                      ctypes.addressof(out))
+                    rows, ctas, clusters, at_once = out
+                    assert ctas == cluster and rows in row_plans
+                    assert rows * (clusters - 1) < B <= rows * clusters
+                    assert (dirs * clusters <= at_once
+                            or rows == row_plans[-1])
+            # lstm_recurrence's instance of the core, over its xw
+            out = (ctypes.c_int * 4)()
+            cuda_build.launch("lstm_recurrence_plan", device, dtype, B, H,
+                              ctypes.addressof(out))
+            rows, ctas, clusters, at_once = out
+            assert ctas == cluster and rows in row_plans
+            assert rows * (clusters - 1) < B <= rows * clusters
+            assert clusters <= at_once or rows == row_plans[-1]
+    # the float32 core takes no fused x
+    with pytest.raises(RuntimeError, match="plan launch failed"):
+        cuda_build.launch("lstm_direction_fused_plan", device, 0, 37, H, 1,
+                          1, ctypes.addressof(out))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -415,6 +473,32 @@ def test_static_core_matches_twin(device, layer, rec_int8, hidden, B):
             xs, ws, b, w_hh, **kw)
         torch.cuda.synchronize()
         assert out.dtype == torch.int8 and out.shape == (33, B, hidden)
+        assert_codes_close(out, ref, rec_int8)
+
+
+@pytest.mark.parametrize("rec_int8", [False, True],
+                         ids=["static", "static_rec"])
+@pytest.mark.parametrize("hidden", [32, 128, 256])
+@pytest.mark.parametrize("B", [1, 37, 4096])
+def test_static_core_wide_encoder_matches_twin(device, rec_int8, hidden, B):
+    """bfloat16 x of more than 32 features (the HP encoder's 48) runs on
+    the core: projected first into a float32 xw with the codes kinds' sums,
+    then the recurrence over it; codes at the code bars, both
+    directions."""
+    xs, ws, b, w_hh, acc_scale, rec_scale = _static_core_case(
+        device, "encoder", rec_int8, B, hidden, seed=11, T=21, features=48)
+    assert lstm_kernel.static_on_core(xs[0].dtype, w_hh.dtype, True, 48)
+    kernel = lstm_kernel.lstm_direction_fused_static
+    for reverse in (False, True):
+        kw = dict(acc_scale=acc_scale, rec_scale=rec_scale, reverse=reverse,
+                  out_int8=True)
+        before = kernel.launches
+        out = kernel(xs, ws, b, w_hh, **kw)
+        assert kernel.launches == before + 1
+        ref = lstm_kernel.lstm_direction_fused_static_reference(
+            xs, ws, b, w_hh, **kw)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.int8 and out.shape == (21, B, hidden)
         assert_codes_close(out, ref, rec_int8)
 
 
@@ -1180,8 +1264,8 @@ def test_device_flows_on_card_match_cpu(device, dtype, atol):
 # ---------------------------------------------------------------------------
 # HP mode: the LSTM kernels at the 48x21 classifier's shapes (T=21, encoder
 # F=48, which is wider than FUSED_X_MAX and so projected first in bfloat16,
-# and leaves the static core for the first body), and the GRU kernels under
-# the legacy HP sliding predictor
+# by the static kernel's core too), and the GRU kernels under the legacy HP
+# sliding predictor
 
 HP_T, HP_F = 21, 48
 HP_BATCHES = [1, 37, 4096]
@@ -1196,8 +1280,8 @@ def test_hp_kernels_match_twins(device, dtype, parts, B):
     the two single launches bit for bit) at T=21."""
     xs, wf, b_f, w_hh_f = _inputs(device, dtype, parts, B, T=HP_T, seed=3)
     _check_direction((xs, wf, b_f, w_hh_f), dtype, B)
-    assert ((lstm_kernel._projection_scratch(xs, H) is not None)
-            == (dtype == torch.bfloat16))
+    # both dtypes project first at both widths
+    assert lstm_kernel._projection_scratch(xs, H) is not None
     _, wb, b_b, w_hh_b = _inputs(device, dtype, parts, B, T=HP_T, seed=4)
     args = (xs, wf, wb, b_f, b_b, w_hh_f, w_hh_b)
     outs = lstm_kernel.bilstm_dual_fused(*args)
@@ -1219,18 +1303,17 @@ def test_hp_kernels_match_twins(device, dtype, parts, B):
                          ids=["static", "static_rec"])
 @pytest.mark.parametrize("B", [37, 4096])
 def test_hp_static_kernel_matches_twin(device, dtype, layer, rec_int8, B):
-    """The served static combinations at the HP shape: the encoder's 48
-    features keep it off the core (the first body, k-quad int8 weights),
-    the bfloat16 decoder runs on the core; codes at the code bars."""
+    """The served static combinations at the HP shape: in bfloat16 both
+    layers run on the core (the encoder's 48 features projected first into
+    a float32 xw), in float32 the decoder with an int8 W_hh; codes at the
+    code bars."""
     xs, ws, b, w_hh, acc_scale, rec_scale = _static_core_case(
         device, layer, rec_int8, B, H, seed=5, T=HP_T, features=HP_F,
         dtype=dtype)
     on_core = lstm_kernel.static_on_core(xs[0].dtype, w_hh.dtype, True,
                                          sum(x.shape[2] for x in xs))
-    # the encoder's 48 features leave the core; the decoder's int8 codes
-    # run on it with an int8 or bfloat16 W_hh
-    assert on_core == (layer == "decoder"
-                       and (rec_int8 or dtype == torch.bfloat16))
+    assert on_core == (dtype == torch.bfloat16
+                       or (layer == "decoder" and rec_int8))
     kernel = lstm_kernel.lstm_direction_fused_static
     for reverse in (False, True):
         kw = dict(acc_scale=acc_scale, rec_scale=rec_scale, reverse=reverse,

@@ -316,3 +316,43 @@ def test_polish_static_tree_relays_once(recorded):
                      if args[0] == cuda_build.DTYPE_CODE[torch.int8]]
     assert [args[4] for args in decoder_calls] == [
         _kept(dec["w_ih_f"], "kmajor"), _kept(dec["w_ih_b"], "kmajor")] * 3
+
+
+@pytest.mark.parametrize("rec_int8", [False, True],
+                         ids=["static", "static_rec"])
+def test_hp_static_tree_serves_the_48_feature_encoder_on_the_core(rec_int8,
+                                                                  recorded):
+    """At the HP shape (48 bfloat16 features) the static encoder runs on
+    the core too: prepare_static relays its int8 W_hh (static_rec) k-major
+    once, and each encoder launch reads that kept copy and hands the core
+    a float32 (T, B, 4H) xw to project x into."""
+    params = init_transducer_params(
+        torch.Generator().manual_seed(4),
+        TransducerConfig(hidden=32, linear_size=64, image_features=48,
+                         window=21))
+    host = {name: {k: v.numpy() for k, v in node.items()}
+            for name, node in params.items()}
+    before = cuda_build.relayout_int8.count
+    tree = quantize.prepare_static(
+        quantize.quantize_params_static(host, rec_int8=rec_int8),
+        torch.bfloat16, "meta")
+    weights = _int8_weights(tree)
+    assert cuda_build.relayout_int8.count == before + len(weights)
+    enc = tree["encoder"]
+    H = enc["w_hh_f"].shape[0]
+    assert enc["w_ih_f"].shape == (48, 4 * H)
+    assert lstm_kernel.static_on_core(torch.bfloat16, enc["w_hh_f"].dtype,
+                                      True, 48)
+    kept = {id(_kept(node[key], "kmajor")) for node, key in weights}
+
+    after_prepare = cuda_build.relayout_int8.count
+    x = torch.empty((21, 4, 48), dtype=torch.bfloat16, device="meta")
+    lstm_kernel.bilstm_fused_static(
+        (x,), enc, rec_scale=((enc["as_hh_f"], enc["as_hh_b"]) if rec_int8
+                              else None), out_int8=True)
+    assert cuda_build.relayout_int8.count == after_prepare
+    assert len(recorded.calls) == 2
+    for _, args in recorded.calls:
+        w_rec, xw = args[12], args[13]
+        assert (id(w_rec) in kept) == rec_int8
+        assert xw.shape == (21, 4, 4 * H) and xw.dtype == torch.float32

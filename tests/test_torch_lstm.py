@@ -135,8 +135,8 @@ def test_lstm_entries_are_bound_with_their_argument_types():
                                             I, P],
         # dtype, xw, w_hh, out, steps, B, H, reverse, stream
         "lstm_direction_fused_recurrence": [I, P, P, P, I, I, I, I, P],
-        # B, H, dirs, fused, int out[4], stream
-        "lstm_direction_fused_plan": [I, I, I, I, P, P],
+        # dtype, B, H, dirs, fused, int out[4], stream
+        "lstm_direction_fused_plan": [I, I, I, I, I, P, P],
         # dtype, x0, x1, wf0, wf1, wb0, wb1, F0, F1, bias_f, bias_b, xw_f,
         # xw_b, steps, B, H, stream
         "bilstm_dual_fused_projection": [I, P, P, P, P, P, P, I, I, P, P, P,
@@ -144,8 +144,8 @@ def test_lstm_entries_are_bound_with_their_argument_types():
         # dtype, xw_f, xw_b, w_hh_f, w_hh_b, out_f, out_b, steps, B, H,
         # stream
         "bilstm_dual_fused_recurrence": [I, P, P, P, P, P, P, I, I, I, P],
-        # B, H, int out[4], stream
-        "lstm_recurrence_plan": [I, I, P, P],
+        # dtype, B, H, int out[4], stream
+        "lstm_recurrence_plan": [I, I, I, P, P],
     }
     for name, expected in entries.items():
         kernel, argtypes = cuda_build.ENTRIES[name]
@@ -155,13 +155,65 @@ def test_lstm_entries_are_bound_with_their_argument_types():
 @pytest.mark.parametrize("dtype,parts,scratch", [
     (torch.bfloat16, (256, 256), True), (torch.bfloat16, (26,), False),
     (torch.bfloat16, (16, 16), False), (torch.bfloat16, (20, 13), True),
-    (torch.float32, (256, 256), False)])
+    (torch.float32, (256, 256), True), (torch.float32, (26,), True),
+    (torch.float32, (48,), True)])
 def test_projection_scratch_only_where_the_input_leaves_the_step(
         dtype, parts, scratch):
     """bfloat16 inputs of more than 32 features in all are projected into a
-    float32 (T, B, 4H) xw first; narrower ones, and float32, need none."""
+    float32 (T, B, 4H) xw first, and float32 inputs of any width (the
+    float32 core runs over xw alone); narrower bfloat16 ones need none."""
     xs = tuple(torch.zeros((5, 3, f), dtype=dtype) for f in parts)
     xw = lstm_kernel._projection_scratch(xs, 32)
+    if scratch:
+        assert xw.shape == (5, 3, 128) and xw.dtype == torch.float32
+    else:
+        assert xw is None
+
+
+@pytest.mark.parametrize("x_dtype,whh_dtype,features,on_core", [
+    (torch.bfloat16, torch.bfloat16, 48, True),
+    (torch.bfloat16, torch.int8, 48, True),
+    (torch.bfloat16, torch.bfloat16, 26, True),
+    (torch.bfloat16, torch.int8, 26, True),
+    (torch.int8, torch.bfloat16, 512, True),
+    (torch.int8, torch.int8, 512, True),
+    (torch.float32, torch.float32, 48, False),
+    (torch.float32, torch.int8, 48, False),
+    (torch.int8, torch.float32, 512, False)],
+    ids=["static_hp_encoder", "static_rec_hp_encoder", "static_encoder",
+         "static_rec_encoder", "static_decoder", "static_rec_decoder",
+         "float32", "float32_x_int8_whh", "int8_x_float32_whh"])
+def test_static_routes_by_dtype_at_every_width(x_dtype, whh_dtype, features,
+                                               on_core):
+    """The static kernel runs int8 codes out from bfloat16 or int8 x and a
+    bfloat16 or int8 W_hh on the core at every width (the HP encoder's 48
+    bfloat16 features included), reading its int8 weights k-major; float32
+    x or W_hh, and a float epilogue, keep the first body (k-quads)."""
+    assert lstm_kernel.static_on_core(x_dtype, whh_dtype, True,
+                                      features) == on_core
+    assert lstm_kernel.static_layout(x_dtype, whh_dtype, True, features) == (
+        "kmajor" if on_core else "quads")
+    assert not lstm_kernel.static_on_core(x_dtype, whh_dtype, False,
+                                          features)
+    assert lstm_kernel.static_layout(x_dtype, whh_dtype, False,
+                                     features) == "quads"
+
+
+@pytest.mark.parametrize("dtype,parts,layout,scratch", [
+    (torch.bfloat16, (48,), "kmajor", True),
+    (torch.bfloat16, (20, 13), "kmajor", True),
+    (torch.bfloat16, (26,), "kmajor", False),
+    (torch.int8, (256, 256), "kmajor", True),
+    (torch.int8, (28,), "kmajor", True),
+    (torch.bfloat16, (48,), "quads", False),
+    (torch.float32, (48,), "quads", False)])
+def test_static_scratch_where_the_core_projects_first(dtype, parts, layout,
+                                                      scratch):
+    """On the core the static kernel projects int8 x, and bfloat16 x of
+    more than 32 features, into a float32 (T, B, 4H) xw first; bfloat16 x
+    of at most 32 joins the step, and the first body takes no xw."""
+    xs = tuple(torch.zeros((5, 3, f), dtype=dtype) for f in parts)
+    xw = lstm_kernel._static_scratch(xs, layout, 32)
     if scratch:
         assert xw.shape == (5, 3, 128) and xw.dtype == torch.float32
     else:
