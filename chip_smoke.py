@@ -32,13 +32,20 @@ Phases, each printing one JSON line:
                bfloat16 and float32) and decoder (the encoder's int8 codes,
                2x256), static and static_rec, B=4096 and B=37, both
                directions; codes within 1 and at least 99.9% (static) /
-               99.5% (static_rec) equal; per-launch times in bfloat16 at
-               B=4096 (queued, and unqueued beside them) beside the bound,
-               the decoder's int8 projection and recurrence apart through
-               the library's entries (xw equal to the exact int32 product,
-               the two launches' codes equal to the kernel's), the core's
-               launch plan, row 1's bfloat16 kernel at the same shapes, and
-               ptxas's registers and spills of the library's entries
+               99.5% (static_rec) equal; per-launch times in bfloat16 and
+               float32 at B=4096 (queued, and unqueued beside them) beside
+               the bound (float32: both, 3xTF32 and float32 FMAs) and the
+               twin, every launch that projects x first (the decoder; in
+               float32 the encoder too) as its projection and recurrence
+               apart through the library's entries (int8 x's xw equal to
+               the exact int32 product, float x's within 1e-4 of b + x @
+               W_ih, the two launches' codes equal to the kernel's), the
+               cores' launch plan for the recurrence, in float32 the
+               scalar body's time (the body float32 ran on before the
+               core), measured by --static_float32_times on commit
+               97c4798 (a constant, labelled), row 1's bfloat16 kernel at
+               the same shapes, and ptxas's registers and spills of the
+               library's entries
   6 kernel_recurrence
                lstm_recurrence against its twin, xw (33, B, 1024) in
                bfloat16 (atol 2e-2) and float32 (atol 1e-5), phase 3's
@@ -58,7 +65,8 @@ Phases, each printing one JSON line:
                torch.nn.LSTM
   8 transducer_quantized
                4096 int8 windows through the static, static_rec and
-               dynamic int8 modes on the kernels against the twin path on
+               dynamic int8 modes (and the static ones again in float32,
+               4 launches a batch) on the kernels against the twin path on
                the card (atol 5e-3, 1e-2, 1e-2), windows/s, and the largest
                difference from the float transducer; one dynamic batch
                under torch.profiler: its ten operations and ten kernels
@@ -71,7 +79,9 @@ Phases, each printing one JSON line:
                count is printed); so must cuda bfloat16 with
                PEPPER_LSTM_DUAL=1; --quantized static, static_rec and
                dynamic on cuda must each give the set of a cpu run of the
-               same mode, up to the ALT order;
+               same mode, up to the ALT order, and so must --quantized
+               static and static_rec with --compute_dtype float32 (on the
+               scene's first 20 kb, F32_STATIC_REGION);
                --device_pileup on cuda in float32 must give the set of a
                cpu --device_pileup run and of the cuda host flow, in
                bfloat16 the cpu --device_pileup bfloat16 set up to the ALT
@@ -155,18 +165,22 @@ Phases, each printing one JSON line:
                (atol 1e-5) and bfloat16 (2e-2); lstm_direction_fused_static
                in static and static_rec, bfloat16 and float32, codes within
                1 and phase 5's equal shares (every served combination on
-               lstm_core.cuh, the encoder's 48 features projected first);
+               lstm_core.cuh, the encoder's 48 features projected first;
+               a trace, in a process of its own, of each static encoder's
+               kernels in both dtypes);
                per-launch times at B=4096 in bfloat16 queued beside the
                bound, the twin and cuDNN's torch.nn.LSTM, with the route
                (fused, or projection first) and the launch plan, the static
-               encoder's recurrence also alone; models/rnn.py's bilstm on
+               launches in both dtypes as phase 5 times them (projection
+               and recurrence apart); models/rnn.py's bilstm on
                the card
                (bilstm_pallas, two lstm_recurrence launches) over each HP
                layer against the twin path at the same bars
  16 transducer_hp
                4096 HP windows through transducer_infer on the fused
                and dual routes in float32 and bfloat16, and through
-               the static, static_rec and dynamic int8 modes, against the
+               the static, static_rec and dynamic int8 modes (static and
+               static_rec in float32 too), against the
                twin path on the card at phase 4's and 8's bars; each route's
                own kernel launched, 4 (2 for dual) a batch; windows/s
  17 call_hp    phase 9's HP case: call_variant --use_hp_info on an HP-tagged
@@ -277,14 +291,17 @@ Phases, each printing one JSON line:
                uniform errors, 12 epochs) on cuda held to
                ACCEPTANCE_BARS per variant type
 
-Then the kernel summary line (rows 1-4 with their HP figures, rows 1, 3
-and 4 with their float32 figures, row 1 with the training eval's
+Then the kernel summary line (rows 1-4 with their HP figures, rows 1-4
+with their float32 figures, row 1 with the training eval's
 launches, rows 5 and 7 with their hp_votes_scan
 figures, rows 5 and 6 with phase 21's launches, rows 1, 2 and 4 with
 phase 22's), the nvidia-smi line and, last, the
 result line; the `done` line gives each phase's wall seconds.  `--phases
 6,13` runs phases 1 and 2 and the listed ones only, and prints neither the
-summary nor the result line.  Any failed check
+summary nor the result line.  `--static_float32_times DIR` times row 2's
+float32 static launches and batches through the public entry points of
+DIR's package (any checkout; static_float32_times) and prints one line.
+Any failed check
 raises, and the script exits non-zero without the result line; so it
 does without a CUDA device or outside a checkout.
 """
@@ -804,6 +821,174 @@ def static_bound_ms(layer, B, dtype, rec_int8, steps=T, features=26):
     return max(seconds, nbytes / PEAK_BYTES) * 1e3
 
 
+def static_bounds_f32(layer, B, rec_int8, steps=T, features=26):
+    """A float32 static launch's two bounds (float32_bounds' names): its
+    float products (the encoder's projection, a float32 W_hh's recurrence)
+    as three TF32 products each at the TF32 tensor-core peak, or as float32
+    FMAs, plus its int8 products (the decoder's projection, an int8 W_hh's
+    recurrence) at the int8 peak, against the bytes of x in, weights in and
+    int8 codes out."""
+    F = features if layer == "encoder" else 2 * H
+    proj, rec = 2 * steps * B * F * 4 * H, 2 * steps * B * H * 4 * H
+    floats = ((proj if layer == "encoder" else 0)
+              + (0 if rec_int8 else rec))
+    int8_s = ((0 if layer == "encoder" else proj)
+              + (rec if rec_int8 else 0)) / PEAK_INT8_OPS
+    x_item = 4 if layer == "encoder" else 1
+    nbytes = (steps * B * F * x_item + F * 4 * H * x_item
+              + H * 4 * H * (1 if rec_int8 else 4) + 3 * 4 * H * 4
+              + steps * B * H)
+    tensor = 3 * floats / PEAK_TF32_FLOPS + int8_s
+    return {"bound_ms": max(tensor, nbytes / PEAK_BYTES) * 1e3,
+            "bound_by": ("bytes" if nbytes / PEAK_BYTES > tensor
+                         else "operations"),
+            "bound_ms_f32_fma": max(floats / PEAK_F32_FLOPS + int8_s,
+                                    nbytes / PEAK_BYTES) * 1e3,
+            "bound_note": "bound_ms: the float products as 3xTF32 (3 "
+                          "products an operation) at 495 TFLOP/s; "
+                          "bound_ms_f32_fma: as float32 FMAs at 67 "
+                          "TFLOP/s; int8 products at 1979 TOP/s in both"}
+
+
+# lstm_direction_fused_static's float32 launches at B=4096 as commit
+# 97c4798 ran them (float32 x or W_hh on the first, scalar body; the
+# static_rec decoder, int8 x and W_hh, already on the core), queued: the
+# mean of two runs of `--static_float32_times DIR` on an unpacked 97c4798
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6, "float32, row 2")
+SCALAR_BODY_FLOAT32_MS = {
+    "source": "chip_smoke.py --static_float32_times <97c4798> (PERF.md "
+              "section 6)",
+    "encoder_static": 2.2783, "decoder_static": 3.3676,
+    "encoder_static_rec": 1.6185, "decoder_static_rec": 1.1710,
+    "encoder_static_hp": 1.5453, "decoder_static_hp": 2.1192,
+    "encoder_static_rec_hp": 1.2103, "decoder_static_rec_hp": 0.7551}
+
+
+def static_float32_times(device):
+    """Row 2's float32 static launches and batches at B=4096 through the
+    package's public entry points alone, so that the package of any
+    checkout can be timed (`--static_float32_times DIR`; two versions on
+    one card in one call: parent, change, change, parent).  At 33x26 and
+    the HP 21x48, static and static_rec: each launch queued, its codes
+    within 1 of the twin's, and one transducer_infer_static batch (4
+    launches)."""
+    import torch
+    from pepper_tpu_torch.models import quantize
+    from pepper_tpu_torch.models.transducer import init_transducer_params
+    from pepper_tpu_torch.ops import lstm_kernel
+
+    kernel = lstm_kernel.lstm_direction_fused_static
+    twin = lstm_kernel.lstm_direction_fused_static_reference
+    gen = torch.Generator(device=device).manual_seed(1515)
+
+    def run(fn, xs, w, reverse=False):
+        return fn(xs, w["w_ih"], w["b"], w["w_hh"], acc_scale=w["acc_scale"],
+                  rec_scale=w["rec_scale"], reverse=reverse, out_int8=True)
+
+    shapes = {"33x26": (T, 26, init_transducer_params(
+        torch.Generator().manual_seed(7))), "21x48": (HP_T, HP_F, hp_params())}
+    per_launch, batches = {}, {}
+    for shape, (steps, features, params) in shapes.items():
+        host = {name: {k: v.numpy() for k, v in group.items()}
+                for name, group in params.items()}
+        windows = torch.randint(-125, 126, (B_SERVE, steps, features),
+                                generator=gen, device=device).to(torch.int8)
+        for mode in ("static", "static_rec"):
+            rec_int8 = mode == "static_rec"
+            x = torch.randint(-125, 126, (steps, B_SERVE, features),
+                              generator=gen, device=device).float()
+            enc = static_weights(gen, "encoder", torch.float32, rec_int8,
+                                 device, features)
+            streams = (run(kernel, (x,), enc), run(kernel, (x,), enc, True))
+            dec = static_weights(gen, "decoder", torch.float32, rec_int8,
+                                 device)
+            for layer, xs, w in (("encoder", (x,), enc),
+                                 ("decoder", streams, dec)):
+                diff = (run(kernel, xs, w).int()
+                        - run(twin, xs, w).int()).abs()
+                check(diff.max().item() <= 1, f"{layer} {mode} {shape}: "
+                      f"codes differ by {diff.max().item()}")
+                per_launch[f"{layer}_{mode}_{shape}"] = {
+                    "ms": device_ms(lambda: run(kernel, xs, w)),
+                    "equal_share": (diff == 0).float().mean().item()}
+            tree = quantize.prepare_static(
+                quantize.quantize_params_static(host, rec_int8=rec_int8),
+                torch.float32, device)
+
+            def forward():
+                return quantize.transducer_infer_static(tree, windows,
+                                                        torch.float32)
+
+            kernel.launches = 0
+            check(bool(torch.isfinite(forward()).all())
+                  and kernel.launches == 4,
+                  f"{mode} {shape}: {kernel.launches} launches a batch, "
+                  "not 4, or probabilities that are not finite")
+            batches[f"{mode}_{shape}"] = cuda_ms(forward, iters=5)
+    return {"B": B_SERVE, "per_launch": per_launch, "batch_ms": batches}
+
+
+def static_launch_times(device, kernel, twin, gen, dtype, steps=T,
+                        features=26):
+    """Per-launch figures of the static and static_rec modes at B=4096 in
+    dtype (encoder of `features`, then the decoder over its codes), queued
+    beside the bound and the twin, with the route, the core's plan for the
+    recurrence and, where x is projected first, the projection and the
+    recurrence apart through the library's entries."""
+    import torch
+    from pepper_tpu_torch.ops import lstm_kernel
+
+    def run(fn, xs, w, reverse=False):
+        return fn(xs, w["w_ih"], w["b"], w["w_hh"], acc_scale=w["acc_scale"],
+                  rec_scale=w["rec_scale"], reverse=reverse, out_int8=True)
+
+    timings = {}
+    for mode in ("static", "static_rec"):
+        rec_int8 = mode == "static_rec"
+        x = torch.randint(-125, 126, (steps, B_SERVE, features),
+                          generator=gen, device=device).to(dtype)
+        enc = static_weights(gen, "encoder", dtype, rec_int8, device,
+                             features)
+        streams = (run(kernel, (x,), enc), run(kernel, (x,), enc, True))
+        dec = static_weights(gen, "decoder", dtype, rec_int8, device)
+        for layer, xs, w in (("encoder", (x,), enc),
+                             ("decoder", streams, dec)):
+            width = sum(part.shape[2] for part in xs)
+            check(lstm_kernel.static_on_core(xs[0].dtype, w["w_hh"].dtype,
+                                             True, width),
+                  f"{mode} {layer} {dtype}: not on lstm_core.cuh")
+            joins = (xs[0].dtype == torch.bfloat16
+                     and width <= lstm_kernel.FUSED_X_MAX)
+            entry = {
+                "kernel_ms": device_ms(lambda: run(kernel, xs, w)),
+                "kernel_ms_unqueued": cuda_ms(lambda: run(kernel, xs, w)),
+                "plain_ms": cuda_ms(lambda: run(twin, xs, w), iters=5),
+                "route": ("lstm_core.cuh, x joins each step" if joins
+                          else "lstm_core.cuh, projection first into a "
+                               "float32 xw"),
+                "plan": static_plan(device, B_SERVE, joins,
+                                    w["w_hh"].dtype)}
+            if dtype == torch.float32:
+                entry.update(static_bounds_f32(layer, B_SERVE, rec_int8,
+                                               steps, features))
+                hp = "_hp" if features != 26 else ""
+                entry["scalar_body_ms"] = SCALAR_BODY_FLOAT32_MS[
+                    f"{layer}_{mode}{hp}"]
+                entry["scalar_body_source"] = SCALAR_BODY_FLOAT32_MS["source"]
+            else:
+                entry["bound_ms"] = static_bound_ms(
+                    layer, B_SERVE, dtype, rec_int8, steps, features)
+            if joins:
+                # the encoder's features join the step: one launch
+                entry.update(projection_ms=0.0,
+                             recurrence_ms=entry["kernel_ms"])
+            else:
+                entry.update(static_split(device, xs, w, B_SERVE,
+                                          run(kernel, xs, w), steps))
+            timings[f"{layer}_{mode}"] = entry
+    return timings
+
+
 def phase_kernel_static(device, card):
     import torch
     from pepper_tpu_torch.ops import lstm_kernel
@@ -866,37 +1051,13 @@ def phase_kernel_static(device, card):
               f"static float output {dtype_name}: {float_err[dtype_name]}")
 
     timings = {}
-    dtype = torch.bfloat16
-    for mode in ("static", "static_rec"):
-        rec_int8 = mode == "static_rec"
-        x = torch.randint(-125, 126, (T, B_SERVE, 26), generator=gen,
-                          device=device).to(dtype)
-        enc = static_weights(gen, "encoder", dtype, rec_int8, device)
-        streams = (run(kernel, (x,), enc, out_int8=True),
-                   run(kernel, (x,), enc, True, out_int8=True))
-        dec = static_weights(gen, "decoder", dtype, rec_int8, device)
-        for layer, xs, w in (("encoder", (x,), enc),
-                             ("decoder", streams, dec)):
-            entry = {
-                "kernel_ms": device_ms(lambda: run(kernel, xs, w,
-                                                   out_int8=True)),
-                "kernel_ms_unqueued": cuda_ms(lambda: run(kernel, xs, w,
-                                                          out_int8=True)),
-                "plain_ms": cuda_ms(lambda: run(twin, xs, w, out_int8=True),
-                                    iters=5),
-                "bound_ms": static_bound_ms(layer, B_SERVE, dtype, rec_int8),
-                "plan": static_plan(device, B_SERVE, layer == "encoder",
-                                    rec_int8),
-            }
-            if layer == "decoder":
-                entry.update(static_split(device, xs, w, B_SERVE, rec_int8,
-                                          run(kernel, xs, w, out_int8=True)))
-            else:
-                # the encoder's features join the step: one launch
-                entry.update(projection_ms=0.0,
-                             recurrence_ms=entry["kernel_ms"])
-            timings[f"{layer}_{mode}_bfloat16"] = entry
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        for key, entry in static_launch_times(device, kernel, twin, gen,
+                                              dtype).items():
+            timings[f"{key}_{dtype_name}"] = entry
     # row 1's bfloat16 kernel at the same shapes, in the same run
+    dtype = torch.bfloat16
     for layer in ("encoder", "decoder"):
         xs, ws, b, w_hh = lstm_inputs(gen, layer, B_SERVE, dtype, device)
         timings[f"{layer}_float_bfloat16"] = {"kernel_ms": device_ms(
@@ -910,70 +1071,98 @@ def phase_kernel_static(device, card):
     return max_code_diff, codes, timings
 
 
-def static_plan(device, B, fused, rec_int8):
-    """The LSTM core's plan for a static launch, as the static library
-    reports it (launches nothing)."""
+def static_plan(device, B, fused, whh_dtype):
+    """The LSTM cores' plan for a static launch's recurrence with a W_hh of
+    whh_dtype (float32: the float32 core's codes kind), fused or over xw,
+    as the static library reports it (launches nothing)."""
     import ctypes
 
     from pepper_tpu_torch.ops import cuda_build
 
     out = (ctypes.c_int * 4)()
-    cuda_build.launch("lstm_direction_fused_static_plan", device, B, H,
-                      int(fused), int(rec_int8), ctypes.addressof(out))
+    cuda_build.launch("lstm_direction_fused_static_plan", device,
+                      cuda_build.DTYPE_CODE[whh_dtype], B, H, int(fused),
+                      ctypes.addressof(out))
     return dict(zip(("rows", "cluster_ctas", "clusters", "max_clusters"),
                     out))
 
 
-def static_split(device, xs, w, B, rec_int8, codes):
-    """The static decoder's two launches through the library's entries: the
-    int8 projection into a float32 xw (checked against the exact int32
-    product) and the core's recurrence over it (its codes must equal the
-    kernel's), timed apart, with each launch's bound: the projection's the
-    f32 xw it writes, the recurrence's xw in and codes out against its
-    products."""
+def static_split(device, xs, w, B, codes, steps=T):
+    """A static launch that projects x first, as its two launches through
+    the library's entries: the projection into a float32 xw (int8 x:
+    checked against the exact int32 product; float x: against b + x @ W_ih
+    within float32's rounding) and the core's recurrence over it (its codes
+    must equal the kernel's), timed apart, with each launch's bound: the
+    projection's against the f32 xw it writes, the recurrence's xw in and
+    codes out against its products (float32 ones as 3xTF32)."""
     import torch
     from pepper_tpu_torch.ops import cuda_build
     from pepper_tpu_torch.ops.int8_matmul import int8_matmul
 
-    G = 4 * H
-    w_t = cuda_build.int8_kmajor(torch.cat(w["w_ih"]))
-    w_rec = cuda_build.int8_kmajor(w["w_hh"]) if rec_int8 else w["w_hh"]
+    T, G = steps, 4 * H
+    F = sum(x.shape[2] for x in xs)
+    x_dtype, whh_dtype = xs[0].dtype, w["w_hh"].dtype
+    int_x = x_dtype == torch.int8
+    w_ih = torch.cat(w["w_ih"])
+    if int_x:
+        w_ih = cuda_build.int8_kmajor(w_ih)
+    w_rec = (cuda_build.int8_kmajor(w["w_hh"]) if whh_dtype == torch.int8
+             else w["w_hh"])
     xw = torch.empty((T, B, G), device=device)
     out = torch.empty((T, B, H), dtype=torch.int8, device=device)
+    x1 = xs[1] if len(xs) > 1 else None
 
     def project():
         cuda_build.launch("lstm_direction_fused_static_projection", device,
-                          xs[0].data_ptr(), xs[1].data_ptr(), H, H,
-                          w_t.data_ptr(), w["acc_scale"].data_ptr(),
+                          cuda_build.DTYPE_CODE[x_dtype], xs[0].data_ptr(),
+                          None if x1 is None else x1.data_ptr(),
+                          xs[0].shape[2], 0 if x1 is None else x1.shape[2],
+                          w_ih.data_ptr(),
+                          w["acc_scale"].data_ptr() if int_x else None,
                           w["b"].data_ptr(), xw.data_ptr(), T, B, H)
 
     def recur():
         cuda_build.launch("lstm_direction_fused_static_recurrence", device,
-                          2 if rec_int8 else 1, xw.data_ptr(),
+                          cuda_build.DTYPE_CODE[whh_dtype], xw.data_ptr(),
                           w_rec.data_ptr(),
-                          w["rec_scale"].data_ptr() if rec_int8 else None,
+                          w["rec_scale"].data_ptr()
+                          if whh_dtype == torch.int8 else None,
                           out.data_ptr(), T, B, H, 0)
 
     project()
     recur()
-    acc = sum(int8_matmul(x.reshape(T * B, H), part)
-              for x, part in zip(xs, w["w_ih"]))
-    torch.cuda.synchronize()
-    check(torch.equal(xw.reshape(T * B, G),
-                      w["b"] + acc.float() * w["acc_scale"]),
-          "static projection entry: xw differs from the exact product")
+    if int_x:
+        acc = sum(int8_matmul(x.reshape(T * B, -1), part)
+                  for x, part in zip(xs, w["w_ih"]))
+        expected = w["b"] + acc.float() * w["acc_scale"]
+        torch.cuda.synchronize()
+        check(torch.equal(xw.reshape(T * B, G), expected),
+              "static projection entry: xw differs from the exact product")
+    else:
+        expected = w["b"] + torch.cat(xs, -1).float() @ torch.cat(
+            w["w_ih"]).float()
+        torch.cuda.synchronize()
+        worst = (xw - expected).abs().max().item()
+        check(worst <= 1e-4, f"static {x_dtype} projection entry: xw "
+              f"{worst} from b + x @ W_ih")
     check(torch.equal(out, codes),
           "static projection + recurrence differ from the kernel")
+    x_item = x_dtype.itemsize
     rec_ops = 2 * T * B * H * G
+    proj_ops = 2 * T * B * F * G
+    proj_peak = {torch.int8: PEAK_INT8_OPS, torch.bfloat16: PEAK_BF16_FLOPS,
+                 torch.float32: PEAK_F32_FLOPS}[x_dtype]
+    rec_peak = {torch.int8: PEAK_INT8_OPS, torch.bfloat16: PEAK_BF16_FLOPS,
+                torch.float32: PEAK_TF32_FLOPS / 3}[whh_dtype]
     return {
         "projection_ms": device_ms(project),
         "recurrence_ms": device_ms(recur),
-        "projection_bound_ms": bound_ms(2 * T * B * 2 * H * G,
-                                        T * B * 2 * H + 2 * H * G
-                                        + 4 * T * B * G, PEAK_INT8_OPS),
+        "projection_bound_ms": bound_ms(
+            proj_ops, T * B * F * x_item + F * G * x_item + 4 * T * B * G,
+            proj_peak),
         "recurrence_bound_ms": bound_ms(
-            rec_ops, 4 * T * B * G + H * G * (1 if rec_int8 else 2)
-            + T * B * H, PEAK_INT8_OPS if rec_int8 else PEAK_BF16_FLOPS)}
+            rec_ops, 4 * T * B * G + H * G * whh_dtype.itemsize + T * B * H,
+            rec_peak)}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1245,7 +1434,14 @@ def phase_transducer_quantized(device, card):
         floats[dtype_name] = transducer_infer(cast, windows, dtype)
 
     result = {}
-    for mode in ("static", "static_rec", "dynamic"):
+    # (the result's key, the mode, the compute dtype): the dynamic mode's
+    # recurrences run in bfloat16 whatever the runner's dtype
+    for key, mode, dtype in (
+            ("static", "static", torch.bfloat16),
+            ("static_rec", "static_rec", torch.bfloat16),
+            ("dynamic", "dynamic", torch.bfloat16),
+            ("static_float32", "static", torch.float32),
+            ("static_rec_float32", "static_rec", torch.float32)):
         if mode == "dynamic":
             q, s = (params_from_jax(tree, device)
                     for tree in quantize.quantize_params(host))
@@ -1257,24 +1453,23 @@ def phase_transducer_quantized(device, card):
             tree = quantize.prepare_static(
                 quantize.quantize_params_static(
                     host, rec_int8=mode == "static_rec"),
-                torch.bfloat16, device)
+                dtype, device)
             counter = lstm_kernel.lstm_direction_fused_static
 
             def forward():
-                return quantize.transducer_infer_static(tree, windows,
-                                                        torch.bfloat16)
+                return quantize.transducer_infer_static(tree, windows, dtype)
         counter.launches = 0
         probs = forward()
         check(counter.launches == 4,
-              f"{mode}: {counter.launches} kernel launches, not 4")
+              f"{key}: {counter.launches} kernel launches, not 4")
         with twin_path():
             ref = forward()
         err, agree = checked_probs(probs, ref, QUANTIZED_BARS[mode],
-                                   f"transducer {mode}")
+                                   f"transducer {key}")
         ms = cuda_ms(forward, iters=5)
         with twin_path():
             twin_ms = cuda_ms(forward, iters=3, warmup=1)
-        result[mode] = {
+        result[key] = {
             "max_abs_err": err, "argmax_agree": agree,
             "batch_ms": ms, "windows_per_s": B_SERVE / ms * 1e3,
             "twin_batch_ms": twin_ms,
@@ -1287,7 +1482,7 @@ def phase_transducer_quantized(device, card):
             emit({"phase": "transducer_quantized_profile", "mode": mode,
                   "B": B_SERVE, "card": card, **profile_top(forward)})
     emit({"phase": "transducer_quantized", "card": card, "B": B_SERVE,
-          "compute_dtype": "bfloat16", **result})
+          "compute_dtype": "bfloat16 (keys without _float32)", **result})
     return result
 
 
@@ -1415,6 +1610,11 @@ def call_set(out_dir):
     return calls
 
 
+# The float32 static runs' region: a third of phase 9's scene (its cpu
+# runs, int8 products at full width, take ~8 s where the whole scene's took
+# ~25) and the whole of phase 17's HP scene
+F32_STATIC_REGION = ("-r", "chr1:1-20000")
+
 # (name, device, compute dtype, extra CLI arguments, PEPPER_LSTM_DUAL,
 #  the kernel the run must launch and its launches per batch, the run whose
 #  call set it must equal); cpu runs launch nothing
@@ -1437,6 +1637,20 @@ CALL_RUNS = (
      "lstm_direction_fused_static", 4, "cpu_static_rec_bfloat16"),
     ("cpu_static_rec_bfloat16", "cpu", "bfloat16",
      ("--quantized", "--quantize_mode", "static_rec"), False, None, 0, None),
+    # the float32 static modes: what --sharded and the staged
+    # run_inference serve with --quantized, and --compute_dtype float32;
+    # on the scene's first 20 kb (F32_STATIC_REGION)
+    ("cuda_static_float32", "cuda", "float32",
+     ("--quantized", *F32_STATIC_REGION), False,
+     "lstm_direction_fused_static", 4, "cpu_static_float32"),
+    ("cpu_static_float32", "cpu", "float32",
+     ("--quantized", *F32_STATIC_REGION), False, None, 0, None),
+    ("cuda_static_rec_float32", "cuda", "float32",
+     ("--quantized", "--quantize_mode", "static_rec", *F32_STATIC_REGION),
+     False, "lstm_direction_fused_static", 4, "cpu_static_rec_float32"),
+    ("cpu_static_rec_float32", "cpu", "float32",
+     ("--quantized", "--quantize_mode", "static_rec", *F32_STATIC_REGION),
+     False, None, 0, None),
     ("cuda_dynamic", "cuda", "bfloat16",
      ("--quantized", "--quantize_mode", "dynamic"), False,
      "lstm_recurrence", 4, "cpu_dynamic"),
@@ -2870,10 +3084,10 @@ def hp_bilstm_pallas(device):
 
 
 def _hp_static_encoder_kernels(device_name):
-    """The device kernels one HP static encoder launch runs (48 bf16
-    features, int8 codes out), static and static_rec, as torch.profiler
-    names them; run in a process of its own, whose first profiler session
-    this is (PERF.md section 7)."""
+    """The device kernels one HP static encoder launch runs (48 bfloat16 or
+    float32 features, int8 codes out), static and static_rec, as
+    torch.profiler names them; run in a process of its own, whose first
+    profiler session this is (PERF.md section 7)."""
     import torch
     from torch.autograd import DeviceType
     from pepper_tpu_torch.ops import lstm_kernel
@@ -2881,11 +3095,13 @@ def _hp_static_encoder_kernels(device_name):
     device = torch.device(device_name)
     gen = torch.Generator(device=device).manual_seed(2123)
     names = {}
-    for mode in ("static", "static_rec"):
-        w = static_weights(gen, "encoder", torch.bfloat16,
-                           mode == "static_rec", device, features=HP_F)
+    for mode, dtype in ((mode, dtype) for dtype in (torch.bfloat16,
+                                                     torch.float32)
+                        for mode in ("static", "static_rec")):
+        w = static_weights(gen, "encoder", dtype, mode == "static_rec",
+                           device, features=HP_F)
         x = torch.randint(-125, 126, (HP_T, 64, HP_F), generator=gen,
-                          device=device).to(torch.bfloat16)
+                          device=device).to(dtype)
 
         def run():
             lstm_kernel.lstm_direction_fused_static(
@@ -2897,16 +3113,21 @@ def _hp_static_encoder_kernels(device_name):
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             run()
-        names[mode] = sorted({e.name for e in prof.events()
-                              if e.device_type == DeviceType.CUDA})
+        names[f"{mode}_{str(dtype).split('.')[1]}"] = sorted(
+            {e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA})
     return names
 
 
 def hp_static_encoder_route(device):
-    """Row 2's HP static encoder in a trace: the core's bf16 projection
-    with the codes kinds' sums (projection_kernel<.., true>) and the
-    core's codes body over its xw (core_kernel<.., false, Kind<float,
-    signed char, ..>>), and not the first body (lstm_static_kernel)."""
+    """Row 2's HP static encoder in a trace, never the first body
+    (lstm_static_kernel): in bfloat16 the core's bf16 projection with the
+    codes kinds' sums (projection_kernel<.., true>) and the core's codes
+    body over its xw (core_kernel<.., false, Kind<float, signed char,
+    ..>>); in float32 the float32 FMA projection
+    (projection_narrow_kernel) and, over its xw, the float32 core's codes
+    kind (f32_core_kernel<.., true>; static) or the bf16 core's int8-W_hh
+    codes body (static_rec)."""
     import concurrent.futures
     import multiprocessing
 
@@ -2914,38 +3135,24 @@ def hp_static_encoder_route(device):
             max_workers=1,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         names = pool.submit(_hp_static_encoder_kernels, str(device)).result()
-    for mode, kernels in names.items():
-        check(any("projection_kernel<" in k and ", true>" in k
-                  for k in kernels)
-              and any("core_kernel<" in k and ", false, " in k
-                      and "signed char" in k for k in kernels)
-              and not any("lstm_static_kernel" in k for k in kernels),
-              f"HP {mode} encoder: kernels {kernels}")
+    for case, kernels in names.items():
+        if case.endswith("bfloat16"):
+            route = (any("projection_kernel<" in k and ", true>" in k
+                         for k in kernels)
+                     and any("core_kernel<" in k and ", false, " in k
+                             and "signed char" in k for k in kernels))
+        elif case.startswith("static_rec"):
+            route = (any("projection_narrow_kernel" in k for k in kernels)
+                     and any("core_kernel<" in k and "f32_core" not in k
+                             and "signed char, true>" in k
+                             for k in kernels))
+        else:
+            route = (any("projection_narrow_kernel" in k for k in kernels)
+                     and any("f32_core_kernel<" in k and ", true>" in k
+                             for k in kernels))
+        check(route and not any("lstm_static_kernel" in k for k in kernels),
+              f"HP {case} encoder: kernels {kernels}")
     return names
-
-
-def hp_static_encoder_split(device, x, w, rec_int8):
-    """The HP static encoder's recurrence alone on lstm_core.cuh (the
-    library's recurrence entry over a float32 xw = b + x @ W_ih), beside
-    the whole launch, which first projects x (48 bfloat16 features) into
-    such an xw: the projection's time is the difference."""
-    import torch
-    from pepper_tpu_torch.ops import cuda_build
-
-    xw = (w["b"] + x.float() @ w["w_ih"][0].float()).contiguous()
-    w_rec = cuda_build.int8_kmajor(w["w_hh"]) if rec_int8 else w["w_hh"]
-    out = torch.empty((HP_T, x.shape[1], H), dtype=torch.int8, device=device)
-
-    def recur():
-        cuda_build.launch("lstm_direction_fused_static_recurrence", device,
-                          2 if rec_int8 else 1, xw.data_ptr(),
-                          w_rec.data_ptr(),
-                          w["rec_scale"].data_ptr() if rec_int8 else None,
-                          out.data_ptr(), HP_T, x.shape[1], H, 0)
-
-    return {"recurrence_ms": device_ms(recur),
-            "recurrence_plan": static_plan(device, x.shape[1], False,
-                                           rec_int8)}
 
 
 def phase_kernel_hp(device, card):
@@ -3096,37 +3303,14 @@ def phase_kernel_hp(device, card):
                                                 torch.float32, device)
         timings[f"row1_{shape}"]["kernel_ms_float32"] = device_ms(
             lambda: fused(xs32, w32, b32, w_hh32))
-    for mode in ("static", "static_rec"):
-        rec_int8 = mode == "static_rec"
-        x = torch.randint(-125, 126, (HP_T, B_SERVE, HP_F), generator=gen,
-                          device=device).to(dtype)
-        enc = static_weights(gen, "encoder", dtype, rec_int8, device,
-                             features=HP_F)
-        streams = (run(static, (x,), enc, out_int8=True),
-                   run(static, (x,), enc, True, out_int8=True))
-        dec = static_weights(gen, "decoder", dtype, rec_int8, device)
-        for layer, xs, w in (("encoder", (x,), enc),
-                             ("decoder", streams, dec)):
-            features = sum(part.shape[2] for part in xs)
-            on_core = lstm_kernel.static_on_core(
-                xs[0].dtype, w["w_hh"].dtype, True, features)
-            check(on_core, f"HP {mode} {layer}: not on lstm_core.cuh")
-            joins = (layer == "encoder"
-                     and features <= lstm_kernel.FUSED_X_MAX)
-            entry = {
-                "kernel_ms": device_ms(lambda: run(static, xs, w,
-                                                   out_int8=True)),
-                "plain_ms": cuda_ms(lambda: run(static_twin, xs, w,
-                                                out_int8=True), iters=3),
-                "bound_ms": static_bound_ms(layer, B_SERVE, dtype, rec_int8,
-                                            HP_T, HP_F),
-                "body": "lstm_core.cuh, " + (
-                    "x joins each step" if joins else
-                    "projection first into a float32 xw"),
-                "plan": static_plan(device, B_SERVE, joins, rec_int8)}
-            if layer == "encoder" and not joins:
-                entry.update(hp_static_encoder_split(device, x, w, rec_int8))
-            timings[f"row2_{mode}_{layer}"] = entry
+    for dtype_name, hp_dtype in (("bfloat16", torch.bfloat16),
+                                 ("float32", torch.float32)):
+        for key, entry in static_launch_times(
+                device, static, static_twin, gen, hp_dtype, HP_T,
+                HP_F).items():
+            layer, mode = key.split("_", 1)
+            suffix = "" if dtype_name == "bfloat16" else "_float32"
+            timings[f"row2_{mode}_{layer}{suffix}"] = entry
     xw, w_hh = hp_xw(B_SERVE, dtype)
     eye = torch.eye(4 * H, device=device)
     lstm = cudnn_lstm([((eye,), torch.zeros(4 * H, device=device), w_hh)],
@@ -3156,11 +3340,18 @@ def phase_kernel_hp(device, card):
             ["row2_static_encoder", "row2_static_decoder"], 2),
         "lstm_direction_fused_static_rec": batch(
             ["row2_static_rec_encoder", "row2_static_rec_decoder"], 2),
+        "lstm_direction_fused_static_float32": batch(
+            ["row2_static_encoder_float32", "row2_static_decoder_float32"],
+            2, ("kernel_ms", "plain_ms", "bound_ms", "bound_ms_f32_fma")),
+        "lstm_direction_fused_static_rec_float32": batch(
+            ["row2_static_rec_encoder_float32",
+             "row2_static_rec_decoder_float32"],
+            2, ("kernel_ms", "plain_ms", "bound_ms", "bound_ms_f32_fma")),
         "lstm_recurrence": batch(["row4"], 4)}
     emit({"phase": "kernel_hp", "card": card, "T": HP_T, "features": HP_F,
           "max_abs_err": max_err, "max_code_diff": max_code_diff,
           "equal_share": codes, "B": B_SERVE, "per_launch": timings,
-          "per_batch_bfloat16": per_batch,
+          "per_batch": per_batch,
           "static_encoder_kernels": hp_static_encoder_route(device),
           "static_ptxas": [e["entry"] for e in ptxas_entries(
               "lstm_direction_fused_static")
@@ -3238,7 +3429,12 @@ def phase_transducer_hp(device, card):
             result[f"{route}_{dtype_name}"] = {
                 "max_abs_err": err, "argmax_agree": agree, "batch_ms": ms,
                 "windows_per_s": B_SERVE / ms * 1e3}
-    for mode in ("static", "static_rec", "dynamic"):
+    for key, mode, dtype in (
+            ("static", "static", torch.bfloat16),
+            ("static_rec", "static_rec", torch.bfloat16),
+            ("dynamic", "dynamic", torch.bfloat16),
+            ("static_float32", "static", torch.float32),
+            ("static_rec_float32", "static_rec", torch.float32)):
         if mode == "dynamic":
             q, s = (params_from_jax(tree, device)
                     for tree in quantize.quantize_params(host))
@@ -3250,20 +3446,21 @@ def phase_transducer_hp(device, card):
             tree = quantize.prepare_static(
                 quantize.quantize_params_static(
                     host, rec_int8=mode == "static_rec"),
-                torch.bfloat16, device)
+                dtype, device)
             kernel = "lstm_direction_fused_static"
 
             def forward():
-                return quantize.transducer_infer_static(tree, windows,
-                                                        torch.bfloat16)
-        probs = launched(forward, kernel, 4, f"HP {mode}")
+                return quantize.transducer_infer_static(tree, windows, dtype)
+        probs = launched(forward, kernel, 4, f"HP {key}")
+        launches = wrappers[kernel].launches  # this batch's, just read
         with twin_path():
             ref = forward()
         err, agree = checked_probs(probs, ref, QUANTIZED_BARS[mode],
-                                   f"HP {mode}")
+                                   f"HP {key}")
         ms = cuda_ms(forward, iters=5)
-        result[mode] = {"max_abs_err": err, "argmax_agree": agree,
-                        "batch_ms": ms, "windows_per_s": B_SERVE / ms * 1e3}
+        result[key] = {"max_abs_err": err, "argmax_agree": agree,
+                       "batch_ms": ms, "windows_per_s": B_SERVE / ms * 1e3,
+                       "launches": launches}
     emit({"phase": "transducer_hp", "card": card, "B": B_SERVE, "T": HP_T,
           "features": HP_F, **result})
     return result
@@ -5266,7 +5463,8 @@ def parse_phases(argv):
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--phases":
-        raise SystemExit("usage: chip_smoke.py [--phases N[,N...]]")
+        raise SystemExit("usage: chip_smoke.py [--phases N[,N...] | "
+                         "--static_float32_times DIR]")
     only = {int(n) for n in argv[1].split(",")}
     if not only or not only <= set(range(3, 23)):
         raise SystemExit(f"--phases takes numbers 3-22, got {argv[1]}")
@@ -5276,12 +5474,16 @@ def parse_phases(argv):
 def main(argv=()) -> int:
     import torch
 
-    only = parse_phases(list(argv))
+    argv, times_root = list(argv), None
+    if argv[:1] == ["--static_float32_times"] and len(argv) == 2:
+        argv, times_root = [], os.path.abspath(argv[1])
+    root = times_root or ROOT
+    only = parse_phases(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, root)
     try:
         import pepper_tpu_torch  # noqa: F401
     except ImportError as exc:
@@ -5293,6 +5495,13 @@ def main(argv=()) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     smi = nvidia_smi_line()
+    if times_root:
+        package = os.path.dirname(os.path.abspath(pepper_tpu_torch.__file__))
+        check(os.path.dirname(package) == root,
+              f"{package} is not {root}'s package")
+        emit({"phase": "static_float32_times", "root": root, "card": smi,
+              **static_float32_times(device)})
+        return 0
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__,
@@ -5324,7 +5533,7 @@ def main(argv=()) -> int:
     timed("transducer_quantized", phase_transducer_quantized, device, smi)
     hp_err, hp_code_diff, hp_batch = timed("kernel_hp", phase_kernel_hp,
                                            device, smi)
-    timed("transducer_hp", phase_transducer_hp, device, smi)
+    hp_transducer = timed("transducer_hp", phase_transducer_hp, device, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         scene = write_scene(workdir)
         launches = timed("call", phase_call, device, workdir, scene)
@@ -5370,6 +5579,13 @@ def main(argv=()) -> int:
          static_launch[f"decoder_{mode}_bfloat16"]],
         ("kernel_ms", "plain_ms", "bound_ms", "projection_ms",
          "recurrence_ms"))
+        for mode in ("static", "static_rec")}
+    # row 2's float32 kinds (the float32 static modes), with both bounds
+    static_f32 = {mode: batch(
+        [static_launch[f"encoder_{mode}_float32"],
+         static_launch[f"decoder_{mode}_float32"]],
+        ("kernel_ms", "plain_ms", "bound_ms", "bound_ms_f32_fma",
+         "projection_ms", "recurrence_ms"))
         for mode in ("static", "static_rec")}
     # row 1's kernel at phase 5's shapes, in the same phase
     float_same_run = batch(
@@ -5463,17 +5679,37 @@ def main(argv=()) -> int:
         "recurrence_ms": static_batch["static"]["recurrence_ms"],
         "static_rec": static_batch["static_rec"],
         "row_1_ms_same_phase": float_same_run,
-        "status": "redesigned: the bfloat16 and int8 combinations with int8 "
-                  "codes out on lstm_core.cuh (the decoder's int8 "
-                  "projection and static_rec's int8 recurrence on the "
-                  "tensor cores, mma.sync m16n8k32; the HP encoder's 48 "
-                  "bfloat16 features projected first, PR 14), int8 "
-                  "weights relaid once per tree; float32 x or W_hh and the "
-                  "float epilogue, which no served mode runs, keep the "
+        "status": "redesigned: every combination with int8 codes out on "
+                  "lstm_core.cuh (the decoder's int8 projection and "
+                  "static_rec's int8 recurrence on the tensor cores, "
+                  "mma.sync m16n8k32; the HP encoder's 48 bfloat16 "
+                  "features projected first; a float32 W_hh on the "
+                  "float32 core's codes kind, float32 x projected "
+                  "first), int8 weights relaid once per tree; only the "
+                  "float epilogue, which no served mode runs, keeps the "
                   "first body; earlier design: PERF.md section 6, row 2",
         "work": f"one batch of {B_SERVE} windows in the static mode, "
                 "bfloat16: encoder and decoder, forward and backward (4 "
                 "launches)",
+        "float32": {
+            **{line: static_f32["static"][key] for key, line in (
+                ("kernel_ms", "ms"), ("plain_ms", "plain_ms"),
+                ("bound_ms", "bound_ms"),
+                ("bound_ms_f32_fma", "bound_ms_f32_fma"),
+                ("projection_ms", "projection_ms"),
+                ("recurrence_ms", "recurrence_ms"))},
+            "bound_by": "operations",
+            "bound_note": static_launch["encoder_static_float32"][
+                "bound_note"],
+            "launches": launches["cuda_static_float32"][
+                "lstm_direction_fused_static"],
+            "static_rec": {
+                **static_f32["static_rec"],
+                "launches": launches["cuda_static_rec_float32"][
+                    "lstm_direction_fused_static"]},
+            "work": f"one batch of {B_SERVE} windows in the float32 static "
+                    "mode (phase 9's cuda_static_float32 run): encoder and "
+                    "decoder, forward and backward (4 launches)"},
     }, {
         "name": "lstm_recurrence", "route": "cuda",
         "source": "pepper_tpu_torch/ops/csrc/lstm_recurrence.cu",
@@ -5647,6 +5883,18 @@ def main(argv=()) -> int:
                 "max_abs_err": err,
                 "work": f"one batch of {B_SERVE} HP windows (T={HP_T}, "
                         f"F={HP_F}), bfloat16"}
+            if row["name"] == "lstm_direction_fused_static":
+                hp_f32 = hp_batch["lstm_direction_fused_static_float32"]
+                row["hp"]["float32"] = {
+                    "ms": hp_f32["kernel_ms"], "plain_ms": hp_f32["plain_ms"],
+                    "bound_ms": hp_f32["bound_ms"],
+                    "bound_ms_f32_fma": hp_f32["bound_ms_f32_fma"],
+                    "launches": hp_transducer["static_float32"]["launches"],
+                    "static_rec": hp_batch[
+                        "lstm_direction_fused_static_rec_float32"],
+                    "work": f"one batch of {B_SERVE} HP windows in the "
+                            "float32 static mode (launches: phase 16's "
+                            "batch)"}
         route = {"gru_direction_fused": "fused",
                  "gru_recurrence": "recurrence"}.get(row["name"])
         if route:

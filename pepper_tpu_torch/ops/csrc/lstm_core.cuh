@@ -1,8 +1,8 @@
 // The LSTM core that lstm_direction_fused.cu, bilstm_dual_fused.cu,
 // lstm_recurrence.cu and lstm_direction_fused_static.cu share, for Hopper
 // (sm_90a): the bfloat16 core below and, at the end of this file, its
-// float32 kind (3xTF32 products; the float kernels' float32 path).
-// Together with the
+// float32 kind (3xTF32 products; the float kernels' float32 path, and with
+// int8 codes out the static kernel's float32 W_hh).  Together with the
 // input projection below it replaces the bf16 path of the TPU kernels
 // pepper_tpu/ops/lstm_kernel.py::lstm_direction_fused (body
 // _make_fused_kernel) and ::bilstm_dual_fused (body _make_dual_kernel), and
@@ -72,8 +72,10 @@
 //
 // * The static kernels (lstm_direction_fused_static.cu) run the same core
 //   with int8 codes out (TO = int8_t: round(h * 127), ties to even) and a
-//   float32 bias (Kind).  static keeps the bf16 W_hh above.  static_rec's
-//   int8 W_hh arrives k-major (4H, H); each CTA holds its slice (4U x H
+//   float32 bias (Kind).  static keeps the bf16 W_hh above (in float32
+//   its float32 W_hh runs the float32 core's codes kind, at the end of
+//   this file, in the same order of sums).  static_rec's int8 W_hh
+//   arrives k-major (4H, H); each CTA holds its slice (4U x H
 //   codes, 64 KB at H=256) in shared memory, the A tile holds the codes of
 //   h, exchanged as bf(h) is (in 8-byte pieces), the product is mma.sync
 //   m16n8k32 s8 -> s32 into accumulators of its own, and once the sum is
@@ -1334,6 +1336,19 @@ inline cudaError_t static_plan(int B, int H, bool fused_x, bool int_rec,
 // caller) wrote; the cell and out[t] = h as the bf16 core's, in float32,
 // with the library's expf and tanhf (the plain version's functions).
 //
+// Its codes kind (kCodes; the static kernel's float32 W_hh: the float32
+// static mode's encoder over the float32 projection's xw, and its decoder
+// over the int8 projection's) emits out[t] = round(h * 127), ties to even,
+// and sums as the bf16 core's codes kinds do: the recurrent part apart,
+// from zero, each k16 step's sum joined with a rounded add, then gates =
+// xw[t] + that part (xw = b + x-part, already summed by the projection),
+// the cell's products and sums rounded apart, sigmoid(v) = 1 / (1 + e^-v)
+// with its reciprocal rounded to nearest.  xw[t] joins after the product,
+// so it is loaded during the product's last k16 step (held through the
+// whole product, as the float kind holds it, the 96-row plan would run out
+// of registers), from L2, where a prefetch issued during the last step's
+// cell has put it.
+//
 // Products.  3xTF32 on mma.sync m16n8k8: each float32 operand splits into
 // hi = tf32(v) and lo = v - hi when its fragment is loaded
 // (mma_ptx.cuh:split_tf32), and a k16 step sums a_lo b_hi + a_hi b_lo +
@@ -1362,9 +1377,13 @@ inline cudaError_t static_plan(int B, int H, bool fused_x, bool int_rec,
 //   8 at once, so B=4096 takes 3 waves of 96 rows where 64 would take 5.
 //   The plan is printed by lstm_direction_fused_plan and
 //   lstm_recurrence_plan with dtype 0.
-// * Each row's sums run in one order whatever the plan (k8 steps in order,
+// * Each row's sums run in one order whatever the plan (the k16 steps of
+//   the CTA's own 32 units first, then the others in order; k8 steps and
 //   the three products in order, one rounded add a k16 step), so a row's
-//   result does not depend on B or on the rows beside it.
+//   result does not depend on B or on the rows beside it.  The own units'
+//   h is in the CTA's A tile before its peers' slices arrive, so the next
+//   step's own part runs inside the exchange, between its cluster arrive
+//   and wait.
 // * h is exchanged as the bf16 core's is: each CTA writes its 32 units of
 //   its R rows into its own A tile and pushes them into its peers' tiles
 //   (st.shared::cluster, 16 bytes a store), between split cluster
@@ -1400,7 +1419,7 @@ __device__ __forceinline__ int f32_w_at(int lc, int k, int H) {
 struct F32Direction {
   const float* w_hh;  // (H, 4H)
   const float* xw;    // (T, B, 4H)
-  float* out;         // (T, B, H)
+  void* out;          // (T, B, H): float, or int8 codes (kCodes)
   int reverse;
 };
 
@@ -1409,9 +1428,10 @@ struct F32Args {
   F32Direction dir[2];  // blockIdx.y picks one
 };
 
-template <int kGroups, int kMT>
+template <int kGroups, int kMT, bool kCodes>
 __global__ void __launch_bounds__(128 * kGroups, 1)
     f32_core_kernel(const F32Args a) {
+  using CodesKind = Kind<float, int8_t>;
   constexpr int R = 16 * kMT * kGroups;
   constexpr int kThreads = 128 * kGroups;
   constexpr int U = kF32Units;
@@ -1452,7 +1472,8 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
   }
 
   // acc[mt][q][2e+j]: gate q of unit `unit + j`, row row0 + mt*16 + quad +
-  // 8e of the cluster, from xw[t] (loaded into nxt a step ahead)
+  // 8e of the cluster, from xw[t] (loaded into nxt a step ahead; the codes
+  // kind from zero, xw[t] loaded into nxt during the last k16 step)
   float nxt[kMT][4][4];
   auto load_xw = [&](int t) {
 #pragma unroll
@@ -1473,7 +1494,29 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
       }
     }
   };
-  load_xw(d.reverse ? steps - 1 : 0);
+  // the codes kind's xw[t] into L2 a step ahead of its load
+  auto prefetch_xw = [&](int t) {
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = b0 + row0 + mt * 16 + quad + 8 * e;
+        if (row < B) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+                d.xw + (static_cast<size_t>(t) * B + row) * G + q * H +
+                unit));
+          }
+        }
+      }
+    }
+  };
+  if constexpr (kCodes) {
+    prefetch_xw(d.reverse ? steps - 1 : 0);
+  } else {
+    load_xw(d.reverse ? steps - 1 : 0);
+  }
   __syncthreads();  // W_hh's slice and h0 in place
 
   float c[kMT][4];
@@ -1493,64 +1536,109 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
   const float* b_row = ws + (group * 32 + (lane >> 4) * 8 + (lane & 7)) * H;
   const int b_half = (lane >> 3) & 1, b_swz = lane & 7;
 
-  for (int s = 0; s < steps; ++s) {
-    const int t = d.reverse ? steps - 1 - s : s;
-    const bool more = s + 1 < steps;
-    float acc[kMT][4][4];
+  float acc[kMT][4][4];
+  // a step's sums start from xw[t] (the codes kind's from zero)
+  auto start_sums = [&]() {
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
 #pragma unroll
-        for (int v = 0; v < 4; ++v) acc[mt][q][v] = nxt[mt][q][v];
+        for (int v = 0; v < 4; ++v) {
+          acc[mt][q][v] = kCodes ? 0.0f : nxt[mt][q][v];
+        }
       }
     }
-    // a k16 step's products from zero into part, then one rounded add
-    for (int kk = 0; kk < H; kk += 16) {
-      float part[kMT][4][4] = {};
+  };
+  // the product over the k16 step kk: from zero into part, then one
+  // rounded add
+  auto product_k16 = [&](int kk) {
+    float part[kMT][4][4] = {};
 #pragma unroll
-      for (int k8 = kk; k8 < kk + 16; k8 += 8) {
-        unsigned bw[2][4], b_hi[2][4], b_lo[2][4];
-        const float* b_at = b_row + ((((k8 >> 2) + b_half) ^ b_swz) << 2);
-        ldmatrix_x4(bw[0], b_at);
-        ldmatrix_x4(bw[1], b_at + 16 * H);
-        split_tf32(bw[0], b_hi[0], b_lo[0]);
-        split_tf32(bw[1], b_hi[1], b_lo[1]);
-        unsigned a_hi[kMT][4], a_lo[kMT][4];
+    for (int k8 = kk; k8 < kk + 16; k8 += 8) {
+      unsigned bw[2][4], b_hi[2][4], b_lo[2][4];
+      const float* b_at = b_row + ((((k8 >> 2) + b_half) ^ b_swz) << 2);
+      ldmatrix_x4(bw[0], b_at);
+      ldmatrix_x4(bw[1], b_at + 16 * H);
+      split_tf32(bw[0], b_hi[0], b_lo[0]);
+      split_tf32(bw[1], b_hi[1], b_lo[1]);
+      unsigned a_hi[kMT][4], a_lo[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        unsigned af[4];
+        ldmatrix_x4(af, a_base + mt * 16 * ld + k8);
+        split_tf32(af, a_hi[mt], a_lo[mt]);
+      }
+      // a_lo b_hi, then a_hi b_lo, then a_hi b_hi, each over every tile
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass) {
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
-          unsigned af[4];
-          ldmatrix_x4(af, a_base + mt * 16 * ld + k8);
-          split_tf32(af, a_hi[mt], a_lo[mt]);
-        }
-        // a_lo b_hi, then a_hi b_lo, then a_hi b_hi, each over every tile
 #pragma unroll
-        for (int pass = 0; pass < 3; ++pass) {
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int p = q / 2, r = 2 * (q % 2);
-              const unsigned(&af)[4] = pass == 0 ? a_lo[mt] : a_hi[mt];
-              const unsigned(&bf)[4] = pass == 1 ? b_lo[p] : b_hi[p];
-              mma_tf32(part[mt][q], af, bf[r], bf[r + 1]);
-            }
+          for (int q = 0; q < 4; ++q) {
+            const int p = q / 2, r = 2 * (q % 2);
+            const unsigned(&af)[4] = pass == 0 ? a_lo[mt] : a_hi[mt];
+            const unsigned(&bf)[4] = pass == 1 ? b_lo[p] : b_hi[p];
+            mma_tf32(part[mt][q], af, bf[r], bf[r + 1]);
           }
         }
       }
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          acc[mt][q][v] = __fadd_rn(acc[mt][q][v], part[mt][q][v]);
+        }
+      }
+    }
+  };
+  // Each step sums the k16 steps of this CTA's own units first (their h is
+  // in its A tile before the peers' slices arrive: the next step's own part
+  // runs between the exchange's arrive and wait), then the rest in order;
+  // a row's order of sums depends on its columns alone, not on B.
+  const int own = rank * U;
+  start_sums();
+  for (int kk = own; kk < own + U; kk += 16) product_k16(kk);
+
+  for (int s = 0; s < steps; ++s) {
+    const int t = d.reverse ? steps - 1 - s : s;
+    const bool more = s + 1 < steps;
+    // the other units' k16 steps in order, the last of them (-16: none)
+    // apart: the codes kind loads xw[t] before it, so that the loads are in
+    // flight during its products (held through all of them, xw would take
+    // registers the 96-row plan does not have)
+    const int last = own + U < H ? H - 16 : own - 16;
+    for (int kk = 0; kk < own && kk != last; kk += 16) product_k16(kk);
+    for (int kk = own + U; kk < last; kk += 16) product_k16(kk);
+    if constexpr (kCodes) {
+      asm volatile("" ::: "memory");  // the loads stay below the product
+      load_xw(t);
+    }
+    if (last >= 0) product_k16(last);
+    if constexpr (kCodes) {
+      // gates = xw[t] + the recurrent part, the plain version's order
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
 #pragma unroll
           for (int v = 0; v < 4; ++v) {
-            acc[mt][q][v] = __fadd_rn(acc[mt][q][v], part[mt][q][v]);
+            acc[mt][q][v] = __fadd_rn(nxt[mt][q][v], acc[mt][q][v]);
           }
         }
       }
     }
     cluster_arrive();  // done reading the A tile
-    if (more) load_xw(d.reverse ? t - 1 : t + 1);
+    if (more) {
+      if constexpr (kCodes) {
+        prefetch_xw(d.reverse ? t - 1 : t + 1);
+      } else {
+        load_xw(d.reverse ? t - 1 : t + 1);
+      }
+    }
 
     const size_t base = static_cast<size_t>(t) * B;
 #pragma unroll
@@ -1561,19 +1649,35 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int v = 2 * e + j;
-          const float ig = sigmoid(acc[mt][0][v]);
-          const float fg = sigmoid(acc[mt][1][v]);
-          const float gg = tanhf(acc[mt][2][v]);
-          const float og = sigmoid(acc[mt][3][v]);
           float& cv = c[mt][v];
-          cv = fg * cv + ig * gg;
-          h[j] = og * tanhf(cv);
+          if constexpr (kCodes) {
+            const float ig = gate_sigmoid<CodesKind>(acc[mt][0][v]);
+            const float fg = gate_sigmoid<CodesKind>(acc[mt][1][v]);
+            const float gg = tanhf(acc[mt][2][v]);
+            const float og = gate_sigmoid<CodesKind>(acc[mt][3][v]);
+            cv = __fadd_rn(__fmul_rn(fg, cv), __fmul_rn(ig, gg));
+            h[j] = __fmul_rn(og, tanhf(cv));
+          } else {
+            const float ig = sigmoid(acc[mt][0][v]);
+            const float fg = sigmoid(acc[mt][1][v]);
+            const float gg = tanhf(acc[mt][2][v]);
+            const float og = sigmoid(acc[mt][3][v]);
+            cv = fg * cv + ig * gg;
+            h[j] = og * tanhf(cv);
+          }
         }
         hw[mt][e] = make_float2(h[0], h[1]);
         const int row = b0 + row0 + mt * 16 + quad + 8 * e;
         if (row < B) {
-          *reinterpret_cast<float2*>(d.out + (base + row) * H + unit) =
-              hw[mt][e];
+          const size_t o = (base + row) * H + unit;
+          if constexpr (kCodes) {
+            *reinterpret_cast<unsigned short*>(static_cast<int8_t*>(d.out) +
+                                               o) =
+                static_cast<unsigned short>(pack_codes(h[0], h[1]));
+          } else {
+            *reinterpret_cast<float2*>(static_cast<float*>(d.out) + o) =
+                hw[mt][e];
+          }
         }
       }
     }
@@ -1601,12 +1705,14 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
       }
     }
     cluster_arrive();
+    start_sums();
+    for (int kk = own; kk < own + U; kk += 16) product_k16(kk);
     cluster_wait();  // every slice of h in place
   }
   cluster_wait();  // pairs the last step's arrive
 }
 
-template <int kGroups, int kMT>
+template <int kGroups, int kMT, bool kCodes>
 struct F32Tag {};
 
 template <int kGroups, int kMT>
@@ -1628,7 +1734,7 @@ void fill_f32_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
 
 // How many clusters of the float32 core run at once on `device` at width H
 // (asked once per device and H).
-template <int kGroups, int kMT>
+template <int kGroups, int kMT, bool kCodes>
 cudaError_t max_f32_clusters(int device, int H, int* count) {
   static std::mutex mu;
   static std::map<std::tuple<int, int>, int> memo;
@@ -1639,8 +1745,8 @@ cudaError_t max_f32_clusters(int device, int H, int* count) {
     *count = found->second;
     return cudaSuccess;
   }
-  auto kernel = f32_core_kernel<kGroups, kMT>;
-  cudaError_t err = ensure_smem_limit<F32Tag<kGroups, kMT>>(
+  auto kernel = f32_core_kernel<kGroups, kMT, kCodes>;
+  cudaError_t err = ensure_smem_limit<F32Tag<kGroups, kMT, kCodes>>(
       reinterpret_cast<const void*>(kernel), device);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
@@ -1660,11 +1766,12 @@ cudaError_t max_f32_clusters(int device, int H, int* count) {
 
 // The rows a cluster of the float32 core for dirs directions of B rows:
 // the fewest of 32, 64 and 96 whose clusters all run in one wave, else 96.
-inline cudaError_t pick_f32_rows(int B, int H, int dirs, int device,
-                                 int* rows, int* count) {
+template <bool kCodes>
+cudaError_t pick_f32_rows(int B, int H, int dirs, int device, int* rows,
+                          int* count) {
   cudaError_t err;
 #define LSTM_F32_TRY(ROWS, PLAN)                                            \
-  err = max_f32_clusters<PLAN>(device, H, count);                         \
+  err = max_f32_clusters<PLAN, kCodes>(device, H, count);                 \
   if (err != cudaSuccess) return err;                                     \
   *rows = ROWS;                                                           \
   if (static_cast<long long>(dirs) * ((B + ROWS - 1) / ROWS) <= *count) {  \
@@ -1674,14 +1781,14 @@ inline cudaError_t pick_f32_rows(int B, int H, int dirs, int device,
   LSTM_F32_TRY(64, LSTM_F32_64)
 #undef LSTM_F32_TRY
   *rows = 96;
-  return max_f32_clusters<LSTM_F32_96>(device, H, count);
+  return max_f32_clusters<LSTM_F32_96, kCodes>(device, H, count);
 }
 
-template <int kGroups, int kMT>
+template <int kGroups, int kMT, bool kCodes>
 cudaError_t launch_f32_rows(const F32Args& a, int dirs, int device,
                             cudaStream_t stream) {
-  auto kernel = f32_core_kernel<kGroups, kMT>;
-  cudaError_t err = ensure_smem_limit<F32Tag<kGroups, kMT>>(
+  auto kernel = f32_core_kernel<kGroups, kMT, kCodes>;
+  cudaError_t err = ensure_smem_limit<F32Tag<kGroups, kMT, kCodes>>(
       reinterpret_cast<const void*>(kernel), device);
   if (err != cudaSuccess) return err;
   constexpr int rows = 16 * kMT * kGroups;
@@ -1693,6 +1800,38 @@ cudaError_t launch_f32_rows(const F32Args& a, int dirs, int device,
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
+
+// The float32 core over dirs directions of a (kCodes: int8 codes out).
+// Each xw must start on 8 bytes and each W_hh on 16.
+template <bool kCodes>
+cudaError_t launch_f32_core(const F32Args& a, int dirs,
+                            cudaStream_t stream) {
+  for (int i = 0; i < dirs; ++i) {
+    if (reinterpret_cast<uintptr_t>(a.dir[i].w_hh) % 16 != 0 ||
+        a.dir[i].xw == nullptr ||
+        reinterpret_cast<uintptr_t>(a.dir[i].xw) % 8 != 0) {
+      return cudaErrorMisalignedAddress;
+    }
+  }
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  int rows = 0, count = 0;
+  err = pick_f32_rows<kCodes>(a.B, a.H, dirs, device, &rows, &count);
+  if (err != cudaSuccess) return err;
+  switch (rows) {
+    case 32:
+      return launch_f32_rows<LSTM_F32_32, kCodes>(a, dirs, device, stream);
+    case 64:
+      return launch_f32_rows<LSTM_F32_64, kCodes>(a, dirs, device, stream);
+    default:
+      return launch_f32_rows<LSTM_F32_96, kCodes>(a, dirs, device, stream);
+  }
+}
+
+#undef LSTM_F32_32
+#undef LSTM_F32_64
+#undef LSTM_F32_96
 
 // The float32 recurrence of dirs directions over their xw (which holds the
 // input projection and the bias); direction i runs reversed where
@@ -1707,40 +1846,36 @@ inline cudaError_t launch_recurrence_f32(const float* const* xw,
   a.B = B;
   a.H = H;
   for (int i = 0; i < dirs; ++i) {
-    if (reinterpret_cast<uintptr_t>(w_hh[i]) % 16 != 0 ||
-        xw[i] == nullptr || reinterpret_cast<uintptr_t>(xw[i]) % 8 != 0) {
-      return cudaErrorMisalignedAddress;
-    }
-    a.dir[i] = {static_cast<const float*>(w_hh[i]), xw[i],
-                static_cast<float*>(out[i]), reverse[i]};
+    a.dir[i] = {static_cast<const float*>(w_hh[i]), xw[i], out[i],
+                reverse[i]};
   }
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  int rows = 0, count = 0;
-  err = pick_f32_rows(B, H, dirs, device, &rows, &count);
-  if (err != cudaSuccess) return err;
-  switch (rows) {
-    case 32:
-      return launch_f32_rows<LSTM_F32_32>(a, dirs, device, stream);
-    case 64:
-      return launch_f32_rows<LSTM_F32_64>(a, dirs, device, stream);
-    default:
-      return launch_f32_rows<LSTM_F32_96>(a, dirs, device, stream);
-  }
+  return launch_f32_core<false>(a, dirs, stream);
 }
 
-#undef LSTM_F32_32
-#undef LSTM_F32_64
-#undef LSTM_F32_96
+// The static kernel's float32 W_hh (H, 4H): one direction over its float32
+// xw (b + x-part, from the float32 or the int8 projection) with int8 codes
+// out, the codes kind of the float32 core.
+inline cudaError_t launch_static_f32(const float* xw, const void* w_hh,
+                                     int8_t* out, int reverse, int steps,
+                                     int B, int H, cudaStream_t stream) {
+  F32Args a{};
+  a.steps = steps;
+  a.B = B;
+  a.H = H;
+  a.dir[0] = {static_cast<const float*>(w_hh), xw, out, reverse};
+  return launch_f32_core<true>(a, 1, stream);
+}
 
-// The float32 core's plan (as plan_of reports the bf16 core's).
-inline cudaError_t f32_plan(int B, int H, int dirs, int* out) {
+// The float32 core's plan (as plan_of reports the bf16 core's), for its
+// float kind or (codes) its codes kind.
+inline cudaError_t f32_plan(int B, int H, int dirs, int* out,
+                            bool codes = false) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   int rows = 0, count = 0;
-  err = pick_f32_rows(B, H, dirs, device, &rows, &count);
+  err = codes ? pick_f32_rows<true>(B, H, dirs, device, &rows, &count)
+              : pick_f32_rows<false>(B, H, dirs, device, &rows, &count);
   if (err != cudaSuccess) return err;
   out[0] = rows;
   out[1] = f32_cluster_size(H);
@@ -1773,10 +1908,10 @@ inline cudaError_t f32_plan(int B, int H, int dirs, int* out) {
 //   encoder's; its bound is the xw it writes (553 MB at B=4096: 0.165 ms).
 
 constexpr int kQK = 16;
-constexpr int kNarrowMax = 64;    // features the FMA projection takes
-constexpr int kNarrowRows = 32;   // rows a block of it
-constexpr int kNarrowCols = 128;  // columns a block, one a thread
-constexpr int kNarrowBlocks = 128;  // row tiles walked at once
+constexpr int kNarrowMax = 64;      // features the FMA projection takes
+constexpr int kNarrowRows = 64;     // rows a block of it, a tile
+constexpr int kNarrowThreads = 128;  // threads a block, two columns each
+constexpr int kNarrowBlocks = 256;  // row tiles walked at once
 
 struct ProjF32Dir {
   const float* w0;    // (F0, N)
@@ -1956,47 +2091,100 @@ __global__ void __launch_bounds__(kPThreads, 2)
   }
 }
 
-// The narrow float32 projection: a block owns kNarrowCols columns of one
-// direction (a thread each, its column of W in registers, kF of them: the
-// features rounded up to 32 or 64) and steps over rows kNarrowRows at a
-// time, staged in shared memory and read as broadcasts; xw[m][n] = (sum_k
-// x[m][k] * W[k][n], FMAs from zero, k in order) + b[n].  A block walks
-// many row tiles (kNarrowBlocks of them cover the rows), so W is read
-// once a block.
+// The narrow float32 projection: a block owns 2 * kNarrowThreads columns
+// of one direction (two adjacent ones a thread, their columns of W in
+// registers, kF rows each: the features rounded up to 28, 48 or 64) and
+// steps over rows kNarrowRows at a time, staged in shared memory and read
+// as 16-byte broadcasts, four rows at once (eight FMA chains a thread);
+// xw[m][n] = (sum_k x[m][k] * W[k][n], FMAs from zero, k in order) + b[n],
+// stored two columns at a time.  A block walks many row tiles
+// (kNarrowBlocks of them cover the rows), so W is read once a block.
 template <int kF>
-__global__ void __launch_bounds__(kNarrowCols)
+__global__ void __launch_bounds__(kNarrowThreads)
     projection_narrow_kernel(const ProjF32Args a) {
+  constexpr int kCols = 2 * kNarrowThreads;
+  constexpr int kAtOnce = 4;  // rows a thread sums at once
   __shared__ __align__(16) float xs[kNarrowRows][kF];
-  const int tiles_n = a.N / kNarrowCols;
-  const int dir = static_cast<int>(blockIdx.x) / tiles_n;
-  const ProjF32Dir d = dir ? a.dir[1] : a.dir[0];
+  const int tiles_n = (a.N + kCols - 1) / kCols;
+  const ProjF32Dir d =
+      static_cast<int>(blockIdx.x) / tiles_n ? a.dir[1] : a.dir[0];
+  const float* x0 = a.x0;
+  const float* x1 = a.x1;
   const int F0 = a.F0, F1 = a.F1, F = F0 + F1, M = a.M, N = a.N;
-  const int n = (static_cast<int>(blockIdx.x) % tiles_n) * kNarrowCols +
-                static_cast<int>(threadIdx.x);
-  float w[kF];
+  // the block's last columns lie past N where N is not a multiple of kCols
+  const int n = min((static_cast<int>(blockIdx.x) % tiles_n) * kCols +
+                        2 * static_cast<int>(threadIdx.x),
+                    N - 2);
+  const bool live = (static_cast<int>(blockIdx.x) % tiles_n) * kCols +
+                        2 * static_cast<int>(threadIdx.x) <
+                    N;
+  float w[kF][2];
+  if (F1 == 0) {
 #pragma unroll
-  for (int k = 0; k < kF; ++k) {
-    w[k] = k >= F   ? 0.0f
-           : k < F0 ? d.w0[static_cast<size_t>(k) * N + n]
-                    : d.w1[static_cast<size_t>(k - F0) * N + n];
+    for (int k = 0; k < kF; ++k) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        w[k][c] = k < F ? d.w0[static_cast<size_t>(k) * N + n + c] : 0.0f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kF; ++k) {
+      const float* row = k < F0 ? d.w0 + static_cast<size_t>(k) * N
+                                : d.w1 + static_cast<size_t>(k - F0) * N;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) w[k][c] = k < F ? row[n + c] : 0.0f;
+    }
   }
-  const float bias = d.bias[n];
+  const float b0 = d.bias[n], b1 = d.bias[n + 1];
   for (int m0 = static_cast<int>(blockIdx.y) * kNarrowRows; m0 < M;
        m0 += static_cast<int>(gridDim.y) * kNarrowRows) {
     __syncthreads();  // the last rows are read
-    for (int i = threadIdx.x; i < kNarrowRows * kF; i += kNarrowCols) {
-      const int r = i / kF, k = i % kF, m = m0 + r;
-      xs[r][k] = m >= M || k >= F ? 0.0f
-                 : k < F0         ? a.x0[static_cast<size_t>(m) * F0 + k]
-                          : a.x1[static_cast<size_t>(m) * F1 + k - F0];
+    // (one part, the encoders' case, in a loop of its own: with both
+    // parts' selects in one loop this kernel took 0.40-0.42 ms for the
+    // 33x26 encoder's xw at B=4096 on an H100; PERF.md section 7)
+    if (F1 == 0) {
+      for (int i = threadIdx.x; i < kNarrowRows * kF; i += kNarrowThreads) {
+        const int r = i / kF, k = i % kF, m = m0 + r;
+        xs[r][k] =
+            m >= M || k >= F ? 0.0f : x0[static_cast<size_t>(m) * F0 + k];
+      }
+    } else {
+      for (int i = threadIdx.x; i < kNarrowRows * kF; i += kNarrowThreads) {
+        const int r = i / kF, k = i % kF, m = m0 + r;
+        xs[r][k] = m >= M || k >= F ? 0.0f
+                   : k < F0 ? x0[static_cast<size_t>(m) * F0 + k]
+                            : x1[static_cast<size_t>(m) * F1 + k - F0];
+      }
     }
     __syncthreads();
-    const int rows = M - m0 < kNarrowRows ? M - m0 : kNarrowRows;
-    for (int r = 0; r < rows; ++r) {
-      float acc = 0.0f;
+    // rows past M are zeros in the tile: summed, never stored
+    for (int r = 0; r < kNarrowRows; r += kAtOnce) {
+      float acc[kAtOnce][2] = {};
 #pragma unroll
-      for (int k = 0; k < kF; ++k) acc = __fmaf_rn(xs[r][k], w[k], acc);
-      d.xw[static_cast<size_t>(m0 + r) * N + n] = __fadd_rn(acc, bias);
+      for (int k4 = 0; k4 < kF / 4; ++k4) {
+#pragma unroll
+        for (int i = 0; i < kAtOnce; ++i) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(&xs[r + i][4 * k4]);
+          const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              acc[i][c] = __fmaf_rn(xv[j], w[4 * k4 + j][c], acc[i][c]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kAtOnce; ++i) {
+        if (live && m0 + r + i < M) {
+          *reinterpret_cast<float2*>(
+              d.xw + static_cast<size_t>(m0 + r + i) * N + n) =
+              make_float2(__fadd_rn(acc[i][0], b0), __fadd_rn(acc[i][1], b1));
+        }
+      }
     }
   }
 }
@@ -2032,13 +2220,16 @@ inline cudaError_t launch_projections_f32(
   }
   if (F0 + F1 <= kNarrowMax) {
     const int m_tiles = (p.M + kNarrowRows - 1) / kNarrowRows;
-    const dim3 grid(dirs * (p.N / kNarrowCols),
+    constexpr int kCols = 2 * kNarrowThreads;
+    const dim3 grid(dirs * ((p.N + kCols - 1) / kCols),
                     m_tiles < kNarrowBlocks ? m_tiles : kNarrowBlocks);
-    if (F0 + F1 <= 32) {
-      projection_narrow_kernel<32><<<grid, kNarrowCols, 0, stream>>>(p);
+    if (F0 + F1 <= 28) {
+      projection_narrow_kernel<28><<<grid, kNarrowThreads, 0, stream>>>(p);
+    } else if (F0 + F1 <= 48) {
+      projection_narrow_kernel<48><<<grid, kNarrowThreads, 0, stream>>>(p);
     } else {
       projection_narrow_kernel<kNarrowMax>
-          <<<grid, kNarrowCols, 0, stream>>>(p);
+          <<<grid, kNarrowThreads, 0, stream>>>(p);
     }
     return cudaGetLastError();
   }

@@ -28,28 +28,33 @@
 // codes move with a gate's last bit.
 //
 // Design.  Two bodies, by combination.
-// (a) lstm_core.cuh, for every combination with int8 codes out, bf16 or
-// int8 x and a bf16 or int8 W_hh (the static and static_rec serving modes
-// in bfloat16): the tensor-core recurrence with W_hh split over a cluster
-// of up to 4 CTAs, with int8 codes out and a float32 bias.  bf16 x of at
-// most kXMax (32) features (the encoder's 26) joins the step's product as
-// the float kernel's does; int8 x (the decoder's 2 x 256 codes) is first
-// projected for all T*B rows by int8_projection.cuh (mma.sync m16n8k32 s8
-// on the tensor cores) into a float32 xw scratch the caller allocates,
-// xw = b + f32(acc) * acc_scale (f32, as the TPU kernel's gates: bf16
-// would change the math), and the core's hoisted body runs over it.  bf16
-// x of more than kXMax features (the HP classifier's 48-feature encoder)
-// is projected the same way by the core's bf16 projection, xw = b + x @
-// W_ih with the codes kinds' sums (each k16 step's product from zero,
-// joined by rounded adds; the float32 bias added last, as the plain
-// version adds it).  An int8 W_hh (static_rec) is held k-major in the
-// cluster's shared memory and multiplied by the codes of h on the s8
-// tensor cores (lstm_core.cuh).  int8 weights arrive k-major ((N, K),
-// relaid once per weight tree: ops/cuda_build.py:int8_kmajor), W_ih as one
-// (4H, F0 + F1) matrix for both parts.
-// (b) The first body, for the rest: float32 x or a float32 W_hh, or a
-// float epilogue (out_int8=False), which no served mode runs.  The layout
-// of lstm_cell.cuh:
+// (a) lstm_core.cuh, for every combination with int8 codes out (the static
+// and static_rec serving modes in bfloat16 and in float32): the
+// tensor-core recurrence with W_hh split over a cluster, with int8 codes
+// out and a float32 bias.  bf16 x of at most kXMax (32) features (the
+// bfloat16 encoder's 26) joins the step's product as the float kernel's
+// does; int8 x (the decoder's 2 x 256 codes) is first projected for all
+// T*B rows by int8_projection.cuh (mma.sync m16n8k32 s8 on the tensor
+// cores) into a float32 xw scratch the caller allocates, xw = b + f32(acc)
+// * acc_scale (f32, as the TPU kernel's gates: bf16 would change the
+// math), and the core's hoisted body runs over it.  bf16 x of more than
+// kXMax features (the HP classifier's 48-feature encoder) is projected the
+// same way by the core's bf16 projection, xw = b + x @ W_ih with the codes
+// kinds' sums (each k16 step's product from zero, joined by rounded adds;
+// the float32 bias added last, as the plain version adds it); float32 x
+// (the float32 encoders' 26 or 48) by the core's float32 projection
+// (float32 FMAs in k order, then b).  A bf16 or int8 W_hh runs the bf16
+// core: an int8 one (static_rec) is held k-major in the cluster's shared
+// memory and multiplied by the codes of h on the s8 tensor cores.  A
+// float32 W_hh (the float32 static mode) runs the float32 core's codes
+// kind: W_hh over a cluster of H/32 CTAs, 3xTF32 products on mma.sync
+// m16n8k8, the recurrent part summed apart and added to xw[t] after it.
+// int8 weights arrive k-major ((N, K), relaid once per weight tree:
+// ops/cuda_build.py:int8_kmajor), W_ih as one (4H, F0 + F1) matrix for
+// both parts.
+// (b) The first body, for the float epilogue (out_int8=False) alone,
+// which no served mode runs (the JAX package's callers pass out_int8=True
+// too).  The layout of lstm_cell.cuh:
 // a block owns kRows batch rows for all T steps, thread j owns hidden unit
 // j and its four gate columns, c stays in registers; while a float part
 // is summed from zero, the gates' first sum waits in shared memory, so the
@@ -67,7 +72,9 @@
 // ms at 1,979 TOP/s) and 70.9 GFLOP of bf16 products (0.072 ms at 989
 // TFLOP/s).  Its projection is bound by the f32 xw it writes instead (553
 // MB, 0.165 ms); the recurrence, as the float kernel's, by its serial chain
-// of 33 steps, each ending in an exchange of h across the cluster.
+// of 33 steps, each ending in an exchange of h across the cluster.  In
+// float32 the same 70.9 GFLOP of the recurrence take 0.430 ms as 3xTF32
+// (1.058 as float32 FMAs), and the encoder's 78.1 GFLOP 0.473 ms.
 //
 // Binding: a plain C launcher (no PyTorch headers) loaded with ctypes; it
 // launches on the caller's stream and returns cudaGetLastError().
@@ -382,15 +389,15 @@ bool valid_args(int x_dtype, int whh_dtype, int out_kind, int F0, int F1,
          out_kind <= kOutInt8 && x_dtype >= kF32 && x_dtype <= kInt8 &&
          whh_dtype >= kF32 && whh_dtype <= kInt8 &&
          (!int_x || (F0 % 4 == 0 && F1 % 4 == 0 && acc_scale != nullptr)) &&
-         (whh_dtype != kInt8 || rec_scale != nullptr);
+         (whh_dtype != kInt8 || rec_scale != nullptr) &&
+         // a float W_hh beside float x has x's dtype
+         (int_x || whh_dtype == kInt8 || whh_dtype == x_dtype);
 }
 
-// Whether a combination runs on lstm_core.cuh (body (a)); the wrapper
-// (ops/lstm_kernel.py:static_on_core) applies the same rule to pick the
-// weights' layout.
-bool on_core(int x_dtype, int whh_dtype, int out_kind) {
-  return out_kind == kOutInt8 && x_dtype != kF32 && whh_dtype != kF32;
-}
+// Whether a combination runs on lstm_core.cuh (body (a)): every one with
+// int8 codes out.  The wrapper (ops/lstm_kernel.py:static_on_core) applies
+// the same rule to pick the weights' layout.
+bool on_core(int out_kind) { return out_kind == kOutInt8; }
 
 // xw = b + f32([x0 x1] @ W) * acc_scale for all steps * B rows; w_t is W
 // k-major, (4H, F0 + F1)
@@ -423,6 +430,46 @@ cudaError_t project_bf16(const bf16* x0, const bf16* x1, int F0, int F1,
   return lstm::launch_projection<true>(p, 1, stream);
 }
 
+// The projection of any x into the float32 xw the core runs over: int8 x
+// by the int8 projection (w0 k-major, (4H, F0 + F1), with acc_scale),
+// bf16 x by project_bf16 and float32 x by the core's float32 projection
+// (float32 FMAs in k order at the encoders' widths; then b is added, as
+// the plain version adds it), w0 and w1 each part's (F_i, 4H).
+cudaError_t project_any(int x_dtype, const void* x0, const void* x1, int F0,
+                        int F1, const void* w0, const void* w1,
+                        const float* acc_scale, const float* bias, float* xw,
+                        int steps, int B, int H, cudaStream_t stream) {
+  if (x_dtype == kInt8) {
+    return project(x0, x1, F0, F1, w0, acc_scale, bias, xw, steps, B, H,
+                   stream);
+  }
+  if (x_dtype == kBf16) {
+    return project_bf16(static_cast<const bf16*>(x0),
+                        static_cast<const bf16*>(x1), F0, F1,
+                        static_cast<const bf16*>(w0),
+                        static_cast<const bf16*>(w1), bias, xw, steps, B, H,
+                        stream);
+  }
+  const void* b = bias;
+  return lstm::launch_projections_f32(x0, x1, F0, F1, &w0, &w1, &b, &xw, 1,
+                                      steps, B, H, stream);
+}
+
+// The core's recurrence over a float32 xw with int8 codes out: a float32
+// W_hh (H, 4H) on the float32 core's codes kind, a bf16 one (H, 4H) or an
+// int8 one (k-major (4H, H), with rec_scale) on the bf16 core's.
+cudaError_t recur(int whh_dtype, const float* xw, const void* w_hh,
+                  const float* rec_scale, int8_t* out, int reverse, int steps,
+                  int B, int H, cudaStream_t stream) {
+  if (whh_dtype == kF32) {
+    return lstm::launch_static_f32(xw, w_hh, out, reverse, steps, B, H,
+                                   stream);
+  }
+  return lstm::launch_static(nullptr, nullptr, 0, 0, nullptr, nullptr,
+                             nullptr, xw, w_hh, whh_dtype == kInt8,
+                             rec_scale, out, reverse, steps, B, H, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -430,11 +477,11 @@ extern "C" {
 // x_dtype, whh_dtype: 0 = float32, 1 = bfloat16, 2 = int8; out_kind:
 // 0 = float32, 1 = bfloat16, 2 = int8 codes.  acc_scale is read for int8
 // x, rec_scale for an int8 W_hh; bias is float32.  x1/w1 may be null with
-// F1 == 0.  On the core (on_core: int8 codes out, bf16 or int8 x and
-// W_hh): an int8 W_ih is w0, k-major (4H, F0 + F1), w1 unused; an int8 W_hh
-// is k-major (4H, H); int8 x, and bf16 x of more than 32 features, are
-// projected into xw, a float32 scratch of steps * B * 4H values.
-// Otherwise int8 weights are in k-quad words (w0, w1 a part each) and xw
+// F1 == 0.  On the core (on_core: int8 codes out): an int8 W_ih is w0,
+// k-major (4H, F0 + F1), w1 unused; an int8 W_hh is k-major (4H, H); int8
+// x, float32 x, and bf16 x of more than 32 features, are projected into
+// xw, a float32 scratch of steps * B * 4H values.  Otherwise (the float
+// epilogue) int8 weights are in k-quad words (w0, w1 a part each) and xw
 // is unused.  Returns a cudaError_t value (0 on success).
 int lstm_direction_fused_static_launch(
     int x_dtype, int whh_dtype, int out_kind, const void* x0, const void* x1,
@@ -446,28 +493,20 @@ int lstm_direction_fused_static_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool int_rec = whh_dtype == kInt8;
-  if (on_core(x_dtype, whh_dtype, out_kind)) {
+  if (on_core(out_kind)) {
     int8_t* codes = static_cast<int8_t*>(out);
-    if (x_dtype == kInt8 || F0 + F1 > lstm::kXMax) {
-      const cudaError_t err =
-          x_dtype == kInt8
-              ? project(x0, x1, F0, F1, w0, acc_scale, bias, xw, steps, B, H,
-                        s)
-              : project_bf16(static_cast<const bf16*>(x0),
-                             static_cast<const bf16*>(x1), F0, F1,
-                             static_cast<const bf16*>(w0),
-                             static_cast<const bf16*>(w1), bias, xw, steps, B,
-                             H, s);
-      if (err != cudaSuccess) return static_cast<int>(err);
+    if (x_dtype == kBf16 && F0 + F1 <= lstm::kXMax) {
       return static_cast<int>(lstm::launch_static(
-          nullptr, nullptr, 0, 0, nullptr, nullptr, nullptr, xw, w_hh,
-          int_rec, rec_scale, codes, reverse, steps, B, H, s));
+          static_cast<const bf16*>(x0), static_cast<const bf16*>(x1), F0,
+          F1, static_cast<const bf16*>(w0), static_cast<const bf16*>(w1),
+          bias, nullptr, w_hh, whh_dtype == kInt8, rec_scale, codes,
+          reverse, steps, B, H, s));
     }
-    return static_cast<int>(lstm::launch_static(
-        static_cast<const bf16*>(x0), static_cast<const bf16*>(x1), F0, F1,
-        static_cast<const bf16*>(w0), static_cast<const bf16*>(w1), bias,
-        nullptr, w_hh, int_rec, rec_scale, codes, reverse, steps, B, H, s));
+    const cudaError_t err = project_any(x_dtype, x0, x1, F0, F1, w0, w1,
+                                        acc_scale, bias, xw, steps, B, H, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(recur(whh_dtype, xw, w_hh, rec_scale, codes,
+                                  reverse, steps, B, H, s));
   }
 #define PEPPER_STATIC_LAUNCH(TX, TW)                                       \
   launch<TX, TW>(x0, x1, w0, w1, F0, F1, acc_scale, rec_scale, bias, w_hh, \
@@ -497,49 +536,61 @@ int lstm_direction_fused_static_launch(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The int8 projection of the core's path alone (its first launch): xw =
-// b + f32([x0 x1] @ W) * acc_scale, w_t k-major (4H, F0 + F1).
+// The projection of the core's path alone (its first launch where x does
+// not join the step): xw = b + [x0 x1] @ W in float32 for all steps * B
+// rows, x_dtype as above.  int8 x: W k-major (4H, F0 + F1), rescaled by
+// acc_scale; float x: W the (F0 + F1, 4H) rows of both parts in x's dtype.
 int lstm_direction_fused_static_projection_launch(
-    const void* x0, const void* x1, int F0, int F1, const void* w_t,
-    const float* acc_scale, const float* bias, float* xw, int steps, int B,
-    int H, void* stream) {
-  if (!lstm::valid_shape(F0, F1, steps, B, H)) {
+    int x_dtype, const void* x0, const void* x1, int F0, int F1,
+    const void* w, const float* acc_scale, const float* bias, float* xw,
+    int steps, int B, int H, void* stream) {
+  if (!lstm::valid_shape(F0, F1, steps, B, H) || x_dtype < kF32 ||
+      x_dtype > kInt8 || (x_dtype == kInt8 && acc_scale == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(project(x0, x1, F0, F1, w_t, acc_scale, bias, xw,
-                                  steps, B, H,
-                                  static_cast<cudaStream_t>(stream)));
+  const size_t item = x_dtype == kF32 ? sizeof(float) : sizeof(bf16);
+  const void* w1 =
+      x_dtype == kInt8 || F1 == 0
+          ? nullptr
+          : static_cast<const char*>(w) + static_cast<size_t>(F0) * 4 * H *
+                                              item;
+  return static_cast<int>(project_any(x_dtype, x0, x1, F0, F1, w, w1,
+                                      acc_scale, bias, xw, steps, B, H,
+                                      static_cast<cudaStream_t>(stream)));
 }
 
 // The core's recurrence over a float32 xw alone (its second launch):
-// whh_dtype 1 = bfloat16 (H, 4H), 2 = int8 k-major (4H, H) with rec_scale;
-// int8 codes out.
+// whh_dtype 0 = float32 (H, 4H), 1 = bfloat16 (H, 4H), 2 = int8 k-major
+// (4H, H) with rec_scale; int8 codes out.
 int lstm_direction_fused_static_recurrence_launch(
     int whh_dtype, const float* xw, const void* w_hh, const float* rec_scale,
     void* out, int steps, int B, int H, int reverse, void* stream) {
-  if (!lstm::valid_steps(steps, B, H) ||
-      (whh_dtype != kBf16 && whh_dtype != kInt8)) {
+  if (!lstm::valid_steps(steps, B, H) || whh_dtype < kF32 ||
+      whh_dtype > kInt8 || (whh_dtype == kInt8 && rec_scale == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(lstm::launch_static(
-      nullptr, nullptr, 0, 0, nullptr, nullptr, nullptr, xw, w_hh,
-      whh_dtype == kInt8, rec_scale, static_cast<int8_t*>(out), reverse,
-      steps, B, H, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(recur(whh_dtype, xw, w_hh, rec_scale,
+                                static_cast<int8_t*>(out), reverse, steps, B,
+                                H, static_cast<cudaStream_t>(stream)));
 }
 
-// The core's plan for one direction of B rows (fused: bf16 x joins the
-// step; int_rec: an int8 W_hh): out[0] rows a cluster, out[1] CTAs a
-// cluster, out[2] clusters, out[3] clusters that run at once.  Launches
-// nothing.
-int lstm_direction_fused_static_plan_launch(int B, int H, int fused,
-                                            int int_rec, int* out,
+// The core's plan for one direction of B rows with a W_hh of whh_dtype (0
+// float32: the float32 core's codes kind; 1 bfloat16, 2 int8: the bf16
+// core's codes kinds), fused (bf16 x joins the step) or over xw: out[0]
+// rows a cluster, out[1] CTAs a cluster, out[2] clusters, out[3] clusters
+// that run at once.  Launches nothing.
+int lstm_direction_fused_static_plan_launch(int whh_dtype, int B, int H,
+                                            int fused, int* out,
                                             void* stream) {
   (void)stream;
-  if (!lstm::valid_steps(1, B, H)) {
+  if (!lstm::valid_steps(1, B, H) || whh_dtype < kF32 || whh_dtype > kInt8 ||
+      (whh_dtype == kF32 && fused)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(
-      lstm::static_plan(B, H, fused != 0, int_rec != 0, out));
+      whh_dtype == kF32
+          ? lstm::f32_plan(B, H, 1, out, true)
+          : lstm::static_plan(B, H, fused != 0, whh_dtype == kInt8, out));
 }
 
 const char* lstm_direction_fused_static_error_string(int err) {

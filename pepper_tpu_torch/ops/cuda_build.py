@@ -88,13 +88,14 @@ ENTRIES = {
     "gru_direction_fused_projection": (
         "gru_direction_fused", [_I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
                                 _I, _P]),
-    # the static kernels' two launches apart: the input projection (int8 x
-    # on the tensor cores; the GRU's also float x) and the recurrence over
-    # its float32 xw, and the LSTM core's plan for them (B, H, fused,
-    # int_rec, int out[4]; launches nothing)
+    # the static kernels' two launches apart: the input projection (x's
+    # dtype code first; int8 x on the tensor cores) and the recurrence over
+    # its float32 xw (W_hh's dtype code first), and the LSTM cores' plan
+    # for them (W_hh's dtype code, B, H, fused, int out[4]; launches
+    # nothing)
     "lstm_direction_fused_static_projection": (
-        "lstm_direction_fused_static", [_P, _P, _I, _I, _P, _P, _P, _P, _I,
-                                        _I, _I, _P]),
+        "lstm_direction_fused_static", [_I, _P, _P, _I, _I, _P, _P, _P, _P,
+                                        _I, _I, _I, _P]),
     "lstm_direction_fused_static_recurrence": (
         "lstm_direction_fused_static", [_I, _P, _P, _P, _P, _I, _I, _I, _I,
                                         _P]),

@@ -31,11 +31,12 @@ within the twin's 1e-5).  bfloat16 inputs wider than FUSED_X_MAX
 features, and float32 inputs of any width, are first projected into a
 float32 xw scratch that the wrapper allocates.  The static kernel's int8
 products are exact int32 sums with one float32 rescale, and its int8 codes
-are round(h*127), round-half-to-even.  Its combinations with int8 codes
-out, bfloat16 or int8 x and a bfloat16 or int8 W_hh (static_on_core: the
-static and static_rec modes in bfloat16, at any width) run on the same
-core, on the tensor cores for the int8 products too; the rest (float32 x
-or W_hh, a float epilogue: no served mode) keep the first, scalar body.
+are round(h*127), round-half-to-even.  Every combination with int8 codes
+out (static_on_core: the static and static_rec modes in bfloat16 and
+float32, at any width) runs on the same core, on the tensor cores for the
+int8 products too, a float32 W_hh on the float32 core's codes kind; only
+the float epilogue (out_int8=False), which no served mode runs, keeps the
+first, scalar body.
 The two bodies read int8 weights in two layouts (cuda_build.INT8_LAYOUTS):
 the served path relays each weight once per weight tree
 (models/quantize.py:prepare_static, cuda_build.keep_relaid), and a launch
@@ -335,14 +336,15 @@ def _check_static_args(x_parts, w_ih_parts, b, w_hh, acc_scale, rec_scale):
 
 def static_on_core(x_dtype, whh_dtype, out_int8, features) -> bool:
     """Whether lstm_direction_fused_static runs a combination on the
-    tensor-core core (csrc/lstm_core.cuh): int8 codes out, bfloat16 or int8
-    x and a bfloat16 or int8 W_hh, whatever the number of features (int8
-    x, and bfloat16 x of more than FUSED_X_MAX, are projected first: see
-    _static_scratch).  csrc/lstm_direction_fused_static.cu:on_core applies
-    the same rule."""
-    del features  # every width runs on the core
-    return (bool(out_int8) and x_dtype != torch.float32
-            and whh_dtype != torch.float32)
+    tensor-core cores (csrc/lstm_core.cuh): every one with int8 codes out,
+    whatever the dtypes and the number of features (int8 and float32 x,
+    and bfloat16 x of more than FUSED_X_MAX, are projected first: see
+    _static_scratch; a float32 W_hh runs the float32 core's codes kind, a
+    bfloat16 or int8 one the bfloat16 core's).  Only the float epilogue
+    (out_int8=False) keeps the first body.
+    csrc/lstm_direction_fused_static.cu:on_core applies the same rule."""
+    del x_dtype, whh_dtype, features  # every code-emitting one is on it
+    return bool(out_int8)
 
 
 def static_layout(x_dtype, whh_dtype, out_int8, features) -> str:
@@ -354,11 +356,12 @@ def static_layout(x_dtype, whh_dtype, out_int8, features) -> str:
 
 def _static_scratch(x_parts, layout, H):
     """The float32 xw (T, B, 4H) that the static kernel's core projects x
-    into first (int8 x, and bfloat16 x of more than FUSED_X_MAX features),
-    or None (the features join the step, or the first body runs)."""
+    into first (int8 and float32 x, and bfloat16 x of more than
+    FUSED_X_MAX features), or None (the features join the step, or the
+    first body runs)."""
     x0 = x_parts[0]
     if layout != "kmajor" or (
-            x0.dtype != torch.int8
+            x0.dtype == torch.bfloat16
             and sum(x.shape[2] for x in x_parts) <= FUSED_X_MAX):
         return None
     return torch.empty((*x0.shape[:2], 4 * H), dtype=torch.float32,

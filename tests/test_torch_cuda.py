@@ -447,19 +447,23 @@ def _static_core_case(device, layer, rec_int8, B, hidden, seed=0, T=33,
             move(w_hh), move(acc_scale), move(rec_scale))
 
 
-# batches across the core's rows-a-cluster plan (16 rows up to 512, 144 at
-# the serving batch) and widths of 1, 2 and 4 CTAs a cluster
+# batches across the cores' rows-a-cluster plans (16 rows up to 512, 144 at
+# the serving batch; the float32 core's 32 to 96) and widths of 1, 2 and 4
+# CTAs a cluster (the float32 core's 1, 4 and 8)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
 @pytest.mark.parametrize("layer", ["encoder", "decoder"])
 @pytest.mark.parametrize("rec_int8", [False, True],
                          ids=["static", "static_rec"])
 @pytest.mark.parametrize("hidden", [32, 128, 256])
 @pytest.mark.parametrize("B", [1, 37, 128, 4096])
-def test_static_core_matches_twin(device, layer, rec_int8, hidden, B):
-    """The served bfloat16 static combinations run on lstm_core.cuh (the
-    int8 products on the tensor cores) and meet the twin at the code bars,
-    both directions."""
+def test_static_core_matches_twin(device, layer, rec_int8, hidden, B, dtype):
+    """The served static combinations run on lstm_core.cuh (the int8
+    products on the tensor cores; a float32 W_hh on the float32 core's
+    codes kind, float32 x projected first) and meet the twin at the code
+    bars, both directions, in bfloat16 and in float32."""
     xs, ws, b, w_hh, acc_scale, rec_scale = _static_core_case(
-        device, layer, rec_int8, B, hidden)
+        device, layer, rec_int8, B, hidden, dtype=dtype)
     assert lstm_kernel.static_on_core(xs[0].dtype, w_hh.dtype, True,
                                       sum(x.shape[2] for x in xs))
     kernel = lstm_kernel.lstm_direction_fused_static
@@ -476,17 +480,21 @@ def test_static_core_matches_twin(device, layer, rec_int8, hidden, B):
         assert_codes_close(out, ref, rec_int8)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
 @pytest.mark.parametrize("rec_int8", [False, True],
                          ids=["static", "static_rec"])
 @pytest.mark.parametrize("hidden", [32, 128, 256])
 @pytest.mark.parametrize("B", [1, 37, 4096])
-def test_static_core_wide_encoder_matches_twin(device, rec_int8, hidden, B):
-    """bfloat16 x of more than 32 features (the HP encoder's 48) runs on
-    the core: projected first into a float32 xw with the codes kinds' sums,
-    then the recurrence over it; codes at the code bars, both
-    directions."""
+def test_static_core_wide_encoder_matches_twin(device, rec_int8, hidden, B,
+                                               dtype):
+    """x of more than 32 features (the HP encoder's 48) runs on the core:
+    projected first into a float32 xw (bfloat16 with the codes kinds' sums,
+    float32 by float32 FMAs), then the recurrence over it; codes at the
+    code bars, both directions."""
     xs, ws, b, w_hh, acc_scale, rec_scale = _static_core_case(
-        device, "encoder", rec_int8, B, hidden, seed=11, T=21, features=48)
+        device, "encoder", rec_int8, B, hidden, seed=11, T=21, features=48,
+        dtype=dtype)
     assert lstm_kernel.static_on_core(xs[0].dtype, w_hh.dtype, True, 48)
     kernel = lstm_kernel.lstm_direction_fused_static
     for reverse in (False, True):
@@ -502,34 +510,58 @@ def test_static_core_wide_encoder_matches_twin(device, rec_int8, hidden, B):
         assert_codes_close(out, ref, rec_int8)
 
 
+# (layer, dtype, features): where the kernel projects x first
+SPLIT_CASES = [("decoder", torch.bfloat16, 2 * H),
+               ("decoder", torch.float32, 2 * H),
+               ("encoder", torch.float32, 26), ("encoder", torch.float32, 48),
+               ("encoder", torch.bfloat16, 48)]
+
+
+@pytest.mark.parametrize("layer,dtype,features", SPLIT_CASES, ids=[
+    f"{layer}_{str(dtype).split('.')[1]}_{features}"
+    for layer, dtype, features in SPLIT_CASES])
 @pytest.mark.parametrize("rec_int8", [False, True],
                          ids=["static", "static_rec"])
-def test_static_core_entries_split_the_kernel(device, rec_int8):
-    """The library's projection entry writes xw = b + f32(acc) * acc_scale
-    exactly (the int32 sums are exact) and its recurrence entry over that
-    xw gives the kernel's codes bit for bit."""
+def test_static_core_entries_split_the_kernel(device, rec_int8, layer, dtype,
+                                              features):
+    """The library's projection entry writes the decoder's xw = b + f32(acc)
+    * acc_scale exactly (the int32 sums are exact) and float x's xw = b +
+    x @ W_ih within float32's rounding, and its recurrence entry over that
+    xw (W_hh float32, bfloat16 or int8) gives the kernel's codes bit for
+    bit."""
     from pepper_tpu_torch.ops import cuda_build
 
-    B = 300
+    B, T = 300, 33 if features != 48 else 21
     xs, ws, b, w_hh, acc_scale, rec_scale = _static_core_case(
-        device, "decoder", rec_int8, B, H)
-    w_t = cuda_build.int8_kmajor(torch.cat(ws))
-    xw = torch.empty((33, B, 4 * H), device=device)
+        device, layer, rec_int8, B, H, T=T, features=features, dtype=dtype)
+    xw = torch.empty((T, B, 4 * H), device=device)
+    x_code = cuda_build.DTYPE_CODE[xs[0].dtype]
+    if layer == "decoder":
+        w = cuda_build.int8_kmajor(torch.cat(ws))
+        acc = (int8_matmul(xs[0].reshape(T * B, H), ws[0])
+               + int8_matmul(xs[1].reshape(T * B, H), ws[1]))
+        expected = (b + acc.float() * acc_scale).reshape(T, B, -1)
+        parts = (xs[0].data_ptr(), xs[1].data_ptr(), H, H)
+    else:
+        w = ws[0]
+        expected = b + xs[0].float() @ w.float()
+        parts = (xs[0].data_ptr(), None, features, 0)
     cuda_build.launch("lstm_direction_fused_static_projection", device,
-                      xs[0].data_ptr(), xs[1].data_ptr(), H, H,
-                      w_t.data_ptr(), acc_scale.data_ptr(), b.data_ptr(),
-                      xw.data_ptr(), 33, B, H)
-    acc = (int8_matmul(xs[0].reshape(33 * B, H), ws[0])
-           + int8_matmul(xs[1].reshape(33 * B, H), ws[1]))
-    exact = b + acc.float() * acc_scale
+                      x_code, *parts, w.data_ptr(),
+                      acc_scale.data_ptr() if layer == "decoder" else None,
+                      b.data_ptr(), xw.data_ptr(), T, B, H)
     torch.cuda.synchronize()
-    assert torch.equal(xw.reshape(33 * B, -1), exact)
+    if layer == "decoder":
+        assert torch.equal(xw, expected)
+    else:
+        torch.testing.assert_close(xw, expected, atol=1e-4, rtol=1e-6)
     w_rec = cuda_build.int8_kmajor(w_hh) if rec_int8 else w_hh
-    codes = torch.empty((33, B, H), dtype=torch.int8, device=device)
+    codes = torch.empty((T, B, H), dtype=torch.int8, device=device)
     cuda_build.launch("lstm_direction_fused_static_recurrence", device,
-                      2 if rec_int8 else 1, xw.data_ptr(), w_rec.data_ptr(),
+                      cuda_build.DTYPE_CODE[w_hh.dtype], xw.data_ptr(),
+                      w_rec.data_ptr(),
                       rec_scale.data_ptr() if rec_int8 else None,
-                      codes.data_ptr(), 33, B, H, 1)
+                      codes.data_ptr(), T, B, H, 1)
     out = lstm_kernel.lstm_direction_fused_static(
         xs, ws, b, w_hh, acc_scale=acc_scale, rec_scale=rec_scale,
         reverse=True, out_int8=True)
@@ -585,8 +617,8 @@ def _check_recurrence(xw, w_hh, dtype):
 @pytest.mark.parametrize("B", [1, 37, 512, 4096])
 def test_recurrence_kernel_matches_twin(device, dtype, B, hidden):
     """bfloat16 on the tensor-core core (1, 2 and 4 CTAs a cluster; the
-    plan's 16-row clusters and its 144-row ones at 4096), float32 on the
-    scalar body; both directions."""
+    plan's 16-row clusters and its 144-row ones at 4096), float32 on its
+    float32 kind (3xTF32); both directions."""
     _check_recurrence(*_lstm_recurrence_inputs(device, dtype, B, hidden),
                       dtype)
 
@@ -1303,17 +1335,15 @@ def test_hp_kernels_match_twins(device, dtype, parts, B):
                          ids=["static", "static_rec"])
 @pytest.mark.parametrize("B", [37, 4096])
 def test_hp_static_kernel_matches_twin(device, dtype, layer, rec_int8, B):
-    """The served static combinations at the HP shape: in bfloat16 both
+    """The served static combinations at the HP shape: in both dtypes both
     layers run on the core (the encoder's 48 features projected first into
-    a float32 xw), in float32 the decoder with an int8 W_hh; codes at the
-    code bars."""
+    a float32 xw; a float32 W_hh on the float32 core's codes kind); codes
+    at the code bars."""
     xs, ws, b, w_hh, acc_scale, rec_scale = _static_core_case(
         device, layer, rec_int8, B, H, seed=5, T=HP_T, features=HP_F,
         dtype=dtype)
-    on_core = lstm_kernel.static_on_core(xs[0].dtype, w_hh.dtype, True,
-                                         sum(x.shape[2] for x in xs))
-    assert on_core == (dtype == torch.bfloat16
-                       or (layer == "decoder" and rec_int8))
+    assert lstm_kernel.static_on_core(xs[0].dtype, w_hh.dtype, True,
+                                      sum(x.shape[2] for x in xs))
     kernel = lstm_kernel.lstm_direction_fused_static
     for reverse in (False, True):
         kw = dict(acc_scale=acc_scale, rec_scale=rec_scale, reverse=reverse,

@@ -186,33 +186,35 @@ def test_static_tree_relays_each_int8_weight_once(rec_int8, compute_dtype,
     assert again["decoder"]["w_ih_f"] is tree["decoder"]["w_ih_f"]
     assert cuda_build.relayout_int8.count == before + len(weights)
 
-    # the bfloat16 modes run on the core (k-major); float32 keeps the first
-    # body (k-quads) but for int8 x with an int8 W_hh
+    # every served layer runs on the core and reads k-major weights, in
+    # bfloat16 and in float32 (a float32 W_hh on the float32 core's codes
+    # kind)
     H = tree["encoder"]["w_hh_f"].shape[0]
-    on_core = {"encoder": compute_dtype == torch.bfloat16,
-               "decoder": compute_dtype == torch.bfloat16 or rec_int8}
+    on_core = {"encoder": True, "decoder": True}
     assert on_core == {layer: lstm_kernel.static_on_core(
         compute_dtype if layer == "encoder" else torch.int8,
         torch.int8 if rec_int8 else compute_dtype, True,
         26 if layer == "encoder" else 2 * H) for layer in on_core}
-    kept = set()
-    for node, key in weights:
-        layer = "encoder" if node is tree["encoder"] else "decoder"
-        layout = "kmajor" if on_core[layer] else "quads"
-        kept.add(id(_kept(node[key], layout)))
+    kept = {id(_kept(node[key], "kmajor")) for node, key in weights}
 
     after_prepare = cuda_build.relayout_int8.count
     _serve(tree, rec_int8, compute_dtype)
     assert cuda_build.relayout_int8.count == after_prepare
     assert len(recorded.calls) == 8
     # each launch's int8 operands (the W_ih parts at 5 and 6, W_hh at 12)
-    # are the kept copies, or part views of them (k-quads)
+    # are the kept copies themselves
     handed = set()
     for _, args in recorded.calls:
         for arg in (args[5], args[6], args[12]):
             if isinstance(arg, torch.Tensor) and arg.dtype == torch.int8:
-                handed.add(id(arg if arg._base is None else arg._base))
+                assert arg._base is None
+                handed.add(id(arg))
     assert handed == kept
+    # the float32 encoder's window values are projected into an xw first,
+    # as the decoder's codes are; the bfloat16 encoder's 26 join the step
+    enc_f, _, dec_f, _ = (args for _, args in recorded.calls[:4])
+    assert (enc_f[13] is None) == (compute_dtype == torch.bfloat16)
+    assert dec_f[13].dtype == torch.float32
 
 
 def test_static_launches_read_the_kept_copies(recorded):

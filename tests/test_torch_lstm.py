@@ -177,18 +177,21 @@ def test_projection_scratch_only_where_the_input_leaves_the_step(
     (torch.bfloat16, torch.int8, 26, True),
     (torch.int8, torch.bfloat16, 512, True),
     (torch.int8, torch.int8, 512, True),
-    (torch.float32, torch.float32, 48, False),
-    (torch.float32, torch.int8, 48, False),
-    (torch.int8, torch.float32, 512, False)],
+    (torch.float32, torch.float32, 48, True),
+    (torch.float32, torch.int8, 48, True),
+    (torch.int8, torch.float32, 512, True),
+    (torch.float32, torch.float32, 26, True),
+    (torch.float32, torch.int8, 26, True)],
     ids=["static_hp_encoder", "static_rec_hp_encoder", "static_encoder",
          "static_rec_encoder", "static_decoder", "static_rec_decoder",
-         "float32", "float32_x_int8_whh", "int8_x_float32_whh"])
+         "float32", "float32_x_int8_whh", "int8_x_float32_whh",
+         "float32_static_encoder", "float32_static_rec_encoder"])
 def test_static_routes_by_dtype_at_every_width(x_dtype, whh_dtype, features,
                                                on_core):
-    """The static kernel runs int8 codes out from bfloat16 or int8 x and a
-    bfloat16 or int8 W_hh on the core at every width (the HP encoder's 48
-    bfloat16 features included), reading its int8 weights k-major; float32
-    x or W_hh, and a float epilogue, keep the first body (k-quads)."""
+    """The static kernel runs every combination with int8 codes out on the
+    core at every width (the HP encoder's 48 features included, and
+    float32 x or W_hh: the float32 static modes), reading its int8 weights
+    k-major; only a float epilogue keeps the first body (k-quads)."""
     assert lstm_kernel.static_on_core(x_dtype, whh_dtype, True,
                                       features) == on_core
     assert lstm_kernel.static_layout(x_dtype, whh_dtype, True, features) == (
@@ -199,6 +202,57 @@ def test_static_routes_by_dtype_at_every_width(x_dtype, whh_dtype, features,
                                      features) == "quads"
 
 
+# every (x, W_hh) dtype pair that lstm_direction_fused_static takes: float x
+# with a W_hh of its dtype or int8, int8 x with a float32, bfloat16 or int8
+# W_hh
+STATIC_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.int8),
+                (torch.bfloat16, torch.bfloat16),
+                (torch.bfloat16, torch.int8), (torch.int8, torch.float32),
+                (torch.int8, torch.bfloat16), (torch.int8, torch.int8)]
+
+
+# ... at the encoders' 26 and 48 features and the decoder's 512 (int8 x
+# takes a multiple of 4)
+STATIC_CASES = [(x, w, f) for x, w in STATIC_PAIRS for f in (26, 48, 512)
+                if x != torch.int8 or f % 4 == 0]
+
+
+@pytest.mark.parametrize("x_dtype,whh_dtype,features", STATIC_CASES, ids=[
+    f"{str(x).split('.')[1]}_x_{str(w).split('.')[1]}_whh_{f}"
+    for x, w, f in STATIC_CASES])
+def test_every_code_emitting_combination_runs_on_the_core(x_dtype, whh_dtype,
+                                                          features):
+    """Each combination the wrapper accepts runs on the core with int8
+    codes out, k-major; no float32 combination is left to the first body,
+    which only the float epilogue reaches."""
+    H = 32
+    x = torch.zeros((2, 3, features), dtype=x_dtype)
+    w_ih = torch.zeros((features, 4 * H), dtype=x_dtype)
+    w_hh = torch.zeros((H, 4 * H), dtype=whh_dtype)
+    scale = torch.ones(4 * H)
+    lstm_kernel._check_static_args(
+        (x,), (w_ih,), torch.zeros(4 * H), w_hh,
+        scale if x_dtype == torch.int8 else None,
+        scale if whh_dtype == torch.int8 else None)
+    assert lstm_kernel.static_on_core(x_dtype, whh_dtype, True, features)
+    assert lstm_kernel.static_layout(x_dtype, whh_dtype, True,
+                                     features) == "kmajor"
+    assert not lstm_kernel.static_on_core(x_dtype, whh_dtype, False,
+                                          features)
+
+
+@pytest.mark.parametrize("x_dtype,whh_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_static_refuses_a_float_whh_of_another_dtype(x_dtype, whh_dtype):
+    """Float x takes a W_hh of its own dtype or an int8 one."""
+    H = 32
+    with pytest.raises(TypeError):
+        lstm_kernel._check_static_args(
+            (torch.zeros((2, 3, 26), dtype=x_dtype),),
+            (torch.zeros((26, 4 * H), dtype=x_dtype),), torch.zeros(4 * H),
+            torch.zeros((H, 4 * H), dtype=whh_dtype), None, None)
+
+
 @pytest.mark.parametrize("dtype,parts,layout,scratch", [
     (torch.bfloat16, (48,), "kmajor", True),
     (torch.bfloat16, (20, 13), "kmajor", True),
@@ -206,12 +260,15 @@ def test_static_routes_by_dtype_at_every_width(x_dtype, whh_dtype, features,
     (torch.int8, (256, 256), "kmajor", True),
     (torch.int8, (28,), "kmajor", True),
     (torch.bfloat16, (48,), "quads", False),
-    (torch.float32, (48,), "quads", False)])
+    (torch.float32, (48,), "quads", False),
+    (torch.float32, (26,), "kmajor", True),
+    (torch.float32, (48,), "kmajor", True)])
 def test_static_scratch_where_the_core_projects_first(dtype, parts, layout,
                                                       scratch):
-    """On the core the static kernel projects int8 x, and bfloat16 x of
-    more than 32 features, into a float32 (T, B, 4H) xw first; bfloat16 x
-    of at most 32 joins the step, and the first body takes no xw."""
+    """On the core the static kernel projects int8 and float32 x, and
+    bfloat16 x of more than 32 features, into a float32 (T, B, 4H) xw
+    first; bfloat16 x of at most 32 joins the step, and the first body
+    takes no xw."""
     xs = tuple(torch.zeros((5, 3, f), dtype=dtype) for f in parts)
     xw = lstm_kernel._static_scratch(xs, layout, 32)
     if scratch:

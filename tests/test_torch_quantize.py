@@ -352,6 +352,30 @@ def test_static_model_f32_matches_jax_public(rec_int8):
                                   expected.argmax(1))
 
 
+@pytest.mark.parametrize("shape", [(33, 26), (21, 48)],
+                         ids=["33x26", "hp_21x48"])
+@pytest.mark.parametrize("rec_int8,atol", [(False, 5e-3), (True, 1e-2)],
+                         ids=["static", "static_rec"])
+def test_static_float32_model_matches_jax_at_both_shapes(rec_int8, atol,
+                                                         shape):
+    """The float32 static modes (what --sharded, the staged run_inference
+    and --compute_dtype float32 serve with --quantized): the port's
+    transducer_infer_static in float32 against JAX's on the same
+    numpy-seeded params, at the classifier's 33x26 windows and the HP
+    classifier's 21x48 ones."""
+    T, F = shape
+    params = _jax_params(21, image_features=F, window=T)
+    x = np.random.RandomState(22).randint(-125, 126, (12, T, F)).astype(
+        np.int8)
+    tree = quantize.quantize_params_static(params, rec_int8=rec_int8)
+    expected = np.asarray(jq.transducer_infer_static(
+        jax.tree_util.tree_map(jnp.asarray, tree),
+        jnp.asarray(x, jnp.float32), jnp.float32))
+    actual = quantize.transducer_infer_static(tree, _torch(x), torch.float32)
+    assert actual.dtype == torch.float32 and actual.shape == (12, 3)
+    np.testing.assert_allclose(actual.numpy(), expected, atol=atol)
+
+
 def test_static_model_full_width_f32():
     params = _jax_params(9, hidden=256, linear_size=512)
     x = _windows(4, 10)
