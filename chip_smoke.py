@@ -32,20 +32,24 @@ Phases, each printing one JSON line:
                bfloat16 and float32) and decoder (the encoder's int8 codes,
                2x256), static and static_rec, B=4096 and B=37, both
                directions; codes within 1 and at least 99.9% (static) /
-               99.5% (static_rec) equal; per-launch times in bfloat16 and
-               float32 at B=4096 (queued, and unqueued beside them) beside
-               the bound (float32: both, 3xTF32 and float32 FMAs) and the
-               twin, every launch that projects x first (the decoder; in
-               float32 the encoder too) as its projection and recurrence
-               apart through the library's entries (int8 x's xw equal to
-               the exact int32 product, float x's within 1e-4 of b + x @
-               W_ih, the two launches' codes equal to the kernel's), the
-               cores' launch plan for the recurrence, in float32 the
-               scalar body's time (the body float32 ran on before the
-               core), measured by --static_float32_times on commit
-               97c4798 (a constant, labelled), row 1's bfloat16 kernel at
-               the same shapes, and ptxas's registers and spills of the
-               library's entries
+               99.5% (static_rec) equal; the float epilogue (h out in
+               float32 and bfloat16) of every (x, W_hh) dtype pair at
+               KERNEL_BARS, B=37 and 4096; per-launch times in bfloat16
+               and float32 at B=4096 (queued, and unqueued beside them)
+               beside the bound (float32: both, 3xTF32 and float32 FMAs)
+               and the twin, every launch that projects x first (the
+               decoder; in float32 the encoder too) as its
+               projection and recurrence apart through the library's
+               entries (int8 x's xw equal to the exact int32 product,
+               float x's within 1e-4 of b + x @ W_ih, the two launches'
+               codes equal to the kernel's bit for bit), the cores'
+               launch plan for the recurrence, in float32 the PR 2
+               scalar body's time, measured by --static_float32_times on
+               commit 97c4798 (a constant, labelled), the float
+               epilogue's launch (33x26, B=4096, bfloat16 and float32)
+               beside its bound, row 1's bfloat16 kernel at the same
+               shapes, and ptxas's registers and spills of the library's
+               entries
   6 kernel_recurrence
                lstm_recurrence against its twin, xw (33, B, 1024) in
                bfloat16 (atol 2e-2) and float32 (atol 1e-5), phase 3's
@@ -299,8 +303,9 @@ phase 22's), the nvidia-smi line and, last, the
 result line; the `done` line gives each phase's wall seconds.  `--phases
 6,13` runs phases 1 and 2 and the listed ones only, and prints neither the
 summary nor the result line.  `--static_float32_times DIR` times row 2's
-float32 static launches and batches through the public entry points of
-DIR's package (any checkout; static_float32_times) and prints one line.
+float32 static launches and batches, its bfloat16 static launches and its
+float epilogue through the public entry points of DIR's package (any
+checkout; static_float32_times) and prints one line.
 Any failed check
 raises, and the script exits non-zero without the result line; so it
 does without a CUDA device or outside a checkout.
@@ -336,6 +341,12 @@ TRANSDUCER_BARS = {"float32": 2e-4, "bfloat16": 1e-2}
 # feeds its codes back, so a code that rounds the other way spreads)
 CODE_BARS = {"static": 0.999, "static_rec": 0.995}
 QUANTIZED_BARS = {"static": 5e-3, "static_rec": 1e-2, "dynamic": 1e-2}
+# every (x, W_hh) dtype pair lstm_direction_fused_static takes (as
+# tests/test_torch_lstm.py lists them): float x with a W_hh of its dtype or
+# int8, int8 x with a float32, bfloat16 or int8 W_hh
+STATIC_PAIRS = (("float32", "float32"), ("float32", "int8"),
+                ("bfloat16", "bfloat16"), ("bfloat16", "int8"),
+                ("int8", "float32"), ("int8", "bfloat16"), ("int8", "int8"))
 
 
 def emit(obj) -> None:
@@ -800,10 +811,12 @@ def static_weights(gen, layer, dtype, rec_int8, device, features=26):
     return weights
 
 
-def static_bound_ms(layer, B, dtype, rec_int8, steps=T, features=26):
+def static_bound_ms(layer, B, dtype, rec_int8, steps=T, features=26,
+                    out_item=1):
     """Least time of one static launch: its products at the tensor-core
     peak of their type (int8 for int8 operands, else the float dtype's),
-    against the bytes of x in, weights in and int8 codes out."""
+    against the bytes of x in, weights in and h out (int8 codes, or
+    out_item bytes a value for the float epilogue)."""
     import torch
 
     T = steps
@@ -817,17 +830,19 @@ def static_bound_ms(layer, B, dtype, rec_int8, steps=T, features=26):
     x_item = item if layer == "encoder" else 1
     nbytes = (T * B * F * x_item + F * 4 * H * x_item
               + H * 4 * H * (1 if rec_int8 else item) + 3 * 4 * H * 4
-              + T * B * H)
+              + T * B * H * out_item)
     return max(seconds, nbytes / PEAK_BYTES) * 1e3
 
 
-def static_bounds_f32(layer, B, rec_int8, steps=T, features=26):
+def static_bounds_f32(layer, B, rec_int8, steps=T, features=26,
+                      out_item=1):
     """A float32 static launch's two bounds (float32_bounds' names): its
     float products (the encoder's projection, a float32 W_hh's recurrence)
     as three TF32 products each at the TF32 tensor-core peak, or as float32
     FMAs, plus its int8 products (the decoder's projection, an int8 W_hh's
     recurrence) at the int8 peak, against the bytes of x in, weights in and
-    int8 codes out."""
+    h out (int8 codes, or out_item bytes a value for the float
+    epilogue)."""
     F = features if layer == "encoder" else 2 * H
     proj, rec = 2 * steps * B * F * 4 * H, 2 * steps * B * H * 4 * H
     floats = ((proj if layer == "encoder" else 0)
@@ -837,7 +852,7 @@ def static_bounds_f32(layer, B, rec_int8, steps=T, features=26):
     x_item = 4 if layer == "encoder" else 1
     nbytes = (steps * B * F * x_item + F * 4 * H * x_item
               + H * 4 * H * (1 if rec_int8 else 4) + 3 * 4 * H * 4
-              + steps * B * H)
+              + steps * B * H * out_item)
     tensor = 3 * floats / PEAK_TF32_FLOPS + int8_s
     return {"bound_ms": max(tensor, nbytes / PEAK_BYTES) * 1e3,
             "bound_by": ("bytes" if nbytes / PEAK_BYTES > tensor
@@ -871,7 +886,9 @@ def static_float32_times(device):
     one card in one call: parent, change, change, parent).  At 33x26 and
     the HP 21x48, static and static_rec: each launch queued, its codes
     within 1 of the twin's, and one transducer_infer_static batch (4
-    launches)."""
+    launches); beside them the same launches in bfloat16, and the float
+    epilogue's launch (out_int8=False: the encoder at 33x26, W_hh and h
+    out in float32 and in bfloat16)."""
     import torch
     from pepper_tpu_torch.models import quantize
     from pepper_tpu_torch.models.transducer import init_transducer_params
@@ -887,30 +904,34 @@ def static_float32_times(device):
 
     shapes = {"33x26": (T, 26, init_transducer_params(
         torch.Generator().manual_seed(7))), "21x48": (HP_T, HP_F, hp_params())}
-    per_launch, batches = {}, {}
+    per_launch, batches, epilogue = {}, {}, {}
     for shape, (steps, features, params) in shapes.items():
         host = {name: {k: v.numpy() for k, v in group.items()}
                 for name, group in params.items()}
         windows = torch.randint(-125, 126, (B_SERVE, steps, features),
                                 generator=gen, device=device).to(torch.int8)
-        for mode in ("static", "static_rec"):
+        for mode, dtype in ((mode, dtype) for mode in ("static",
+                                                       "static_rec")
+                            for dtype in (torch.float32, torch.bfloat16)):
             rec_int8 = mode == "static_rec"
+            suffix = "" if dtype == torch.float32 else "_bfloat16"
             x = torch.randint(-125, 126, (steps, B_SERVE, features),
-                              generator=gen, device=device).float()
-            enc = static_weights(gen, "encoder", torch.float32, rec_int8,
-                                 device, features)
+                              generator=gen, device=device).to(dtype)
+            enc = static_weights(gen, "encoder", dtype, rec_int8, device,
+                                 features)
             streams = (run(kernel, (x,), enc), run(kernel, (x,), enc, True))
-            dec = static_weights(gen, "decoder", torch.float32, rec_int8,
-                                 device)
+            dec = static_weights(gen, "decoder", dtype, rec_int8, device)
             for layer, xs, w in (("encoder", (x,), enc),
                                  ("decoder", streams, dec)):
                 diff = (run(kernel, xs, w).int()
                         - run(twin, xs, w).int()).abs()
-                check(diff.max().item() <= 1, f"{layer} {mode} {shape}: "
-                      f"codes differ by {diff.max().item()}")
-                per_launch[f"{layer}_{mode}_{shape}"] = {
+                check(diff.max().item() <= 1, f"{layer} {mode} {shape}"
+                      f"{suffix}: codes differ by {diff.max().item()}")
+                per_launch[f"{layer}_{mode}_{shape}{suffix}"] = {
                     "ms": device_ms(lambda: run(kernel, xs, w)),
                     "equal_share": (diff == 0).float().mean().item()}
+            if dtype != torch.float32:
+                continue
             tree = quantize.prepare_static(
                 quantize.quantize_params_static(host, rec_int8=rec_int8),
                 torch.float32, device)
@@ -925,7 +946,22 @@ def static_float32_times(device):
                   f"{mode} {shape}: {kernel.launches} launches a batch, "
                   "not 4, or probabilities that are not finite")
             batches[f"{mode}_{shape}"] = cuda_ms(forward, iters=5)
-    return {"B": B_SERVE, "per_launch": per_launch, "batch_ms": batches}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randint(-125, 126, (T, B_SERVE, 26), generator=gen,
+                          device=device).to(dtype)
+        w = static_weights(gen, "encoder", dtype, False, device)
+
+        def float_out(fn):
+            return fn((x,), w["w_ih"], w["b"], w["w_hh"], out_dtype=dtype)
+
+        err = (float_out(kernel).float() - float_out(twin).float()).abs()
+        check(err.max().item() <= KERNEL_BARS[str(dtype).split(".")[1]],
+              f"float epilogue {dtype}: {err.max().item()} from the twin")
+        epilogue[str(dtype).split(".")[1]] = {
+            "ms": device_ms(lambda: float_out(kernel)),
+            "max_abs_err": err.max().item()}
+    return {"B": B_SERVE, "per_launch": per_launch, "batch_ms": batches,
+            "float_epilogue_33x26": epilogue}
 
 
 def static_launch_times(device, kernel, twin, gen, dtype, steps=T,
@@ -953,12 +989,8 @@ def static_launch_times(device, kernel, twin, gen, dtype, steps=T,
         dec = static_weights(gen, "decoder", dtype, rec_int8, device)
         for layer, xs, w in (("encoder", (x,), enc),
                              ("decoder", streams, dec)):
-            width = sum(part.shape[2] for part in xs)
-            check(lstm_kernel.static_on_core(xs[0].dtype, w["w_hh"].dtype,
-                                             True, width),
-                  f"{mode} {layer} {dtype}: not on lstm_core.cuh")
-            joins = (xs[0].dtype == torch.bfloat16
-                     and width <= lstm_kernel.FUSED_X_MAX)
+            joins = lstm_kernel.static_x_joins(
+                xs[0].dtype, tuple(part.shape[2] for part in xs))
             entry = {
                 "kernel_ms": device_ms(lambda: run(kernel, xs, w)),
                 "kernel_ms_unqueued": cuda_ms(lambda: run(kernel, xs, w)),
@@ -1001,7 +1033,7 @@ def phase_kernel_static(device, card):
         return fn(xs, w["w_ih"], w["b"], w["w_hh"], acc_scale=w["acc_scale"],
                   rec_scale=w["rec_scale"], reverse=reverse, **kw)
 
-    codes, max_code_diff, float_err = {}, 0, {}
+    codes, max_code_diff = {}, 0
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32)):
         for mode in ("static", "static_rec"):
@@ -1039,16 +1071,7 @@ def phase_kernel_static(device, card):
                       f"{dtype_name} {mode} {layer}: {share} of the codes "
                       f"equal the twin's, bar {CODE_BARS[mode]}")
                 codes[f"{mode}_{layer}_{dtype_name}"] = share
-        # the float epilogue (out_int8=False)
-        x = torch.randint(-125, 126, (T, 37, 26), generator=gen,
-                          device=device).to(dtype)
-        w = static_weights(gen, "encoder", dtype, False, device)
-        out = run(kernel, (x,), w, out_dtype=dtype)
-        ref = run(twin, (x,), w, out_dtype=dtype)
-        float_err[dtype_name] = (out.float() - ref.float()).abs().max().item()
-        check(out.dtype == dtype and float_err[dtype_name]
-              <= KERNEL_BARS[dtype_name],
-              f"static float output {dtype_name}: {float_err[dtype_name]}")
+    float_err = static_float_epilogue(device, kernel, twin, gen)
 
     timings = {}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
@@ -1056,6 +1079,10 @@ def phase_kernel_static(device, card):
         for key, entry in static_launch_times(device, kernel, twin, gen,
                                               dtype).items():
             timings[f"{key}_{dtype_name}"] = entry
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        timings[f"float_epilogue_{dtype_name}"] = float_epilogue_times(
+            device, kernel, twin, gen, dtype)
     # row 1's bfloat16 kernel at the same shapes, in the same run
     dtype = torch.bfloat16
     for layer in ("encoder", "decoder"):
@@ -1069,6 +1096,88 @@ def phase_kernel_static(device, card):
           "ptxas": ptxas_entries("lstm_direction_fused_static"),
           "per_launch": timings})
     return max_code_diff, codes, timings
+
+
+def static_float_epilogue(device, kernel, twin, gen):
+    """The float epilogue (out_int8=False) of every STATIC_PAIRS combination,
+    h out in float32 and in bfloat16, against the twin at B=37 (both
+    directions) and B=4096 (reversed): float x as the encoder's 26 window
+    values, int8 x as the decoder's 2 x 256 codes.  Bar KERNEL_BARS
+    ["float32"] where W_hh and out are float32 (float32 or int8 x);
+    KERNEL_BARS["bfloat16"] where anything rounds to bfloat16 or an int8
+    W_hh feeds its codes back (a code that rounds the other way moves h by
+    about 1e-4).  Returns the largest difference of each combination."""
+    import torch
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "int8": torch.int8}
+    errors = {}
+    for x_name, whh_name in STATIC_PAIRS:
+        x_dtype, whh_dtype = dtypes[x_name], dtypes[whh_name]
+        rec_int8 = whh_dtype == torch.int8
+        for B, directions in ((37, (False, True)), (B_SERVE, (True,))):
+            if x_dtype == torch.int8:
+                xs = tuple(torch.randint(-127, 128, (T, B, H), generator=gen,
+                                         device=device).to(torch.int8)
+                           for _ in range(2))
+                w = static_weights(gen, "decoder", torch.float32
+                                   if rec_int8 else whh_dtype, rec_int8,
+                                   device)
+            else:
+                xs = (torch.randint(-125, 126, (T, B, 26), generator=gen,
+                                    device=device).to(x_dtype),)
+                w = static_weights(gen, "encoder", x_dtype, rec_int8, device)
+            for out_name in ("float32", "bfloat16"):
+                out_dtype = dtypes[out_name]
+                bar = KERNEL_BARS["float32" if whh_dtype == out_dtype
+                                  == torch.float32 else "bfloat16"]
+                key = f"{x_name}_x_{whh_name}_whh_{out_name}_out"
+                for reverse in directions:
+                    kw = dict(acc_scale=w["acc_scale"],
+                              rec_scale=w["rec_scale"], reverse=reverse,
+                              out_dtype=out_dtype)
+                    out = kernel(xs, w["w_ih"], w["b"], w["w_hh"], **kw)
+                    ref = twin(xs, w["w_ih"], w["b"], w["w_hh"], **kw)
+                    torch.cuda.synchronize()
+                    check(out.shape == (T, B, H) and out.dtype == out_dtype,
+                          f"static float output {key}: {tuple(out.shape)} "
+                          f"{out.dtype}")
+                    err = (out.float() - ref.float()).abs().max().item()
+                    check(err <= bar, f"static float output {key} B={B} "
+                          f"reverse={reverse}: {err} > {bar}")
+                    errors[key] = max(errors.get(key, 0.0), err)
+    return errors
+
+
+def float_epilogue_times(device, kernel, twin, gen, dtype):
+    """The float epilogue's launch at the served encoder's shape (33x26,
+    B=4096, W_hh and out in dtype), queued, beside its bound (h out in
+    dtype instead of codes), the twin and the core's plan."""
+    import torch
+    from pepper_tpu_torch.ops import lstm_kernel
+
+    x = torch.randint(-125, 126, (T, B_SERVE, 26), generator=gen,
+                      device=device).to(dtype)
+    w = static_weights(gen, "encoder", dtype, False, device)
+
+    def run(fn):
+        return fn((x,), w["w_ih"], w["b"], w["w_hh"], out_dtype=dtype)
+
+    item = torch.empty((), dtype=dtype).element_size()
+    joins = lstm_kernel.static_x_joins(dtype, (26,))
+    entry = {"kernel_ms": device_ms(lambda: run(kernel)),
+             "plain_ms": cuda_ms(lambda: run(twin), iters=3),
+             "route": "lstm_core.cuh, x joins each step" if joins else
+                      "lstm_core.cuh, projection first into a float32 xw",
+             "plan": static_plan(device, B_SERVE, joins, dtype)}
+    if dtype == torch.float32:
+        entry.update(static_bounds_f32("encoder", B_SERVE, False,
+                                       out_item=item))
+    else:
+        entry["bound_ms"] = static_bound_ms("encoder", B_SERVE, dtype, False,
+                                            out_item=item)
+        entry["bound_by"] = "operations"
+    return entry
 
 
 def static_plan(device, B, fused, whh_dtype):
@@ -1089,12 +1198,12 @@ def static_plan(device, B, fused, whh_dtype):
 
 def static_split(device, xs, w, B, codes, steps=T):
     """A static launch that projects x first, as its two launches through
-    the library's entries: the projection into a float32 xw (int8 x:
-    checked against the exact int32 product; float x: against b + x @ W_ih
-    within float32's rounding) and the core's recurrence over it (its codes
-    must equal the kernel's), timed apart, with each launch's bound: the
-    projection's against the f32 xw it writes, the recurrence's xw in and
-    codes out against its products (float32 ones as 3xTF32)."""
+    the library's entries: the projection into a float32 xw (int8 x: checked
+    against the exact int32 product; float x: against b + x @ W_ih within
+    float32's rounding) and the core's recurrence over it (its codes must
+    equal the kernel's bit for bit), timed apart, with each launch's
+    bound: the projection's against the f32 xw it writes, the recurrence's
+    xw in and codes out against its products (float32 ones as 3xTF32)."""
     import torch
     from pepper_tpu_torch.ops import cuda_build
     from pepper_tpu_torch.ops.int8_matmul import int8_matmul
@@ -3120,14 +3229,13 @@ def _hp_static_encoder_kernels(device_name):
 
 
 def hp_static_encoder_route(device):
-    """Row 2's HP static encoder in a trace, never the first body
-    (lstm_static_kernel): in bfloat16 the core's bf16 projection with the
-    codes kinds' sums (projection_kernel<.., true>) and the core's codes
-    body over its xw (core_kernel<.., false, Kind<float, signed char,
-    ..>>); in float32 the float32 FMA projection
+    """Row 2's HP static encoder in a trace: in bfloat16 the core's bf16
+    projection with the codes kinds' sums (projection_kernel<.., true>)
+    and the core's codes body over its xw (core_kernel<.., false,
+    Kind<float, signed char, ..>>); in float32 the float32 FMA projection
     (projection_narrow_kernel) and, over its xw, the float32 core's codes
-    kind (f32_core_kernel<.., true>; static) or the bf16 core's int8-W_hh
-    codes body (static_rec)."""
+    kind (f32_core_kernel<.., true, false>; static) or the bf16 core's
+    int8-W_hh codes body (static_rec)."""
     import concurrent.futures
     import multiprocessing
 
@@ -3144,14 +3252,13 @@ def hp_static_encoder_route(device):
         elif case.startswith("static_rec"):
             route = (any("projection_narrow_kernel" in k for k in kernels)
                      and any("core_kernel<" in k and "f32_core" not in k
-                             and "signed char, true>" in k
+                             and "signed char, true, false>" in k
                              for k in kernels))
         else:
             route = (any("projection_narrow_kernel" in k for k in kernels)
-                     and any("f32_core_kernel<" in k and ", true>" in k
-                             for k in kernels))
-        check(route and not any("lstm_static_kernel" in k for k in kernels),
-              f"HP {case} encoder: kernels {kernels}")
+                     and any("f32_core_kernel<" in k
+                             and ", true, false>" in k for k in kernels))
+        check(route, f"HP {case} encoder: kernels {kernels}")
     return names
 
 
@@ -5679,15 +5786,24 @@ def main(argv=()) -> int:
         "recurrence_ms": static_batch["static"]["recurrence_ms"],
         "static_rec": static_batch["static_rec"],
         "row_1_ms_same_phase": float_same_run,
-        "status": "redesigned: every combination with int8 codes out on "
-                  "lstm_core.cuh (the decoder's int8 projection and "
-                  "static_rec's int8 recurrence on the tensor cores, "
-                  "mma.sync m16n8k32; the HP encoder's 48 bfloat16 "
-                  "features projected first; a float32 W_hh on the "
-                  "float32 core's codes kind, float32 x projected "
-                  "first), int8 weights relaid once per tree; only the "
-                  "float epilogue, which no served mode runs, keeps the "
-                  "first body; earlier design: PERF.md section 6, row 2",
+        # the float epilogue (out_int8=False) a launch, which no served
+        # mode runs: the encoder at 33x26, B=4096, W_hh and h out in dtype
+        "float_epilogue": {
+            dtype_name: {line: static_launch[
+                f"float_epilogue_{dtype_name}"][key] for key, line in (
+                    ("kernel_ms", "ms"), ("plain_ms", "plain_ms"),
+                    ("bound_ms", "bound_ms"), ("bound_by", "bound_by"),
+                    ("route", "route"))}
+            for dtype_name in ("bfloat16", "float32")},
+        "status": "redesigned: every combination on lstm_core.cuh, "
+                  "int8 codes or the float epilogue out (the decoder's "
+                  "int8 projection and static_rec's int8 recurrence on "
+                  "the tensor cores, mma.sync m16n8k32; the HP encoder's "
+                  "48 bfloat16 features projected first; a float32 W_hh "
+                  "on the float32 core's codes kind, float32 x projected "
+                  "first), int8 weights relaid "
+                  "once per tree, k-major; earlier designs: PERF.md "
+                  "section 6, row 2",
         "work": f"one batch of {B_SERVE} windows in the static mode, "
                 "bfloat16: encoder and decoder, forward and backward (4 "
                 "launches)",

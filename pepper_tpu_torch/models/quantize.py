@@ -143,10 +143,9 @@ def prepare_static(q, compute_dtype, device):
     encoder's w_ih, every float w_hh and the head after linear_1 in the
     compute dtype; int8 leaves, biases and rescales as they are (float32
     biases feed the kernels and linear_1).  Each int8 weight of the two
-    biLSTMs is relaid once, into the layout its kernel body reads
-    (lstm_kernel.static_layout), and the copy kept beside it
-    (cuda_build.keep_relaid) for every launch.  A no-op on a prepared
-    tree."""
+    biLSTMs is relaid once, k-major (what every static launch reads), and
+    the copy kept beside it (cuda_build.keep_relaid) for every launch.  A
+    no-op on a prepared tree."""
 
     def leaf(layer, key, value):
         value = torch.as_tensor(value).to(device)
@@ -159,16 +158,9 @@ def prepare_static(q, compute_dtype, device):
                     for key, value in node.items()}
             for layer, node in q.items()}
     for layer in ("encoder", "decoder"):
-        node = tree[layer]
-        # transducer_infer_static's two launches: the encoder reads the
-        # windows in compute_dtype, the decoder the encoder's int8 codes;
-        # both emit int8 codes
-        x_dtype = compute_dtype if layer == "encoder" else torch.int8
-        layout = lstm_kernel.static_layout(
-            x_dtype, node["w_hh_f"].dtype, True, node["w_ih_f"].shape[0])
         for key in ("w_ih_f", "w_ih_b", "w_hh_f", "w_hh_b"):
-            if node[key].dtype == torch.int8:
-                keep_relaid(node[key], layout)
+            if tree[layer][key].dtype == torch.int8:
+                keep_relaid(tree[layer][key])
     return tree
 
 
@@ -314,7 +306,7 @@ def polish_prepare_static(q):
     kept beside them (cuda_build.keep_relaid) for every launch.  Returns q;
     a no-op on a prepared tree."""
     for key in ("w_ih_f", "w_ih_b"):
-        keep_relaid(q["decoder"][key], "kmajor")
+        keep_relaid(q["decoder"][key])
     return q
 
 

@@ -3,8 +3,7 @@
 // L2-streaming body runs.  Included by gru_core.cuh, and so by
 // gru_direction_fused.cu, gru_direction_fused_static.cu and
 // gru_recurrence.cu; each builds into a library of its own.  The dtype
-// conversions, the sigmoid and the staging of x rows come from
-// lstm_cell.cuh.
+// conversions, the sigmoid and kRows come from lstm_cell.cuh.
 //
 // The cell is torch.nn.GRU's, with gates ordered (r, z, n) along 3H:
 //

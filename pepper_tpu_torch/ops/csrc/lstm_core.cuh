@@ -70,25 +70,26 @@
 //   e^2v), e^v by ex2 on the special-function unit and the reciprocal by
 //   Newton steps on the FMA pipe, within 2e-7 of the library functions.
 //
-// * The static kernels (lstm_direction_fused_static.cu) run the same core
-//   with int8 codes out (TO = int8_t: round(h * 127), ties to even) and a
-//   float32 bias (Kind).  static keeps the bf16 W_hh above (in float32
-//   its float32 W_hh runs the float32 core's codes kind, at the end of
-//   this file, in the same order of sums).  static_rec's int8 W_hh
-//   arrives k-major (4H, H); each CTA holds its slice (4U x H
-//   codes, 64 KB at H=256) in shared memory, the A tile holds the codes of
-//   h, exchanged as bf(h) is (in 8-byte pieces), the product is mma.sync
-//   m16n8k32 s8 -> s32 into accumulators of its own, and once the sum is
-//   whole gates = (bias + the bf16 x-part, or xw) + f32(sum) * rec_scale,
-//   JAX's order.  Fused x then takes a bf16 tile of its own.  Codes move
-//   with a gate's last bit, so these kinds also sum every bf16 product
-//   apart from zero, each k16 step's tensor-core sum added with a rounded
-//   add (the tensor cores' running sum does not round to nearest), and
-//   take the library's expf and tanhf, as the plain version does.  With
-//   the fast forms, or with the tensor cores' running sums, one near-tied
-//   site of chip_smoke.py phase 9's static call set differed from the CPU
-//   run's; with both, all but about one code in 1e5 equal the plain
-//   version's.
+// * The static kernel (lstm_direction_fused_static.cu) runs the same core
+//   with a float32 bias and out as it asks (Direction::out_kind): int8
+//   codes (TO = int8_t marks these kinds: round(h * 127), ties to even),
+//   or h in float32 or bfloat16, the value the codes are rounded from.
+//   static keeps the bf16 W_hh above (in float32 its float32 W_hh runs the
+//   float32 core's codes kind, at the end of this file, in the same order
+//   of sums).  static_rec's int8 W_hh arrives k-major (4H, H); each CTA
+//   holds its slice (4U x H codes, 64 KB at H=256) in shared memory, the A
+//   tile holds the codes of h, exchanged as bf(h) is (in 8-byte pieces),
+//   the product is mma.sync m16n8k32 s8 -> s32 into accumulators of its
+//   own, and once the sum is whole gates = (bias + the bf16 x-part, or xw)
+//   + f32(sum) * rec_scale, JAX's order.  Fused x then takes a bf16 tile
+//   of its own.  Codes move with a gate's last bit, so these kinds also
+//   sum every bf16 product apart from zero, each k16 step's tensor-core
+//   sum added with a rounded add (the tensor cores' running sum does not
+//   round to nearest), and take the library's expf and tanhf, as the
+//   plain version does.  With the fast forms, or with the tensor cores'
+//   running sums, one near-tied site of chip_smoke.py phase 9's static
+//   call set differed from the CPU run's; with both, all but about one
+//   code in 1e5 equal the plain version's.
 //
 // The kernels and launchers have internal linkage, as in gru_core.cuh: the
 // four libraries that include this header instantiate the same templates,
@@ -135,19 +136,32 @@ constexpr int kMaxCluster = 4;
 constexpr int kCoreMaxThreads = 256;  // 8 warps: U = 64 units
 constexpr int kCoreDevices = 64;
 
+// What the static kernel writes (out_kind): h as float32 or bfloat16 (the
+// float epilogue), or its int8 codes round(h * 127)
+constexpr int kOutF32 = 0;
+constexpr int kOutBf16 = 1;
+constexpr int kOutInt8 = 2;
+
 // What a core instance reads and writes.  XW: the hoisted body's xw element
 // type (float or bf16).  TO: out's, bf16 (the float kernels, whose bias is
 // bf16) or int8_t, the codes round(h * 127) of the static kernels, whose
 // bias is float32.  kIntRec: an int8 W_hh, k-major (4H, H), fed the codes
-// of h and rescaled by rec_scale (static_rec).
-template <typename XW_ = float, typename TO_ = bf16, bool kIntRec_ = false>
+// of h and rescaled by rec_scale (static_rec).  kFloatOut: a code-emitting
+// kind (TO = int8_t, its sums and nonlinearities) that writes h instead,
+// in float32 or bfloat16 as CoreArgs::out_kind says (the static kernel's
+// float epilogue); an int8 W_hh is still fed the codes.
+template <typename XW_ = float, typename TO_ = bf16, bool kIntRec_ = false,
+          bool kFloatOut_ = false>
 struct Kind {
   using XW = XW_;
   using TO = TO_;
   static constexpr bool kCodes = std::is_same<TO_, int8_t>::value;
   static constexpr bool kIntRec = kIntRec_;
+  static constexpr bool kFloatOut = kFloatOut_;
   using Bias = typename std::conditional<kCodes, float, bf16>::type;
+  using Out = typename std::conditional<kFloatOut_, void, TO_>::type;
   static_assert(kCodes || !kIntRec_, "an int8 W_hh emits int8 codes");
+  static_assert(kCodes || !kFloatOut_, "the float epilogue is a codes kind's");
 };
 
 using FloatKind = Kind<>;
@@ -160,7 +174,7 @@ struct Direction {
   const bf16* w_x1;              // (F1, 4H) or null
   const typename K::Bias* bias;  // (4H,)
   const typename K::XW* xw;      // (T, B, 4H)
-  typename K::TO* out;           // (T, B, H)
+  typename K::Out* out;          // (T, B, H)
   const float* rec_scale;        // (4H,), an int8 W_hh's
   int reverse;
 };
@@ -171,6 +185,7 @@ struct CoreArgs {
   const bf16* x1;     // (T, B, F1) or null
   int F0, F1, steps, B, H;
   Direction<K> dir[2];  // blockIdx.y picks one
+  int out_kind;         // kFloatOut: kOutF32 or kOutBf16
 };
 
 // xw[0..1] of one thread's two adjacent units, widened to f32
@@ -223,6 +238,19 @@ __device__ __forceinline__ unsigned pack_codes(float lo, float hi) {
   return static_cast<uint8_t>(from_f32<int8_t>(lo)) |
          (static_cast<unsigned>(static_cast<uint8_t>(from_f32<int8_t>(hi)))
           << 8);
+}
+
+// out[o], out[o + 1] = h of two adjacent units in float32 (out_kind
+// kOutF32) or bfloat16: the float epilogue's store
+__device__ __forceinline__ void store_h(void* out, int out_kind, size_t o,
+                                        float lo, float hi) {
+  if (out_kind == kOutF32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
+        make_float2(lo, hi);
+  } else {
+    *reinterpret_cast<unsigned*>(static_cast<bf16*>(out) + o) =
+        pack_bf16(lo, hi);
+  }
 }
 
 __device__ __forceinline__ float ex2(float v) {
@@ -309,6 +337,7 @@ __global__ void __launch_bounds__(kCoreMaxThreads, 1)
   const bf16* x0 = a.x0;
   const bf16* x1 = a.x1;
   const int F0 = a.F0, F1 = a.F1, B = a.B, steps = a.steps, H = a.H;
+  const int out_kind = a.out_kind;
   const int U = H / n, G = 4 * H;
   const int b0 = static_cast<int>(blockIdx.x) / n * R;
   const int tid = threadIdx.x, nthreads = blockDim.x;
@@ -668,12 +697,16 @@ __global__ void __launch_bounds__(kCoreMaxThreads, 1)
           hw[ch][mt][e] = kIntRec ? codes : pack_bf16(h[0], h[1]);
           const int row = b0 + (ch * kMT + mt) * 16 + quad + 8 * e;
           if (row < B) {
-            TO* dst = d.out + (base + row) * H + unit;
-            if constexpr (Kd::kCodes) {
-              *reinterpret_cast<unsigned short*>(dst) =
-                  static_cast<unsigned short>(codes);
+            if constexpr (Kd::kFloatOut) {
+              store_h(d.out, out_kind, (base + row) * H + unit, h[0], h[1]);
             } else {
-              *reinterpret_cast<unsigned*>(dst) = hw[ch][mt][e];
+              TO* dst = d.out + (base + row) * H + unit;
+              if constexpr (Kd::kCodes) {
+                *reinterpret_cast<unsigned short*>(dst) =
+                    static_cast<unsigned short>(codes);
+              } else {
+                *reinterpret_cast<unsigned*>(dst) = hw[ch][mt][e];
+              }
             }
           }
         }
@@ -847,21 +880,27 @@ cudaError_t pick_rows(int B, int H, int dirs, int device, int* rows,
 template <bool kFusedX, typename Kd>
 cudaError_t launch_plan(const CoreArgs<Kd>& a, int dirs, int device,
                         cudaStream_t stream) {
-  int rows = 0, count = 0;
-  const cudaError_t err =
-      pick_rows<kFusedX, Kd>(a.B, a.H, dirs, device, &rows, &count);
-  if (err != cudaSuccess) return err;
-  switch (rows) {
-    case 16:
-      return launch_rows<1, 1, kFusedX>(a, dirs, device, stream);
-    case 32:
-      return launch_rows<2, 1, kFusedX>(a, dirs, device, stream);
-    case 48:
-      return launch_rows<3, 1, kFusedX>(a, dirs, device, stream);
-    case 96:
-      return launch_rows<3, 2, kFusedX>(a, dirs, device, stream);
-    default:
-      return launch_rows<3, 3, kFusedX>(a, dirs, device, stream);
+  // the float epilogue, which no served mode runs, takes the widest plan
+  // alone (a row's sums do not depend on the plan)
+  if constexpr (Kd::kFloatOut) {
+    return launch_rows<3, 3, kFusedX>(a, dirs, device, stream);
+  } else {
+    int rows = 0, count = 0;
+    const cudaError_t err =
+        pick_rows<kFusedX, Kd>(a.B, a.H, dirs, device, &rows, &count);
+    if (err != cudaSuccess) return err;
+    switch (rows) {
+      case 16:
+        return launch_rows<1, 1, kFusedX>(a, dirs, device, stream);
+      case 32:
+        return launch_rows<2, 1, kFusedX>(a, dirs, device, stream);
+      case 48:
+        return launch_rows<3, 1, kFusedX>(a, dirs, device, stream);
+      case 96:
+        return launch_rows<3, 2, kFusedX>(a, dirs, device, stream);
+      default:
+        return launch_rows<3, 3, kFusedX>(a, dirs, device, stream);
+    }
   }
 }
 
@@ -1276,20 +1315,21 @@ inline cudaError_t launch_directions(
 }
 
 // ---------------------------------------------------------------------------
-// The static kernels' recurrence (lstm_direction_fused_static.cu): one
-// direction with int8 codes out and a float32 bias, over bf16 x of at most
-// kXMax features (fused: bias, w0, w1 read) or over the float32 xw of the
-// int8 projection (xw read); W_hh bf16 (H, 4H), or with int_rec int8
-// k-major (4H, H) and its rescale rec_scale (4H,).
+// The static kernel's recurrence (lstm_direction_fused_static.cu) on the
+// bf16 core: one direction with a float32 bias over bf16 x of at most
+// kXMax features (fused: bias, w0, w1 read) or over a float32 xw (xw
+// read); W_hh bf16 (H, 4H), or with int_rec int8 k-major (4H, H) and its
+// rescale rec_scale (4H,); out as out_kind (kOut*).
 
-template <bool kIntRec>
+template <bool kIntRec, bool kFloatOut>
 cudaError_t launch_static_kind(const bf16* x0, const bf16* x1, int F0,
                                int F1, const bf16* w0, const bf16* w1,
                                const float* bias, const float* xw,
                                const void* w_hh, const float* rec_scale,
-                               int8_t* out, int reverse, int steps, int B,
-                               int H, cudaStream_t stream) {
-  using Kd = Kind<float, int8_t, kIntRec>;
+                               void* out, int out_kind, int reverse,
+                               int steps, int B, int H,
+                               cudaStream_t stream) {
+  using Kd = Kind<float, int8_t, kIntRec, kFloatOut>;
   CoreArgs<Kd> a{};
   a.x0 = x0;
   a.x1 = x1;
@@ -1298,7 +1338,9 @@ cudaError_t launch_static_kind(const bf16* x0, const bf16* x1, int F0,
   a.steps = steps;
   a.B = B;
   a.H = H;
-  a.dir[0] = {w_hh, w0, w1, bias, xw, out, rec_scale, reverse};
+  a.dir[0] = {w_hh, w0, w1, bias, xw,
+              static_cast<typename Kd::Out*>(out), rec_scale, reverse};
+  a.out_kind = out_kind;
   return launch_core(a, 1, xw == nullptr, stream);
 }
 
@@ -1306,16 +1348,23 @@ inline cudaError_t launch_static(const bf16* x0, const bf16* x1, int F0,
                                  int F1, const bf16* w0, const bf16* w1,
                                  const float* bias, const float* xw,
                                  const void* w_hh, bool int_rec,
-                                 const float* rec_scale, int8_t* out,
-                                 int reverse, int steps, int B, int H,
-                                 cudaStream_t stream) {
-  if (xw == nullptr && F0 + F1 > kXMax) return cudaErrorInvalidValue;
-  return int_rec ? launch_static_kind<true>(x0, x1, F0, F1, w0, w1, bias,
-                                            xw, w_hh, rec_scale, out,
-                                            reverse, steps, B, H, stream)
-                 : launch_static_kind<false>(x0, x1, F0, F1, w0, w1, bias,
-                                             xw, w_hh, rec_scale, out,
-                                             reverse, steps, B, H, stream);
+                                 const float* rec_scale, void* out,
+                                 int out_kind, int reverse, int steps, int B,
+                                 int H, cudaStream_t stream) {
+  if ((xw == nullptr && F0 + F1 > kXMax) || out_kind < kOutF32 ||
+      out_kind > kOutInt8) {
+    return cudaErrorInvalidValue;
+  }
+#define LSTM_STATIC_KIND(REC, FLOAT_OUT)                                    \
+  launch_static_kind<REC, FLOAT_OUT>(x0, x1, F0, F1, w0, w1, bias, xw, w_hh, \
+                                     rec_scale, out, out_kind, reverse,      \
+                                     steps, B, H, stream)
+  if (out_kind == kOutInt8) {
+    return int_rec ? LSTM_STATIC_KIND(true, false)
+                   : LSTM_STATIC_KIND(false, false);
+  }
+  return int_rec ? LSTM_STATIC_KIND(true, true) : LSTM_STATIC_KIND(false, true);
+#undef LSTM_STATIC_KIND
 }
 
 // The static recurrence's plan (see plan_of), fused or over xw.
@@ -1338,16 +1387,17 @@ inline cudaError_t static_plan(int B, int H, bool fused_x, bool int_rec,
 //
 // Its codes kind (kCodes; the static kernel's float32 W_hh: the float32
 // static mode's encoder over the float32 projection's xw, and its decoder
-// over the int8 projection's) emits out[t] = round(h * 127), ties to even,
-// and sums as the bf16 core's codes kinds do: the recurrent part apart,
-// from zero, each k16 step's sum joined with a rounded add, then gates =
-// xw[t] + that part (xw = b + x-part, already summed by the projection),
-// the cell's products and sums rounded apart, sigmoid(v) = 1 / (1 + e^-v)
-// with its reciprocal rounded to nearest.  xw[t] joins after the product,
-// so it is loaded during the product's last k16 step (held through the
-// whole product, as the float kind holds it, the 96-row plan would run out
-// of registers), from L2, where a prefetch issued during the last step's
-// cell has put it.
+// over the int8 projection's) emits out[t] = round(h * 127), ties to even
+// (or, kFloatOut, the float epilogue's h in float32 or bfloat16), and sums
+// as the bf16 core's codes kinds do: the recurrent part apart, from zero,
+// each k16 step's sum joined with a rounded add, then gates = xw[t] + that
+// part (xw = b + x-part, already summed by the projection), the cell's
+// products and sums rounded apart, sigmoid(v) = 1 / (1 + e^-v) with its
+// reciprocal rounded to nearest.  xw[t] joins after the product, so it is
+// loaded during the product's last k16 step (held through the whole
+// product, as the float kind holds it, the 96-row plan would run out of
+// registers), from L2, where a prefetch issued during the last step's cell
+// has put it.
 //
 // Products.  3xTF32 on mma.sync m16n8k8: each float32 operand splits into
 // hi = tf32(v) and lo = v - hi when its fragment is loaded
@@ -1426,11 +1476,14 @@ struct F32Direction {
 struct F32Args {
   int steps, B, H;
   F32Direction dir[2];  // blockIdx.y picks one
+  int out_kind;         // kFloatOut: kOutF32 or kOutBf16
 };
 
-template <int kGroups, int kMT, bool kCodes>
+template <int kGroups, int kMT, bool kCodes, bool kFloatOut>
 __global__ void __launch_bounds__(128 * kGroups, 1)
     f32_core_kernel(const F32Args a) {
+  static_assert(kCodes || !kFloatOut,
+                "the float epilogue is the codes kind's");
   using CodesKind = Kind<float, int8_t>;
   constexpr int R = 16 * kMT * kGroups;
   constexpr int kThreads = 128 * kGroups;
@@ -1440,6 +1493,7 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
   const int rank = static_cast<int>(cluster.block_rank());
   const F32Direction d = blockIdx.y ? a.dir[1] : a.dir[0];
   const int B = a.B, steps = a.steps, H = a.H;
+  const int out_kind = a.out_kind;
   const int G = 4 * H;
   const int b0 = static_cast<int>(blockIdx.x) / n * R;
   const int tid = threadIdx.x;
@@ -1670,7 +1724,9 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
         const int row = b0 + row0 + mt * 16 + quad + 8 * e;
         if (row < B) {
           const size_t o = (base + row) * H + unit;
-          if constexpr (kCodes) {
+          if constexpr (kFloatOut) {
+            store_h(d.out, out_kind, o, h[0], h[1]);
+          } else if constexpr (kCodes) {
             *reinterpret_cast<unsigned short*>(static_cast<int8_t*>(d.out) +
                                                o) =
                 static_cast<unsigned short>(pack_codes(h[0], h[1]));
@@ -1712,7 +1768,7 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
   cluster_wait();  // pairs the last step's arrive
 }
 
-template <int kGroups, int kMT, bool kCodes>
+template <int kGroups, int kMT, bool kCodes, bool kFloatOut>
 struct F32Tag {};
 
 template <int kGroups, int kMT>
@@ -1745,8 +1801,8 @@ cudaError_t max_f32_clusters(int device, int H, int* count) {
     *count = found->second;
     return cudaSuccess;
   }
-  auto kernel = f32_core_kernel<kGroups, kMT, kCodes>;
-  cudaError_t err = ensure_smem_limit<F32Tag<kGroups, kMT, kCodes>>(
+  auto kernel = f32_core_kernel<kGroups, kMT, kCodes, false>;
+  cudaError_t err = ensure_smem_limit<F32Tag<kGroups, kMT, kCodes, false>>(
       reinterpret_cast<const void*>(kernel), device);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
@@ -1784,11 +1840,11 @@ cudaError_t pick_f32_rows(int B, int H, int dirs, int device, int* rows,
   return max_f32_clusters<LSTM_F32_96, kCodes>(device, H, count);
 }
 
-template <int kGroups, int kMT, bool kCodes>
+template <int kGroups, int kMT, bool kCodes, bool kFloatOut>
 cudaError_t launch_f32_rows(const F32Args& a, int dirs, int device,
                             cudaStream_t stream) {
-  auto kernel = f32_core_kernel<kGroups, kMT, kCodes>;
-  cudaError_t err = ensure_smem_limit<F32Tag<kGroups, kMT, kCodes>>(
+  auto kernel = f32_core_kernel<kGroups, kMT, kCodes, kFloatOut>;
+  cudaError_t err = ensure_smem_limit<F32Tag<kGroups, kMT, kCodes, kFloatOut>>(
       reinterpret_cast<const void*>(kernel), device);
   if (err != cudaSuccess) return err;
   constexpr int rows = 16 * kMT * kGroups;
@@ -1801,9 +1857,11 @@ cudaError_t launch_f32_rows(const F32Args& a, int dirs, int device,
   return cudaGetLastError();
 }
 
-// The float32 core over dirs directions of a (kCodes: int8 codes out).
-// Each xw must start on 8 bytes and each W_hh on 16.
-template <bool kCodes>
+// The float32 core over dirs directions of a (kCodes: the codes kind;
+// kFloatOut: its float epilogue, which no served mode runs and which takes
+// the widest plan alone: a row's sums do not depend on the plan).  Each xw
+// must start on 8 bytes and each W_hh on 16.
+template <bool kCodes, bool kFloatOut = false>
 cudaError_t launch_f32_core(const F32Args& a, int dirs,
                             cudaStream_t stream) {
   for (int i = 0; i < dirs; ++i) {
@@ -1816,16 +1874,24 @@ cudaError_t launch_f32_core(const F32Args& a, int dirs,
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  int rows = 0, count = 0;
-  err = pick_f32_rows<kCodes>(a.B, a.H, dirs, device, &rows, &count);
-  if (err != cudaSuccess) return err;
-  switch (rows) {
-    case 32:
-      return launch_f32_rows<LSTM_F32_32, kCodes>(a, dirs, device, stream);
-    case 64:
-      return launch_f32_rows<LSTM_F32_64, kCodes>(a, dirs, device, stream);
-    default:
-      return launch_f32_rows<LSTM_F32_96, kCodes>(a, dirs, device, stream);
+  if constexpr (kFloatOut) {
+    return launch_f32_rows<LSTM_F32_96, kCodes, true>(a, dirs, device,
+                                                      stream);
+  } else {
+    int rows = 0, count = 0;
+    err = pick_f32_rows<kCodes>(a.B, a.H, dirs, device, &rows, &count);
+    if (err != cudaSuccess) return err;
+    switch (rows) {
+      case 32:
+        return launch_f32_rows<LSTM_F32_32, kCodes, false>(a, dirs, device,
+                                                           stream);
+      case 64:
+        return launch_f32_rows<LSTM_F32_64, kCodes, false>(a, dirs, device,
+                                                           stream);
+      default:
+        return launch_f32_rows<LSTM_F32_96, kCodes, false>(a, dirs, device,
+                                                           stream);
+    }
   }
 }
 
@@ -1853,17 +1919,21 @@ inline cudaError_t launch_recurrence_f32(const float* const* xw,
 }
 
 // The static kernel's float32 W_hh (H, 4H): one direction over its float32
-// xw (b + x-part, from the float32 or the int8 projection) with int8 codes
-// out, the codes kind of the float32 core.
+// xw (b + x-part, from the float32 or the int8 projection) on the float32
+// core's codes kind, out as out_kind (kOut*).
 inline cudaError_t launch_static_f32(const float* xw, const void* w_hh,
-                                     int8_t* out, int reverse, int steps,
-                                     int B, int H, cudaStream_t stream) {
+                                     void* out, int out_kind, int reverse,
+                                     int steps, int B, int H,
+                                     cudaStream_t stream) {
+  if (out_kind < kOutF32 || out_kind > kOutInt8) return cudaErrorInvalidValue;
   F32Args a{};
   a.steps = steps;
   a.B = B;
   a.H = H;
   a.dir[0] = {static_cast<const float*>(w_hh), xw, out, reverse};
-  return launch_f32_core<true>(a, 1, stream);
+  a.out_kind = out_kind;
+  return out_kind == kOutInt8 ? launch_f32_core<true>(a, 1, stream)
+                              : launch_f32_core<true, true>(a, 1, stream);
 }
 
 // The float32 core's plan (as plan_of reports the bf16 core's), for its

@@ -13,7 +13,7 @@ and may export further launchers beside it (ENTRIES).
 KERNELS lists every kernel with the headers that go into its build stamp
 and the argument types of its launcher; the wrappers that call them live
 in lstm_kernel.py, gru_kernel.py and pileup_kernel.py, and the dtype
-codes, the H limit and the int8 weight layouts both RNN families read are
+codes, the H limit and the int8 weight layout both RNN families read are
 here.  A failed build or launch raises: there is no fallback.
 """
 
@@ -246,14 +246,6 @@ def int8_codes(h: torch.Tensor) -> torch.Tensor:
     return torch.round(h * 127.0).to(torch.int8)
 
 
-def pack_quads(w: torch.Tensor) -> torch.Tensor:
-    """(K, N) int8 -> (K/4, N, 4) int8: the 32-bit words of four
-    consecutive k that the first static LSTM body's dp4a products read,
-    byte i of word [k/4][n] being w[4*(k/4) + i][n]."""
-    K, N = w.shape
-    return w.reshape(K // 4, 4, N).transpose(1, 2).contiguous()
-
-
 def int8_kmajor(w: torch.Tensor) -> torch.Tensor:
     """(K, N) int8 -> (N, K) int8, k-major: row n holds output column n's K
     codes.  That is the B operand of mma.sync m16n8k32 s8 as the tensor-core
@@ -263,21 +255,17 @@ def int8_kmajor(w: torch.Tensor) -> torch.Tensor:
     return w.t().contiguous()
 
 
-# the int8 weight layouts the kernels read, by name
-INT8_LAYOUTS = {"kmajor": int8_kmajor, "quads": pack_quads}
-
-
-def relayout_int8(w: torch.Tensor, layout: str) -> torch.Tensor:
-    """w (K, N) int8 in `layout` (INT8_LAYOUTS), counted in
-    relayout_int8.count."""
+def relayout_int8(w: torch.Tensor) -> torch.Tensor:
+    """w (K, N) int8 k-major (int8_kmajor), the one layout every int8
+    kernel reads, counted in relayout_int8.count."""
     relayout_int8.count += 1
-    return INT8_LAYOUTS[layout](w)
+    return int8_kmajor(w)
 
 
 relayout_int8.count = 0
 
-# weight -> {layout: (the weight's version, its relaid copy)}, for as long
-# as the weight lives
+# weight -> (the weight's version, its k-major copy), for as long as the
+# weight lives
 _KEPT = WeakIdKeyDictionary()
 
 
@@ -287,21 +275,21 @@ def _version(w):
     return -1 if w.is_inference() else w._version
 
 
-def _kept(w, layout):
-    """The copy kept for w in `layout`, unless w was written since."""
-    version, copy = _KEPT.get(w, {}).get(layout, (None, None))
+def _kept(w):
+    """The k-major copy kept for w, unless w was written since."""
+    version, copy = _KEPT.get(w, (None, None))
     return copy if version == _version(w) else None
 
 
-def keep_relaid(w: torch.Tensor, layout: str) -> torch.Tensor:
-    """Relay the int8 weight w (K, N) into `layout` once and keep the copy
-    for as long as w lives unwritten: every later launch handed w, or row
-    slices of it that cover it in order, reads the copy.  The served paths
-    call it once per weight tree (models/quantize.py)."""
-    copy = _kept(w, layout)
+def keep_relaid(w: torch.Tensor) -> torch.Tensor:
+    """Relay the int8 weight w (K, N) k-major once and keep the copy for as
+    long as w lives unwritten: every later launch handed w, or row slices
+    of it that cover it in order, reads the copy.  The served paths call it
+    once per weight tree (models/quantize.py)."""
+    copy = _kept(w)
     if copy is None:
-        copy = relayout_int8(w, layout)
-        _KEPT.setdefault(w, {})[layout] = (_version(w), copy)
+        copy = relayout_int8(w)
+        _KEPT[w] = (_version(w), copy)
     return copy
 
 
@@ -320,13 +308,12 @@ def _covers(w, parts):
     return offset == w.storage_offset() + w.shape[0] * w.stride(0)
 
 
-def relaid(parts, layout: str) -> torch.Tensor:
+def relaid(parts) -> torch.Tensor:
     """The int8 weight that the row slices `parts` make up (one part: the
-    weight itself), in `layout`: the copy keep_relaid kept for it, or a
+    weight itself), k-major: the copy keep_relaid kept for it, or a
     relayout made now."""
     for w in list(_KEPT.keys()):
-        copy = _kept(w, layout) if _covers(w, parts) else None
+        copy = _kept(w) if _covers(w, parts) else None
         if copy is not None:
             return copy
-    return relayout_int8(parts[0] if len(parts) == 1 else torch.cat(parts),
-                         layout)
+    return relayout_int8(parts[0] if len(parts) == 1 else torch.cat(parts))

@@ -303,7 +303,7 @@ def gru_direction_fused_static(x_parts, w_ih_parts, b_ih, w_hh, b_hh, h0,
     H = w_hh.shape[0]
     two = len(x_parts) > 1
     if x0.dtype == torch.int8:
-        w0, w1 = relaid(w_ih_parts, "kmajor"), None
+        w0, w1 = relaid(w_ih_parts), None
     else:
         w0 = aligned(w_ih_parts[0])
         w1 = aligned(w_ih_parts[1]) if two else None

@@ -29,16 +29,18 @@ three float kernels run on the tensor cores (csrc/lstm_core.cuh): bfloat16
 products directly, float32 ones as three TF32 products each (3xTF32,
 within the twin's 1e-5).  bfloat16 inputs wider than FUSED_X_MAX
 features, and float32 inputs of any width, are first projected into a
-float32 xw scratch that the wrapper allocates.  The static kernel's int8
-products are exact int32 sums with one float32 rescale, and its int8 codes
-are round(h*127), round-half-to-even.  Every combination with int8 codes
-out (static_on_core: the static and static_rec modes in bfloat16 and
-float32, at any width) runs on the same core, on the tensor cores for the
-int8 products too, a float32 W_hh on the float32 core's codes kind; only
-the float epilogue (out_int8=False), which no served mode runs, keeps the
-first, scalar body.
-The two bodies read int8 weights in two layouts (cuda_build.INT8_LAYOUTS):
-the served path relays each weight once per weight tree
+float32 xw scratch that the wrapper allocates.
+
+The static kernel's int8 products are exact int32 sums with one float32
+rescale, and its int8 codes are round(h*127), round-half-to-even.  Every
+combination it takes, with int8 codes out or h in float32 or bfloat16,
+runs on the same core, on the tensor cores for the int8 products too, a
+float32 W_hh on the float32 core's codes kind.  bfloat16 x of at most
+FUSED_X_MAX features joins the recurrence's step; other x (int8, wider
+bfloat16, and float32 of any width) is projected first into a float32 xw
+scratch the wrapper allocates (_static_scratch).  Its int8 weights are
+read k-major: the
+served path relays each weight once per weight tree
 (models/quantize.py:prepare_static, cuda_build.keep_relaid), and a launch
 handed a weight that has no kept copy relays it then.
 """
@@ -58,8 +60,9 @@ from .int8_matmul import int8_matmul
 KERNELS = ("lstm_direction_fused", "bilstm_dual_fused",
            "lstm_direction_fused_static", "lstm_recurrence")
 # kXMax in csrc/lstm_core.cuh: bfloat16 feature parts of at most this many
-# features in all join the step's product; wider ones (and float32 ones of
-# any width) are projected first, into a float32 xw scratch
+# features in all join the step's product, in the float kernels and the
+# static one; wider ones (and float32 ones of any width) are projected
+# first, into a float32 xw scratch
 FUSED_X_MAX = 32
 
 
@@ -334,35 +337,21 @@ def _check_static_args(x_parts, w_ih_parts, b, w_hh, acc_scale, rec_scale):
                      "lstm_direction_fused_static")
 
 
-def static_on_core(x_dtype, whh_dtype, out_int8, features) -> bool:
-    """Whether lstm_direction_fused_static runs a combination on the
-    tensor-core cores (csrc/lstm_core.cuh): every one with int8 codes out,
-    whatever the dtypes and the number of features (int8 and float32 x,
-    and bfloat16 x of more than FUSED_X_MAX, are projected first: see
-    _static_scratch; a float32 W_hh runs the float32 core's codes kind, a
-    bfloat16 or int8 one the bfloat16 core's).  Only the float epilogue
-    (out_int8=False) keeps the first body.
-    csrc/lstm_direction_fused_static.cu:on_core applies the same rule."""
-    del x_dtype, whh_dtype, features  # every code-emitting one is on it
-    return bool(out_int8)
+def static_x_joins(x_dtype, widths) -> bool:
+    """Whether the static kernel's x, feature parts of `widths`, joins the
+    recurrence's step, with no xw: bfloat16 x of at most FUSED_X_MAX
+    features.  Other x is projected first (_static_scratch).
+    csrc/lstm_direction_fused_static.cu:joins_step applies the same
+    rule."""
+    return x_dtype == torch.bfloat16 and sum(widths) <= FUSED_X_MAX
 
 
-def static_layout(x_dtype, whh_dtype, out_int8, features) -> str:
-    """The int8 weight layout (cuda_build.INT8_LAYOUTS) the static body of
-    a combination reads: k-major on the core, k-quads on the first body."""
-    return ("kmajor" if static_on_core(x_dtype, whh_dtype, out_int8,
-                                       features) else "quads")
-
-
-def _static_scratch(x_parts, layout, H):
-    """The float32 xw (T, B, 4H) that the static kernel's core projects x
-    into first (int8 and float32 x, and bfloat16 x of more than
-    FUSED_X_MAX features), or None (the features join the step, or the
-    first body runs)."""
+def _static_scratch(x_parts, H):
+    """The float32 xw (T, B, 4H) that the static kernel projects x into
+    first, or None where x joins the recurrence's step
+    (static_x_joins)."""
     x0 = x_parts[0]
-    if layout != "kmajor" or (
-            x0.dtype == torch.bfloat16
-            and sum(x.shape[2] for x in x_parts) <= FUSED_X_MAX):
+    if static_x_joins(x0.dtype, tuple(x.shape[2] for x in x_parts)):
         return None
     return torch.empty((*x0.shape[:2], 4 * H), dtype=torch.float32,
                        device=x0.device)
@@ -381,8 +370,8 @@ def lstm_direction_fused_static(x_parts, w_ih_parts, b, w_hh, acc_scale=None,
     the float dtype of x (or float32/bfloat16 beside int8 x), or int8 with
     rec_scale (4H,).  out_int8=True emits round(h*127) int8; else out_dtype
     floats.  Returns (T, B, H) in natural order.  The int8 weights reach
-    the kernel in the layout its body reads (static_layout): the copies
-    cuda_build.keep_relaid kept, or relaid at this launch."""
+    the kernel k-major: the copies cuda_build.keep_relaid kept, or relaid
+    at this launch."""
     x0 = x_parts[0]
     if x0.device.type == "cpu":
         return lstm_direction_fused_static_reference(
@@ -400,23 +389,17 @@ def lstm_direction_fused_static(x_parts, w_ih_parts, b, w_hh, acc_scale=None,
     out = torch.empty((T, B, H), dtype=out_kind, device=x0.device)
     if T == 0 or B == 0:
         return out
-    layout = static_layout(x0.dtype, w_hh.dtype, out_int8,
-                           sum(x.shape[2] for x in x_parts))
-    x_int8 = x0.dtype == torch.int8
     two = len(x_parts) > 1
-    w_parts = w_ih_parts
-    if x_int8:
-        w_ih = relaid(w_ih_parts, layout)
-        # k-major: one (4H, F) matrix for both parts; k-quads: a part each
-        w_parts = ((w_ih[:F0 // 4], w_ih[F0 // 4:])
-                   if layout == "quads" and two else (w_ih,))
-    w_rec = aligned(w_hh if rec_scale is None else relaid((w_hh,), layout))
+    # int8 W_ih: one k-major (4H, F) matrix for both parts
+    w_parts = ((relaid(w_ih_parts),) if x0.dtype == torch.int8
+               else tuple(aligned(w) for w in w_ih_parts))
+    w_rec = aligned(w_hh if rec_scale is None else relaid((w_hh,)))
 
     def f32(t):
         return None if t is None else t.reshape(-1).float().contiguous()
 
     acc, rec, bias = f32(acc_scale), f32(rec_scale), f32(b)
-    xw = _static_scratch(x_parts, layout, H)
+    xw = _static_scratch(x_parts, H)
     launch("lstm_direction_fused_static", x0.device, DTYPE_CODE[x0.dtype],
            DTYPE_CODE[w_hh.dtype], DTYPE_CODE[out_kind], ptr(x0),
            ptr(x_parts[1] if two else None), ptr(w_parts[0]),

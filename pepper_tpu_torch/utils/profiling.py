@@ -62,9 +62,9 @@ class StageTimer:
 # the __global__ functions of ops/csrc: each kernel wrapper's launch runs
 # at least one of them
 PORT_KERNELS = ("core_kernel", "core_smem_kernel", "core_stream_kernel",
-                "f32_core_kernel", "lstm_static_kernel",
-                "pileup_histogram_kernel", "projection_f32_kernel",
-                "projection_kernel", "projection_narrow_kernel")
+                "f32_core_kernel", "pileup_histogram_kernel",
+                "projection_f32_kernel", "projection_kernel",
+                "projection_narrow_kernel")
 
 
 def port_kernel_events(names) -> int:

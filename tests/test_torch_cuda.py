@@ -400,7 +400,7 @@ def test_static_kernel_matches_twin(device, dtype, x_int8, rec_int8, B):
         torch.cuda.synchronize()
         assert out.dtype == torch.int8 and out.shape == (33, B, H)
         assert_codes_close(out, ref, rec_int8)
-        # the float epilogue
+        # the float epilogue, from the same core kinds
         out = kernel(xs, ws, b, w_hh, out_dtype=dtype, **kw)
         ref = twin(xs, ws, b, w_hh, out_dtype=dtype, **kw)
         assert out.dtype == dtype
@@ -464,8 +464,6 @@ def test_static_core_matches_twin(device, layer, rec_int8, hidden, B, dtype):
     bars, both directions, in bfloat16 and in float32."""
     xs, ws, b, w_hh, acc_scale, rec_scale = _static_core_case(
         device, layer, rec_int8, B, hidden, dtype=dtype)
-    assert lstm_kernel.static_on_core(xs[0].dtype, w_hh.dtype, True,
-                                      sum(x.shape[2] for x in xs))
     kernel = lstm_kernel.lstm_direction_fused_static
     for reverse in (False, True):
         kw = dict(acc_scale=acc_scale, rec_scale=rec_scale, reverse=reverse,
@@ -495,7 +493,6 @@ def test_static_core_wide_encoder_matches_twin(device, rec_int8, hidden, B,
     xs, ws, b, w_hh, acc_scale, rec_scale = _static_core_case(
         device, "encoder", rec_int8, B, hidden, seed=11, T=21, features=48,
         dtype=dtype)
-    assert lstm_kernel.static_on_core(xs[0].dtype, w_hh.dtype, True, 48)
     kernel = lstm_kernel.lstm_direction_fused_static
     for reverse in (False, True):
         kw = dict(acc_scale=acc_scale, rec_scale=rec_scale, reverse=reverse,
@@ -1342,8 +1339,6 @@ def test_hp_static_kernel_matches_twin(device, dtype, layer, rec_int8, B):
     xs, ws, b, w_hh, acc_scale, rec_scale = _static_core_case(
         device, layer, rec_int8, B, H, seed=5, T=HP_T, features=HP_F,
         dtype=dtype)
-    assert lstm_kernel.static_on_core(xs[0].dtype, w_hh.dtype, True,
-                                      sum(x.shape[2] for x in xs))
     kernel = lstm_kernel.lstm_direction_fused_static
     for reverse in (False, True):
         kw = dict(acc_scale=acc_scale, rec_scale=rec_scale, reverse=reverse,

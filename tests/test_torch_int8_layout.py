@@ -1,11 +1,10 @@
 """The int8 weight layouts the port's kernels read, and where they are made.
 
-The tensor-core kernels (csrc/int8_projection.cuh, the static_rec
-recurrence of csrc/lstm_core.cuh) read an int8 weight k-major: each 4 bytes
-of a row are one B register of mma.sync m16n8k32 (csrc/mma_ptx.cuh).  The
-first static LSTM body reads k-quad words for dp4a.  These tests derive both
-layouts from the PTX ISA's fragment tables in plain numpy and hold the
-relayouts to them, round trip included, and show that the served paths
+Every int8 kernel (csrc/int8_projection.cuh, the static_rec recurrence of
+csrc/lstm_core.cuh) reads an int8 weight k-major: each 4 bytes of a row are
+one B register of mma.sync m16n8k32 (csrc/mma_ptx.cuh).  These tests derive
+that layout from the PTX ISA's fragment tables in plain numpy and hold the
+relayout to it, round trip included, and show that the served paths
 (models/quantize.py's static trees) relay each weight once per tree and
 keep the copy (cuda_build.keep_relaid), not once per launch.  They run on
 the CPU: the serving path's launches are driven on meta tensors with the
@@ -22,7 +21,7 @@ from pepper_tpu_torch.models.polish_gru import (PolishConfig,
 from pepper_tpu_torch.models.transducer import (TransducerConfig,
                                                 init_transducer_params)
 from pepper_tpu_torch.ops import cuda_build, gru_kernel, lstm_kernel
-from pepper_tpu_torch.ops.cuda_build import int8_kmajor, pack_quads
+from pepper_tpu_torch.ops.cuda_build import int8_kmajor
 
 
 def _weight(K, N, seed):
@@ -84,21 +83,6 @@ def test_kmajor_relayout_is_the_mma_b_fragment_layout(K, N):
     np.testing.assert_array_equal(back, w)
 
 
-@pytest.mark.parametrize("K,N", [(512, 1024), (256, 1024), (28, 96)])
-def test_quads_relayout_is_the_dp4a_word_layout(K, N):
-    """The first static LSTM body's layout: word [k/4][n] holds the four
-    consecutive k of column n, byte b being row 4 (k/4) + b."""
-    w = _weight(K, N, 3)
-    packed = pack_quads(torch.from_numpy(w)).numpy()
-    assert packed.shape == (K // 4, N, 4)
-    for kq in range(0, K // 4, max(1, K // 40)):
-        for n in range(0, N, 37):
-            np.testing.assert_array_equal(packed[kq, n], w[4 * kq:4 * kq + 4,
-                                                           n])
-    back = packed.transpose(0, 2, 1).reshape(K, N)
-    np.testing.assert_array_equal(back, w)
-
-
 # ---------------------------------------------------------------- served paths
 
 
@@ -144,10 +128,10 @@ def _int8_weights(tree):
             if tree[layer][key].dtype == torch.int8]
 
 
-def _kept(w, layout):
+def _kept(w):
     """The copy keep_relaid kept for w; asking relays nothing."""
     before = cuda_build.relayout_int8.count
-    copy = cuda_build.relaid((w,), layout)
+    copy = cuda_build.relaid((w,))
     assert cuda_build.relayout_int8.count == before
     return copy
 
@@ -173,10 +157,10 @@ def _serve(tree, rec_int8, compute_dtype, batches=2, T=5, B=4):
                          ids=["static", "static_rec"])
 def test_static_tree_relays_each_int8_weight_once(rec_int8, compute_dtype,
                                                   recorded):
-    """prepare_static relays each int8 weight of the two biLSTMs once, in
-    the layout its body reads, and keeps the copy; a prepared tree is not
-    relaid again, and serving batches from it relays nothing: every launch
-    reads the kept copies."""
+    """prepare_static relays each int8 weight of the two biLSTMs once,
+    k-major, and keeps the copy; a prepared tree is not relaid again, and
+    serving batches from it relays nothing: every launch reads the kept
+    copies."""
     before = cuda_build.relayout_int8.count
     tree = _transducer_tree(rec_int8, compute_dtype, "meta")
     weights = _int8_weights(tree)
@@ -186,16 +170,7 @@ def test_static_tree_relays_each_int8_weight_once(rec_int8, compute_dtype,
     assert again["decoder"]["w_ih_f"] is tree["decoder"]["w_ih_f"]
     assert cuda_build.relayout_int8.count == before + len(weights)
 
-    # every served layer runs on the core and reads k-major weights, in
-    # bfloat16 and in float32 (a float32 W_hh on the float32 core's codes
-    # kind)
-    H = tree["encoder"]["w_hh_f"].shape[0]
-    on_core = {"encoder": True, "decoder": True}
-    assert on_core == {layer: lstm_kernel.static_on_core(
-        compute_dtype if layer == "encoder" else torch.int8,
-        torch.int8 if rec_int8 else compute_dtype, True,
-        26 if layer == "encoder" else 2 * H) for layer in on_core}
-    kept = {id(_kept(node[key], "kmajor")) for node, key in weights}
+    kept = {id(_kept(node[key])) for node, key in weights}
 
     after_prepare = cuda_build.relayout_int8.count
     _serve(tree, rec_int8, compute_dtype)
@@ -226,13 +201,13 @@ def test_static_launches_read_the_kept_copies(recorded):
     enc, dec = tree["encoder"], tree["decoder"]
     _serve(tree, True, torch.bfloat16, batches=1)
     (_, enc_f), (_, enc_b), (_, dec_f), (_, dec_b) = recorded.calls
-    assert enc_f[12] is _kept(enc["w_hh_f"], "kmajor")
-    assert enc_b[12] is _kept(enc["w_hh_b"], "kmajor")
+    assert enc_f[12] is _kept(enc["w_hh_f"])
+    assert enc_b[12] is _kept(enc["w_hh_b"])
     assert enc_f[13] is None  # the encoder's x joins the step
-    assert dec_f[5] is _kept(dec["w_ih_f"], "kmajor")
-    assert dec_b[5] is _kept(dec["w_ih_b"], "kmajor")
+    assert dec_f[5] is _kept(dec["w_ih_f"])
+    assert dec_b[5] is _kept(dec["w_ih_b"])
     assert dec_b[6] is None
-    assert dec_b[12] is _kept(dec["w_hh_b"], "kmajor")
+    assert dec_b[12] is _kept(dec["w_hh_b"])
     H = enc["w_hh_f"].shape[0]
     assert dec_b[13].shape == (5, 4, 4 * H)
 
@@ -253,9 +228,8 @@ def test_weights_without_kept_copies_relay_at_each_launch(recorded):
     # W_ih and W_hh of two directions, twice
     assert cuda_build.relayout_int8.count == before + 8
     w = tree["decoder"]["w_ih_f"]
-    assert cuda_build.relaid((w[:32],), "kmajor").shape == (w.shape[1], 32)
-    assert cuda_build.relaid((w[32:], w[:32]), "kmajor") is not _kept(
-        w, "kmajor")
+    assert cuda_build.relaid((w[:32],)).shape == (w.shape[1], 32)
+    assert cuda_build.relaid((w[32:], w[:32])) is not _kept(w)
     assert cuda_build.relayout_int8.count == before + 10
 
 
@@ -264,15 +238,15 @@ def test_a_written_weight_is_relaid_again():
     written in place, the next launch relays it (and keep_relaid keeps the
     new copy)."""
     w = torch.from_numpy(_weight(64, 96, 7))
-    kept = cuda_build.keep_relaid(w, "kmajor")
-    assert _kept(w, "kmajor") is kept
+    kept = cuda_build.keep_relaid(w)
+    assert _kept(w) is kept
     w[0, 0] = -w[0, 0] - 1
     before = cuda_build.relayout_int8.count
-    fresh = cuda_build.relaid((w[:32], w[32:]), "kmajor")
+    fresh = cuda_build.relaid((w[:32], w[32:]))
     assert cuda_build.relayout_int8.count == before + 1
     np.testing.assert_array_equal(fresh.numpy(), w.numpy().T)
-    again = cuda_build.keep_relaid(w, "kmajor")
-    assert again is not kept and _kept(w, "kmajor") is again
+    again = cuda_build.keep_relaid(w)
+    assert again is not kept and _kept(w) is again
 
 
 def test_inference_tensors_keep_their_copies():
@@ -283,8 +257,8 @@ def test_inference_tensors_keep_their_copies():
         tree = _transducer_tree(False, torch.bfloat16, "cpu")
         w = tree["decoder"]["w_ih_f"]
         assert w.is_inference()
-        kept = _kept(w, "kmajor")
-        assert cuda_build.relaid((w[:32], w[32:]), "kmajor") is kept
+        kept = _kept(w)
+        assert cuda_build.relaid((w[:32], w[32:])) is kept
 
 
 def test_polish_static_tree_relays_once(recorded):
@@ -317,7 +291,7 @@ def test_polish_static_tree_relays_once(recorded):
     decoder_calls = [args for _, args in recorded.calls
                      if args[0] == cuda_build.DTYPE_CODE[torch.int8]]
     assert [args[4] for args in decoder_calls] == [
-        _kept(dec["w_ih_f"], "kmajor"), _kept(dec["w_ih_b"], "kmajor")] * 3
+        _kept(dec["w_ih_f"]), _kept(dec["w_ih_b"])] * 3
 
 
 @pytest.mark.parametrize("rec_int8", [False, True],
@@ -343,9 +317,7 @@ def test_hp_static_tree_serves_the_48_feature_encoder_on_the_core(rec_int8,
     enc = tree["encoder"]
     H = enc["w_hh_f"].shape[0]
     assert enc["w_ih_f"].shape == (48, 4 * H)
-    assert lstm_kernel.static_on_core(torch.bfloat16, enc["w_hh_f"].dtype,
-                                      True, 48)
-    kept = {id(_kept(node[key], "kmajor")) for node, key in weights}
+    kept = {id(_kept(node[key])) for node, key in weights}
 
     after_prepare = cuda_build.relayout_int8.count
     x = torch.empty((21, 4, 48), dtype=torch.bfloat16, device="meta")

@@ -170,36 +170,33 @@ def test_projection_scratch_only_where_the_input_leaves_the_step(
         assert xw is None
 
 
-@pytest.mark.parametrize("x_dtype,whh_dtype,features,on_core", [
-    (torch.bfloat16, torch.bfloat16, 48, True),
-    (torch.bfloat16, torch.int8, 48, True),
+@pytest.mark.parametrize("x_dtype,whh_dtype,features,joins", [
+    (torch.bfloat16, torch.bfloat16, 48, False),
+    (torch.bfloat16, torch.int8, 48, False),
     (torch.bfloat16, torch.bfloat16, 26, True),
     (torch.bfloat16, torch.int8, 26, True),
-    (torch.int8, torch.bfloat16, 512, True),
-    (torch.int8, torch.int8, 512, True),
-    (torch.float32, torch.float32, 48, True),
-    (torch.float32, torch.int8, 48, True),
-    (torch.int8, torch.float32, 512, True),
-    (torch.float32, torch.float32, 26, True),
-    (torch.float32, torch.int8, 26, True)],
+    (torch.int8, torch.bfloat16, 512, False),
+    (torch.int8, torch.int8, 512, False),
+    (torch.float32, torch.float32, 48, False),
+    (torch.float32, torch.int8, 48, False),
+    (torch.int8, torch.float32, 512, False),
+    (torch.float32, torch.float32, 26, False),
+    (torch.float32, torch.int8, 26, False)],
     ids=["static_hp_encoder", "static_rec_hp_encoder", "static_encoder",
          "static_rec_encoder", "static_decoder", "static_rec_decoder",
          "float32", "float32_x_int8_whh", "int8_x_float32_whh",
          "float32_static_encoder", "float32_static_rec_encoder"])
 def test_static_routes_by_dtype_at_every_width(x_dtype, whh_dtype, features,
-                                               on_core):
-    """The static kernel runs every combination with int8 codes out on the
-    core at every width (the HP encoder's 48 features included, and
-    float32 x or W_hh: the float32 static modes), reading its int8 weights
-    k-major; only a float epilogue keeps the first body (k-quads)."""
-    assert lstm_kernel.static_on_core(x_dtype, whh_dtype, True,
-                                      features) == on_core
-    assert lstm_kernel.static_layout(x_dtype, whh_dtype, True, features) == (
-        "kmajor" if on_core else "quads")
-    assert not lstm_kernel.static_on_core(x_dtype, whh_dtype, False,
-                                          features)
-    assert lstm_kernel.static_layout(x_dtype, whh_dtype, False,
-                                     features) == "quads"
+                                               joins):
+    """The static kernel has one route for every combination: x joins the
+    recurrence's step where it can (bfloat16 x of at most 32 features), and
+    is projected into a float32 xw first everywhere else (float32 x at
+    every width), whatever W_hh and whatever is emitted."""
+    del whh_dtype  # the route does not depend on it
+    assert lstm_kernel.static_x_joins(x_dtype, (features,)) == joins
+    xs = (torch.zeros((5, 3, features), dtype=x_dtype),)
+    xw = lstm_kernel._static_scratch(xs, 32)
+    assert (xw is None) == joins
 
 
 # every (x, W_hh) dtype pair that lstm_direction_fused_static takes: float x
@@ -217,28 +214,94 @@ STATIC_CASES = [(x, w, f) for x, w in STATIC_PAIRS for f in (26, 48, 512)
                 if x != torch.int8 or f % 4 == 0]
 
 
+@pytest.fixture
+def recorded(monkeypatch):
+    """The static wrapper's device path on meta tensors: require_cuda
+    passes, launch records its name and arguments, and ptr hands over the
+    tensor itself; nothing runs."""
+    calls = []
+    monkeypatch.setattr(lstm_kernel, "launch",
+                        lambda name, device, *args: calls.append(args))
+    monkeypatch.setattr(lstm_kernel, "require_cuda", lambda t, name: None)
+    monkeypatch.setattr(lstm_kernel, "ptr", lambda t: t)
+    return calls
+
+
+def _static_launch(x_dtype, whh_dtype, features, out_int8, out_dtype,
+                   recorded, H=32):
+    """One static launch of a combination on meta tensors: its recorded
+    arguments and its output."""
+    x = torch.empty((2, 3, features), dtype=x_dtype, device="meta")
+    w_ih = torch.empty((features, 4 * H), dtype=x_dtype, device="meta")
+    w_hh = torch.empty((H, 4 * H), dtype=whh_dtype, device="meta")
+    scale = torch.empty(4 * H, device="meta")
+    out = lstm_kernel.lstm_direction_fused_static(
+        (x,), (w_ih,), torch.empty(4 * H, device="meta"), w_hh,
+        acc_scale=scale if x_dtype == torch.int8 else None,
+        rec_scale=scale if whh_dtype == torch.int8 else None,
+        out_int8=out_int8, out_dtype=out_dtype)
+    assert len(recorded) == 1
+    return recorded.pop(), out
+
+
+def _assert_one_route(args, x_dtype, whh_dtype, features, H=32):
+    """A launch's operands on the one route: int8 weights k-major (W_ih one
+    (4H, F) matrix, W_hh (4H, H)), float ones as they are, and an xw
+    scratch where x does not join the step."""
+    w0, w1, w_rec, xw = args[5], args[6], args[12], args[13]
+    assert w0.shape == ((4 * H, features) if x_dtype == torch.int8
+                        else (features, 4 * H))
+    assert w1 is None
+    assert w_rec.shape == ((4 * H, H) if whh_dtype == torch.int8
+                           else (H, 4 * H))
+    del whh_dtype  # the route does not depend on it
+    joins = lstm_kernel.static_x_joins(x_dtype, (features,))
+    assert (xw is None) == joins
+    if not joins:
+        assert xw.shape == (2, 3, 4 * H) and xw.dtype == torch.float32
+
+
 @pytest.mark.parametrize("x_dtype,whh_dtype,features", STATIC_CASES, ids=[
     f"{str(x).split('.')[1]}_x_{str(w).split('.')[1]}_whh_{f}"
     for x, w, f in STATIC_CASES])
-def test_every_code_emitting_combination_runs_on_the_core(x_dtype, whh_dtype,
-                                                          features):
-    """Each combination the wrapper accepts runs on the core with int8
-    codes out, k-major; no float32 combination is left to the first body,
-    which only the float epilogue reaches."""
+def test_every_code_emitting_combination_runs_on_the_core(
+        x_dtype, whh_dtype, features, recorded):
+    """Each combination the wrapper accepts runs on the core's one route,
+    with int8 codes out and with the float epilogue alike: the same
+    operands, int8 weights relaid k-major, only the out kind differs."""
     H = 32
-    x = torch.zeros((2, 3, features), dtype=x_dtype)
-    w_ih = torch.zeros((features, 4 * H), dtype=x_dtype)
-    w_hh = torch.zeros((H, 4 * H), dtype=whh_dtype)
     scale = torch.ones(4 * H)
     lstm_kernel._check_static_args(
-        (x,), (w_ih,), torch.zeros(4 * H), w_hh,
+        (torch.zeros((2, 3, features), dtype=x_dtype),),
+        (torch.zeros((features, 4 * H), dtype=x_dtype),),
+        torch.zeros(4 * H), torch.zeros((H, 4 * H), dtype=whh_dtype),
         scale if x_dtype == torch.int8 else None,
         scale if whh_dtype == torch.int8 else None)
-    assert lstm_kernel.static_on_core(x_dtype, whh_dtype, True, features)
-    assert lstm_kernel.static_layout(x_dtype, whh_dtype, True,
-                                     features) == "kmajor"
-    assert not lstm_kernel.static_on_core(x_dtype, whh_dtype, False,
-                                          features)
+    for out_int8 in (True, False):
+        args, out = _static_launch(x_dtype, whh_dtype, features, out_int8,
+                                   torch.float32, recorded)
+        assert args[2] == (2 if out_int8 else 0)
+        assert out.dtype == (torch.int8 if out_int8 else torch.float32)
+        _assert_one_route(args, x_dtype, whh_dtype, features)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype,whh_dtype", STATIC_PAIRS, ids=[
+    f"{str(x).split('.')[1]}_x_{str(w).split('.')[1]}_whh"
+    for x, w in STATIC_PAIRS])
+def test_float_epilogue_takes_the_core_route(x_dtype, whh_dtype, out_dtype,
+                                             recorded):
+    """The float epilogue (out_int8=False) of every (x, W_hh) pair runs on
+    the core: h emitted in the asked float dtype (the launch's out kind
+    its dtype code), the weights as the code-emitting launch reads them,
+    at the encoder's 26 features (28 for int8 x)."""
+    features = 28 if x_dtype == torch.int8 else 26
+    args, out = _static_launch(x_dtype, whh_dtype, features, False,
+                               out_dtype, recorded)
+    assert out.dtype == out_dtype and out.shape == (2, 3, 32)
+    assert args[2] == {torch.float32: 0, torch.bfloat16: 1}[out_dtype]
+    assert args[14] is out
+    _assert_one_route(args, x_dtype, whh_dtype, features)
 
 
 @pytest.mark.parametrize("x_dtype,whh_dtype", [
@@ -253,24 +316,28 @@ def test_static_refuses_a_float_whh_of_another_dtype(x_dtype, whh_dtype):
             torch.zeros((H, 4 * H), dtype=whh_dtype), None, None)
 
 
-@pytest.mark.parametrize("dtype,parts,layout,scratch", [
-    (torch.bfloat16, (48,), "kmajor", True),
-    (torch.bfloat16, (20, 13), "kmajor", True),
-    (torch.bfloat16, (26,), "kmajor", False),
-    (torch.int8, (256, 256), "kmajor", True),
-    (torch.int8, (28,), "kmajor", True),
-    (torch.bfloat16, (48,), "quads", False),
-    (torch.float32, (48,), "quads", False),
-    (torch.float32, (26,), "kmajor", True),
-    (torch.float32, (48,), "kmajor", True)])
-def test_static_scratch_where_the_core_projects_first(dtype, parts, layout,
+@pytest.mark.parametrize("dtype,parts,whh_dtype,scratch", [
+    (torch.bfloat16, (48,), torch.bfloat16, True),
+    (torch.bfloat16, (20, 13), torch.bfloat16, True),
+    (torch.bfloat16, (26,), torch.bfloat16, False),
+    (torch.int8, (256, 256), torch.int8, True),
+    (torch.int8, (28,), torch.bfloat16, True),
+    (torch.bfloat16, (26,), torch.int8, False),
+    (torch.float32, (65,), torch.float32, True),
+    (torch.float32, (26,), torch.float32, True),
+    (torch.float32, (48,), torch.float32, True),
+    (torch.float32, (64,), torch.float32, True),
+    (torch.float32, (20, 13), torch.float32, True),
+    (torch.float32, (26,), torch.int8, True)])
+def test_static_scratch_where_the_core_projects_first(dtype, parts, whh_dtype,
                                                       scratch):
-    """On the core the static kernel projects int8 and float32 x, and
-    bfloat16 x of more than 32 features, into a float32 (T, B, 4H) xw
-    first; bfloat16 x of at most 32 joins the step, and the first body
-    takes no xw."""
+    """The static kernel projects int8 x, bfloat16 x of more than 32
+    features (both parts counted) and float32 x of any width, beside any
+    W_hh, into a float32 (T, B, 4H) xw first; bfloat16 x of at most 32
+    joins the step and takes no xw."""
+    del whh_dtype  # the route does not depend on it
     xs = tuple(torch.zeros((5, 3, f), dtype=dtype) for f in parts)
-    xw = lstm_kernel._static_scratch(xs, layout, 32)
+    xw = lstm_kernel._static_scratch(xs, 32)
     if scratch:
         assert xw.shape == (5, 3, 128) and xw.dtype == torch.float32
     else:
