@@ -14,6 +14,11 @@ to a multiple of the device count, and each padded batch is split into
 contiguous row blocks, one a device in list order: each block is uploaded
 and enqueued on its own device's current stream before any is waited on,
 and `resolve` waits on each block's event and concatenates in order.
+
+While a torch.profiler session is active, `dispatch` and `resolve` are
+spans (utils/profiling.py) that share the batch's id, their phases the
+children: `runner.dispatch.stack`, `.stage`, `.enqueue`;
+`runner.resolve.wait`, `.fetch`, `.objects`.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..models import quantize
 from ..models.transducer import map_params, params_from_jax
 from ..options import ImageOptions
 from ..parallel.mesh import round_up
+from ..utils import profiling
 
 
 class InferenceRunner:
@@ -121,32 +127,38 @@ class InferenceRunner:
         the blocks that hold windows, as (probabilities of those windows,
         a CUDA event recorded after them or None on the CPU)."""
         n = len(chunk)
-        bucket = self._bucket(n)
-        # one pinned staging buffer from torch's caching host allocator:
-        # it is not handed out again until every copy from it has completed
-        pinned = any(d.type == "cuda" for d in self.devices)
-        host = torch.empty((bucket, self.window, self.features),
-                           dtype=torch.int8 if dtype == np.int8
-                           else torch.float32, pin_memory=pinned)
-        view = host.numpy()
-        view[:n] = chunk
-        view[n:] = 0
+        with profiling.span("runner.dispatch.stage"):
+            bucket = self._bucket(n)
+            profiling.count_rows("runner", n, bucket)
+            # one pinned staging buffer from torch's caching host
+            # allocator: it is not handed out again until every copy from
+            # it has completed
+            pinned = any(d.type == "cuda" for d in self.devices)
+            host = torch.empty((bucket, self.window, self.features),
+                               dtype=torch.int8 if dtype == np.int8
+                               else torch.float32, pin_memory=pinned)
+            view = host.numpy()
+            view[:n] = chunk
+            view[n:] = 0
         per = bucket // self.num_devices
         blocks = []
-        for i, (device, tree) in enumerate(zip(self.devices, self._trees)):
-            rows = min(per, n - i * per)
-            if rows <= 0:       # padding only: nothing to classify
-                break
-            cuda = device.type == "cuda"
-            with torch.cuda.device(device) if cuda else \
-                    contextlib.nullcontext():
-                x = host[i * per:(i + 1) * per].to(device, non_blocking=cuda)
-                probs = self._forward(x, tree)[:rows]
-                event = None
-                if cuda:
-                    event = torch.cuda.Event()
-                    event.record()
-            blocks.append((probs, event))
+        with profiling.span("runner.dispatch.enqueue"):
+            for i, (device, tree) in enumerate(zip(self.devices,
+                                                   self._trees)):
+                rows = min(per, n - i * per)
+                if rows <= 0:       # padding only: nothing to classify
+                    break
+                cuda = device.type == "cuda"
+                with torch.cuda.device(device) if cuda else \
+                        contextlib.nullcontext():
+                    x = host[i * per:(i + 1) * per].to(device,
+                                                       non_blocking=cuda)
+                    probs = self._forward(x, tree)[:rows]
+                    event = None
+                    if cuda:
+                        event = torch.cuda.Event()
+                        event.record()
+                blocks.append((probs, event))
         return blocks
 
     @staticmethod
@@ -154,9 +166,11 @@ class InferenceRunner:
         """Wait on each block's event, in order, and concatenate."""
         out = []
         for probs, event in blocks:
-            if event is not None:
-                event.synchronize()
-            out.append(probs.cpu().numpy())
+            with profiling.span("runner.resolve.wait"):
+                if event is not None:
+                    event.synchronize()
+            with profiling.span("runner.resolve.fetch"):
+                out.append(probs.cpu().numpy())
         return np.concatenate(out) if out else np.zeros((0, 3), np.float32)
 
     def predict_images(self, images: np.ndarray) -> np.ndarray:
@@ -175,28 +189,34 @@ class InferenceRunner:
     def dispatch(self, windows):
         """Upload and enqueue ONE window batch without waiting for it;
         resolve() returns its predictions.  The handle holds the device
-        blocks of _enqueue."""
+        blocks of _enqueue and the batch id that dispatch's and resolve's
+        spans share."""
         if not windows:
-            return (None, windows, np.zeros((0, 3), np.float32))
-        images = np.stack([w.image for w in windows])
-        if len(images) > self.batch_size:
-            # oversized chunk: the synchronous multi-batch loop
-            return (None, windows, self.predict_images(images))
-        return (self._enqueue(images, self._upload_dtype(images)), windows,
-                None)
+            return (None, windows, np.zeros((0, 3), np.float32), None)
+        batch = profiling.new_batch()
+        with profiling.span("runner.dispatch", batch):
+            with profiling.span("runner.dispatch.stack"):
+                images = np.stack([w.image for w in windows])
+            if len(images) > self.batch_size:
+                # oversized chunk: the synchronous multi-batch loop
+                return (None, windows, self.predict_images(images), batch)
+            return (self._enqueue(images, self._upload_dtype(images)),
+                    windows, None, batch)
 
     def resolve(self, handle) -> list[CandidatePrediction]:
-        blocks, windows, probs = handle
-        if probs is None:
-            probs = self._gather(blocks)
-        return [
-            CandidatePrediction(
-                contig=w.contig, position=w.position, depth=w.depth,
-                candidates=list(w.candidates),
-                candidate_frequency=list(w.candidate_frequency),
-                prediction_base=probs[i])
-            for i, w in enumerate(windows)
-        ]
+        blocks, windows, probs, batch = handle
+        with profiling.span("runner.resolve", batch):
+            if probs is None:
+                probs = self._gather(blocks)
+            with profiling.span("runner.resolve.objects"):
+                return [
+                    CandidatePrediction(
+                        contig=w.contig, position=w.position, depth=w.depth,
+                        candidates=list(w.candidates),
+                        candidate_frequency=list(w.candidate_frequency),
+                        prediction_base=probs[i])
+                    for i, w in enumerate(windows)
+                ]
 
     def predict(self, windows) -> list[CandidatePrediction]:
         """CandidateWindow list -> CandidatePrediction list."""

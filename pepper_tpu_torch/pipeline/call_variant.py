@@ -23,6 +23,7 @@ from ..device import resolve_device
 from ..infer.runner import InferenceRunner, fake_predict
 from ..io.bam import BamReader
 from ..io.fasta import FastaReader
+from ..utils import profiling
 from .regions import build_intervals, get_chromosome_list, log_info
 from .summarizer import create_region_summary
 
@@ -279,11 +280,13 @@ def _stream_predictions(options, intervals, bed_list, predict_fn,
         predictions.extend
     total_windows = 0
     pending = []
-    # overlap audit: device time = main thread inside predict_fn (or
-    # dispatch/resolve); host-wait = main thread blocked on window futures
-    stream_start = time.time()
-    device_time = 0.0
+    # overlap audit: predict time = host time of the main thread inside
+    # predict_fn (or dispatch/resolve), the device's work that it waits on
+    # included; window-wait = main thread blocked on window futures
+    stream_start = time.perf_counter()
+    predict_time = 0.0
     wait_time = 0.0
+    rows_before = profiling.padded_rows()["runner"]
     # device-pileup streams RegionPackages (one per region), so the drain
     # unit is a region batch rather than a window batch
     device_mode = (getattr(options, "device_pileup", False)
@@ -298,11 +301,11 @@ def _stream_predictions(options, intervals, bed_list, predict_fn,
     inflight = None
 
     def drain(final=False):
-        nonlocal pending, device_time, inflight
+        nonlocal pending, predict_time, inflight
         while len(pending) >= chunk_size or (final and pending):
             chunk = pending[:chunk_size]
             pending = pending[chunk_size:]
-            t0 = time.time()
+            t0 = time.perf_counter()
             if can_pipeline:
                 handle = runner_obj.dispatch(chunk)
                 if inflight is not None:
@@ -310,12 +313,12 @@ def _stream_predictions(options, intervals, bed_list, predict_fn,
                 inflight = handle
             else:
                 sink(predict_fn(chunk))
-            device_time += time.time() - t0
+            predict_time += time.perf_counter() - t0
         if final and inflight is not None:
-            t0 = time.time()
+            t0 = time.perf_counter()
             sink(runner_obj.resolve(inflight))
             inflight = None
-            device_time += time.time() - t0
+            predict_time += time.perf_counter() - t0
 
     def count_windows(items):
         if device_mode:  # RegionPackage stream
@@ -344,9 +347,9 @@ def _stream_predictions(options, intervals, bed_list, predict_fn,
                 for interval in intervals
             ]
             for future in concurrent.futures.as_completed(futures):
-                t0 = time.time()
+                t0 = time.perf_counter()
                 windows = future.result()
-                wait_time += time.time() - t0
+                wait_time += time.perf_counter() - t0
                 if windows:
                     total_windows += count_windows(windows)
                     pending.extend(windows)
@@ -355,11 +358,13 @@ def _stream_predictions(options, intervals, bed_list, predict_fn,
             if own_pool is not None:
                 own_pool.shutdown()
     drain(final=True)
-    wall = time.time() - stream_start
-    log_info(f"STREAM OVERLAP: wall {wall:.1f}s, device {device_time:.1f}s "
-             f"({100 * device_time / max(1e-9, wall):.0f}%), "
+    wall = time.perf_counter() - stream_start
+    log_info(f"STREAM OVERLAP: wall {wall:.1f}s, host in predict "
+             f"{predict_time:.1f}s "
+             f"({100 * predict_time / max(1e-9, wall):.0f}%), "
              f"window-wait {wait_time:.1f}s "
-             f"({100 * wait_time / max(1e-9, wall):.0f}%)")
+             f"({100 * wait_time / max(1e-9, wall):.0f}%), "
+             + profiling.padded_line("runner", rows_before))
     return predictions, total_windows
 
 

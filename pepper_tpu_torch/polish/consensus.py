@@ -28,6 +28,7 @@ from ..models.quantize import (polish_forward_static,
 from ..ops.gru_kernel import use_fused_gru
 from ..options import PolishImageOptions
 from ..parallel.mesh import round_up
+from ..utils import profiling
 
 SEQ_LENGTH = PolishImageOptions.SEQ_LENGTH          # 1000
 SEQ_OVERLAP = PolishImageOptions.SEQ_OVERLAP        # 50
@@ -172,7 +173,12 @@ def consensus_predict(params, images: np.ndarray, batch_size: int = 512,
 
     params: the float polish tree (numpy arrays as load_params gives them,
     or tensors).  quantize_mode="static" serves through the exact-1/127
-    int8 tree (consensus_scan_static)."""
+    int8 tree (consensus_scan_static).
+
+    While a torch.profiler session is active the call is a span
+    `consensus.predict` (utils/profiling.py), and each batch's phases its
+    children: `consensus.pad`, `.upload`, `.enqueue` (scan_fn) and
+    `.fetch`; the padded rows count always."""
     devices = [resolve_device(d) for d in (devices or [device])]
     n = len(images)
     if n == 0:
@@ -191,27 +197,36 @@ def consensus_predict(params, images: np.ndarray, batch_size: int = 512,
     batch_size = round_up(batch_size, n_devices)
     all_labels = np.zeros((n, SEQ_LENGTH), np.int32)
     all_phred = np.zeros((n, SEQ_LENGTH), np.float32)
-    for start in range(0, n, batch_size):
-        chunk = images[start:start + batch_size]
-        bucket = 32
-        while bucket < len(chunk):
-            bucket *= 2
-        bucket = round_up(min(bucket, batch_size), n_devices)
-        padded = np.zeros((bucket, SEQ_LENGTH, images.shape[2]), np.float32)
-        padded[:len(chunk)] = chunk
-        per = bucket // n_devices
-        blocks = []
-        for i, (d, tree) in enumerate(zip(devices, trees)):
-            rows = min(per, len(chunk) - i * per)
-            if rows <= 0:       # padding only
-                break
-            batch = torch.from_numpy(padded[i * per:(i + 1) * per]).to(
-                device=d, dtype=compute_dtype)
-            _, labels, phred = scan_fn(tree, batch)
-            blocks.append((labels[:rows], phred[:rows]))
-        row = start
-        for labels, phred in blocks:
-            all_labels[row:row + len(labels)] = labels.cpu().numpy()
-            all_phred[row:row + len(phred)] = phred.cpu().numpy()
-            row += len(labels)
+    with profiling.span("consensus.predict"):
+        for start in range(0, n, batch_size):
+            chunk = images[start:start + batch_size]
+            batch_id = profiling.new_batch()
+            with profiling.span("consensus.pad", batch_id):
+                bucket = 32
+                while bucket < len(chunk):
+                    bucket *= 2
+                bucket = round_up(min(bucket, batch_size), n_devices)
+                profiling.count_rows("consensus", len(chunk), bucket)
+                padded = np.zeros((bucket, SEQ_LENGTH, images.shape[2]),
+                                  np.float32)
+                padded[:len(chunk)] = chunk
+            per = bucket // n_devices
+            blocks = []
+            for i, (d, tree) in enumerate(zip(devices, trees)):
+                rows = min(per, len(chunk) - i * per)
+                if rows <= 0:       # padding only
+                    break
+                with profiling.span("consensus.upload", batch_id):
+                    batch = torch.from_numpy(
+                        padded[i * per:(i + 1) * per]).to(
+                            device=d, dtype=compute_dtype)
+                with profiling.span("consensus.enqueue", batch_id):
+                    _, labels, phred = scan_fn(tree, batch)
+                blocks.append((labels[:rows], phred[:rows]))
+            row = start
+            for labels, phred in blocks:
+                with profiling.span("consensus.fetch", batch_id):
+                    all_labels[row:row + len(labels)] = labels.cpu().numpy()
+                    all_phred[row:row + len(phred)] = phred.cpu().numpy()
+                row += len(labels)
     return all_labels, all_phred

@@ -27,6 +27,7 @@ from ..io.bam import BamReader
 from ..io.fasta import FastaReader
 from ..options import PolishImageOptions
 from ..pipeline.regions import log_info, natural_key
+from ..utils import profiling
 from .stitch import stitch_contig
 from .summary import PolishSummary, chunk_images, chunk_images_train
 
@@ -484,8 +485,11 @@ def polish(options, params, device=None, devices=None):
     shares = polish_image_shares(options, intervals)
     log_info("STEP 2: RUNNING INFERENCE")
     store = PredictionStore()
+    rows_before = profiling.padded_rows()["consensus"]
     consensus_into(options, shares, params, store, device, devices,
                    _quantize_mode(options))
+    log_info("FINISHED INFERENCE: "
+             + profiling.padded_line("consensus", rows_before))
     log_info("STEP 3: RUNNING STITCH")
     return stitch(store, os.path.join(output_dir, "consensus"))
 
@@ -567,6 +571,7 @@ def call_consensus(options, image_dir: str, output_dir: str, params,
     image_files = sorted(
         os.path.join(image_dir, f) for f in os.listdir(image_dir)
         if f.endswith((".hdf", ".hdf5", ".h5")))
+    rows_before = profiling.padded_rows()["consensus"]
     with PolishPredictionStore(output_file, "w") as store:
         for image_file in image_files:
             with PolishImageStore(image_file, "r") as images:
@@ -579,7 +584,8 @@ def call_consensus(options, image_dir: str, output_dir: str, params,
                  r["chunk_id"], r["image"], r["position"], r["index"])
                 for r in records]], params, store, device, devices,
                 _quantize_mode(options))
-    log_info("FINISHED PREDICTION")
+    log_info("FINISHED PREDICTION: "
+             + profiling.padded_line("consensus", rows_before))
     return output_file
 
 

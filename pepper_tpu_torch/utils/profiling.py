@@ -6,16 +6,27 @@ port of the JAX package's utils/profiling.py.
 
 StageTimer measures host wall time and never synchronizes the device: a
 caller whose stage ends on device work ends the block with a host fetch
-(`.cpu()`, `.item()`) or `torch.cuda.synchronize()`."""
+(`.cpu()`, `.item()`) or `torch.cuda.synchronize()`.
+
+Inside the served paths, `span` marks each phase of a call (the runner's
+dispatch and resolve, consensus_predict's batches) while a torch.profiler
+session is active, and nothing otherwise; `spans()` and `gc_spans()`
+export what it recorded.  `count_rows` keeps the rows each bucketing layer
+padded, always."""
 
 from __future__ import annotations
 
 import contextlib
+import gc
+import itertools
 import re
 import sys
 import time
 import warnings
+from array import array
 from datetime import datetime
+
+from torch.autograd import profiler as _torch_profiler
 
 
 def log_line(message: str) -> None:
@@ -93,6 +104,7 @@ def trace(log_dir: str | None):
         return
     import torch
 
+    clear_spans()
     activities = [torch.profiler.ProfilerActivity.CPU]
     cuda = torch.cuda.is_available()
     if cuda:
@@ -127,3 +139,181 @@ def kernel_launches() -> dict:
               for module in (lstm_kernel, gru_kernel, pileup_kernel)
               for name in module.KERNELS}
     return {name: count for name, count in counts.items() if count}
+
+
+# ------------------------------------------------------------- spans
+#
+# A span is recorded as (name, start_ns, end_ns, parent, batch): the
+# perf_counter_ns clock (benchmark/tracing.py ties that clock to the
+# device's), the index in records() of the span open around it (None at
+# the top), and the batch id its caller gave or, given none, the one of
+# the span open around it (None outside a batch).  Nothing is recorded,
+# and no clock read, unless a torch.profiler session is active.  One stack
+# of open spans serves the process: spans nest as the served paths' one
+# calling thread opens them.
+#
+# The records are kept as machine integers in one flat array, _FIELDS a
+# span (the name by its id in _names, -1 for None, end 0 while the span
+# is open), which the collector never walks: a list of tuples as long as
+# a traced window's would lengthen every full collector pass it measures.
+
+GC = "gc"
+_FIELDS = 5
+_names: list = []       # a name id's name
+_name_ids: dict = {}
+_store = array("q")
+_open: list = []        # the recording spans, innermost last
+_batch_ids = itertools.count()
+
+
+def _name_id(name: str) -> int:
+    i = _name_ids.get(name)
+    if i is None:
+        i = _name_ids[name] = len(_names)
+        _names.append(name)
+    return i
+
+
+class _Span:
+    __slots__ = ("name", "batch", "store", "index", "range", "gc_start")
+
+    def __init__(self, name, batch):
+        self.name = name
+        self.batch = batch
+        self.gc_start = None
+
+    def __enter__(self):
+        self.range = _torch_profiler.record_function(self.name)
+        self.range.__enter__()
+        outer = _open[-1] if _open else None
+        if self.batch is None and outer is not None:
+            self.batch = outer.batch
+        parent = (outer.index if outer is not None
+                  and outer.store is _store else -1)
+        # a collector pass the tuple's allocation starts is recorded
+        # before this span's slot, as the outer span's child
+        _store.extend((_name_id(self.name), 0, 0, parent,
+                       -1 if self.batch is None else self.batch))
+        self.store = _store
+        self.index = len(_store) // _FIELDS - 1
+        if not _open:
+            gc.callbacks.append(_collector_pass)
+        _open.append(self)
+        _store[self.index * _FIELDS + 1] = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        _open.pop()
+        if not _open:
+            gc.callbacks.remove(_collector_pass)
+        self.store[self.index * _FIELDS + 2] = end
+        self.range.__exit__(*exc)
+        return False
+
+
+def _collector_pass(phase, info):
+    """gc.callbacks hook, installed while a span records: each collector
+    pass becomes a child span `gc` of the innermost open span."""
+    inner = _open[-1]
+    if phase == "start":
+        inner.gc_start = time.perf_counter_ns()
+    elif inner.gc_start is not None:
+        parent = inner.index if inner.store is _store else -1
+        _store.extend((_name_id(GC), inner.gc_start, time.perf_counter_ns(),
+                       parent, -1 if inner.batch is None else inner.batch))
+        inner.gc_start = None
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, batch=None):
+    """with span("runner.resolve.fetch"): ... records the block as a span,
+    a child of the span open around it, and opens a
+    torch.profiler.record_function range of the same name, while a
+    profiler session is active; otherwise it costs one check.  batch: the
+    caller's batch id (new_batch()); None takes the open span's."""
+    if not _torch_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, batch)
+
+
+def new_batch():
+    """A new batch id while spans record, else None."""
+    if not _torch_profiler._is_profiler_enabled:
+        return None
+    return next(_batch_ids)
+
+
+def clear_spans() -> None:
+    """Forgets every recorded span (trace() does it when it starts)."""
+    global _store
+    _store = array("q")
+
+
+def records() -> list:
+    """Every recorded span as (name, start_ns, end_ns, parent, batch), in
+    the order they started (a collector pass where it ended; None in the
+    slot of a span still open); parent indexes this list."""
+    out = []
+    for i in range(0, len(_store), _FIELDS):
+        name, start, end, parent, batch = _store[i:i + _FIELDS]
+        out.append((_names[name], start, end, None if parent < 0 else parent,
+                    None if batch < 0 else batch) if end else None)
+    return out
+
+
+def spans() -> dict:
+    """The leaf spans, those with no child but the collector's passes, as
+    {name: [(start_s, end_s), ...]} in perf_counter seconds: the shape
+    benchmark/tracing.py's Session.result takes for its host spans."""
+    rows = records()
+    parents = {r[3] for r in rows if r is not None and r[0] != GC}
+    out = {}
+    for i, r in enumerate(rows):
+        if r is not None and r[0] != GC and i not in parents:
+            out.setdefault(r[0], []).append((r[1] * 1e-9, r[2] * 1e-9))
+    return out
+
+
+def gc_spans() -> dict:
+    """The collector's passes inside the spans, as {name of the innermost
+    span open at the pass: [(start_s, end_s), ...]} in perf_counter
+    seconds."""
+    rows = records()
+    out = {}
+    for r in rows:
+        if r is not None and r[0] == GC and r[3] is not None:
+            out.setdefault(_names[_store[r[3] * _FIELDS]], []).append(
+                (r[1] * 1e-9, r[2] * 1e-9))
+    return out
+
+
+# ------------------------------------------------------ padded rows
+#
+# The rows each bucketing layer ran since the process started, always on:
+# [real rows, padding rows] (InferenceRunner._bucket's, consensus_predict's
+# bucket).
+
+_ROWS = {"runner": [0, 0], "consensus": [0, 0]}
+
+
+def count_rows(layer: str, real: int, bucket: int) -> None:
+    rows = _ROWS[layer]
+    rows[0] += real
+    rows[1] += bucket - real
+
+
+def padded_rows() -> dict:
+    """{layer: (real rows, padding rows)} in this process."""
+    return {layer: tuple(rows) for layer, rows in _ROWS.items()}
+
+
+def padded_line(layer: str, since: tuple) -> str:
+    """The layer's padding since the padded_rows()[layer] reading `since`,
+    for a stage log line."""
+    real, pad = (now - then for now, then
+                 in zip(padded_rows()[layer], since))
+    return (f"padded rows {pad} of {real + pad} "
+            f"({100 * pad / max(1, real + pad):.1f}%)")
