@@ -223,10 +223,16 @@ Phases, each printing one JSON line:
                (labels, phred and votes equal); polish on phase 12's scene
                through --num_devices -1 and the library (the one-device
                FASTA bytes); windows/s, chunks/s and pairs/s of each beside
-               one device's.  Where h5py is installed, also the staged
-               variant and polish flows and a two-process gloo --sharded
-               run on cuda:0 against their one-process runs; where it is
-               not, one {"phase": "staged", "skipped": ...} line first
+               one device's; call_variant's 1-deep dispatch/resolve loop
+               over 8 distinct batches of 4096 on cuda and over the list,
+               bfloat16 and float32, bitwise predict_images' probabilities
+               when resolved and read again after the loop, with the share
+               of resolves that found their batch done and the pinned
+               blocks created after its first two batches.  Where h5py is
+               installed, also the staged variant and polish flows and a
+               two-process gloo --sharded run on cuda:0 against their
+               one-process runs; where it is not, one {"phase": "staged",
+               "skipped": ...} line first
  20 train      variant-side training at full width (H=256, linear 512):
                train steps/s and windows/s at B=128 and 4096 with the
                forward/backward/optimizer split, and the eval's windows/s
@@ -3946,6 +3952,75 @@ def multi_runner(device, devices):
     return result
 
 
+# call_variant's 1-deep loop over this many distinct batches: more than
+# the pinned blocks it keeps in flight, so that the host allocator hands
+# each block out again
+LOOP_BATCHES = 8
+
+
+def runner_loop(device, devices):
+    """call_variant's drain on the card: dispatch batch k, then resolve
+    batch k-1, over LOOP_BATCHES distinct batches of B_SERVE windows on
+    `device` and over `devices`, in bfloat16 and float32.  Each batch's
+    probabilities are bitwise predict_images' on it when resolved and again
+    after the loop (no prediction a view of a pinned block handed out
+    again); with the share of resolves that found their batch done, and
+    the pinned blocks created after the loop's first two batches."""
+    import torch
+    from pepper_tpu_torch.infer.runner import InferenceRunner
+    from pepper_tpu_torch.models.transducer import init_transducer_params
+    from pepper_tpu_torch.ops.pileup_ref import CandidateWindow
+    from pepper_tpu_torch.utils import profiling
+
+    def blocks_created():
+        return torch.cuda.host_memory_stats()["num_host_alloc"]
+
+    params = init_transducer_params(torch.Generator().manual_seed(7))
+    host = {name: {k: v.numpy() for k, v in group.items()}
+            for name, group in params.items()}
+    images = np.random.RandomState(9).randint(
+        -125, 126, (LOOP_BATCHES, B_SERVE, T, 26)).astype(np.int8)
+    batches = [[CandidateWindow("chr1", k * B_SERVE + i, 30, ["A"], [30],
+                                images[k, i]) for i in range(B_SERVE)]
+               for k in range(LOOP_BATCHES)]
+
+    def held(preds, k, what):
+        check([p.position for p in preds]
+              == [w.position for w in batches[k]], f"{what}: positions")
+        check(np.array_equal(np.stack([p.prediction_base for p in preds]),
+                             expected[k]),
+              f"{what}: not bitwise predict_images' probabilities")
+
+    result = {}
+    for dtype in ("bfloat16", "float32"):
+        for name, where in (("one_device", {"device": device}),
+                            ("devices", {"devices": devices})):
+            what = f"runner loop {dtype} {name}"
+            runner = InferenceRunner(host, batch_size=B_SERVE,
+                                     compute_dtype=dtype, **where)
+            expected = [runner.predict_images(batch) for batch in images]
+            ready_before = profiling.resolve_ready()
+            resolved, inflight = [], None
+            for k, batch in enumerate(batches):
+                if k == 2:
+                    created = blocks_created()
+                handle = runner.dispatch(batch)
+                if inflight is not None:
+                    resolved.append(runner.resolve(inflight))
+                    held(resolved[-1], k - 1, f"{what}, batch {k - 1}")
+                inflight = handle
+            resolved.append(runner.resolve(inflight))
+            created = blocks_created() - created
+            for k, preds in enumerate(resolved):
+                held(preds, k, f"{what}, batch {k} read again")
+            ready, total = (now - then for now, then in
+                            zip(profiling.resolve_ready(), ready_before))
+            result[f"{dtype}_{name}"] = {
+                "batches": total, "resolves_ready": ready,
+                "pinned_blocks_created_after_two_batches": created}
+    return result
+
+
 def multi_call(device, devices, workdir, scene, threads=4):
     """call_variant on phase 9's scene with phase 9's weights and its
     cuda_bfloat16 arguments: --num_devices 1, the CLI's --num_devices -1
@@ -4247,7 +4322,8 @@ def phase_multi_device(device, card):
         emit({"phase": "staged", "skipped": "h5py not installed"})
     result = {"devices": [str(d) for d in devices],
               "device_count": torch.cuda.device_count(),
-              "runner": multi_runner(device, devices)}
+              "runner": multi_runner(device, devices),
+              "runner_loop": runner_loop(device, devices)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         scene = write_scene(workdir)
         polish_scene = write_polish_scene(workdir)

@@ -6,7 +6,11 @@ float or in one of the int8 serving modes of models/quantize.py: the int8
 window images are uploaded as int8 from pinned host memory and cast to
 the compute dtype on the device; `dispatch` enqueues a batch and returns at
 once, `resolve` waits for it, so the streaming pipeline overlaps batch k's
-device work with host window generation for batch k+1.
+device work with host window generation for batch k+1.  On a card,
+`dispatch` also queues the copy of the batch's probabilities into pinned
+host memory right behind its forward, and the batch's event is recorded
+after that copy: `resolve` waits only for its own batch, never for the
+forward of a batch dispatched after it.
 
 With a list of devices (the JAX package's mesh runner), the parameters are
 replicated once on every device, the batch and every bucket are rounded up
@@ -18,7 +22,9 @@ and `resolve` waits on each block's event and concatenates in order.
 While a torch.profiler session is active, `dispatch` and `resolve` are
 spans (utils/profiling.py) that share the batch's id, their phases the
 children: `runner.dispatch.stack`, `.stage`, `.enqueue`;
-`runner.resolve.wait`, `.fetch`, `.objects`.
+`runner.resolve.wait` (the event), `.fetch` (the host copy's read),
+`.objects`.  Always on, `profiling.resolve_ready()` counts the resolves
+whose every block had completed when its wait began.
 """
 
 from __future__ import annotations
@@ -125,7 +131,9 @@ class InferenceRunner:
         its bucket, and enqueue its forward without waiting: one contiguous
         row block a device, each on its device's current stream.  Returns
         the blocks that hold windows, as (probabilities of those windows,
-        a CUDA event recorded after them or None on the CPU)."""
+        None) on the CPU, and on a card as (a pinned host tensor that the
+        probabilities are copied into behind the forward, a CUDA event
+        recorded after that copy)."""
         n = len(chunk)
         with profiling.span("runner.dispatch.stage"):
             bucket = self._bucket(n)
@@ -141,21 +149,32 @@ class InferenceRunner:
             view[:n] = chunk
             view[n:] = 0
         per = bucket // self.num_devices
+        used = -(-n // per)     # the devices whose rows hold windows
         blocks = []
         with profiling.span("runner.dispatch.enqueue"):
-            for i, (device, tree) in enumerate(zip(self.devices,
-                                                   self._trees)):
-                rows = min(per, n - i * per)
-                if rows <= 0:       # padding only: nothing to classify
-                    break
+            # every upload is queued before any forward, and the staging
+            # block freed right after them: the host allocator records its
+            # reuse event on each stream's tail when the block is freed, so
+            # its reuse waits for the uploads alone, not for the forwards
+            xs = [host[i * per:(i + 1) * per].to(
+                device, non_blocking=device.type == "cuda")
+                for i, device in enumerate(self.devices[:used])]
+            del host, view
+            for i, (device, tree, x) in enumerate(zip(self.devices,
+                                                      self._trees, xs)):
                 cuda = device.type == "cuda"
                 with torch.cuda.device(device) if cuda else \
                         contextlib.nullcontext():
-                    x = host[i * per:(i + 1) * per].to(device,
-                                                       non_blocking=cuda)
-                    probs = self._forward(x, tree)[:rows]
+                    probs = self._forward(x, tree)[:min(per, n - i * per)]
                     event = None
                     if cuda:
+                        # queued now, the copy runs before any later
+                        # batch's forward on this stream; its pinned block
+                        # is not handed out again until the copy completes
+                        out = torch.empty(probs.shape, dtype=probs.dtype,
+                                          pin_memory=True)
+                        out.copy_(probs, non_blocking=True)
+                        probs = out
                         event = torch.cuda.Event()
                         event.record()
                 blocks.append((probs, event))
@@ -163,14 +182,21 @@ class InferenceRunner:
 
     @staticmethod
     def _gather(blocks) -> np.ndarray:
-        """Wait on each block's event, in order, and concatenate."""
+        """Wait on each block's event, in order, and concatenate the
+        blocks into a new array (a pinned block goes back to the host
+        allocator's cache once its handle is dropped, so no result may be a
+        view of it).  Counts the call in profiling.resolve_ready(), ready
+        if every block's event had completed when its wait began."""
         out = []
+        ready = True
         for probs, event in blocks:
             with profiling.span("runner.resolve.wait"):
                 if event is not None:
+                    ready = event.query() and ready
                     event.synchronize()
             with profiling.span("runner.resolve.fetch"):
-                out.append(probs.cpu().numpy())
+                out.append(probs.numpy())
+        profiling.count_resolve(ready)
         return np.concatenate(out) if out else np.zeros((0, 3), np.float32)
 
     def predict_images(self, images: np.ndarray) -> np.ndarray:

@@ -287,6 +287,7 @@ def _stream_predictions(options, intervals, bed_list, predict_fn,
     predict_time = 0.0
     wait_time = 0.0
     rows_before = profiling.padded_rows()["runner"]
+    ready_before = profiling.resolve_ready()
     # device-pileup streams RegionPackages (one per region), so the drain
     # unit is a region batch rather than a window batch
     device_mode = (getattr(options, "device_pileup", False)
@@ -364,7 +365,8 @@ def _stream_predictions(options, intervals, bed_list, predict_fn,
              f"({100 * predict_time / max(1e-9, wall):.0f}%), "
              f"window-wait {wait_time:.1f}s "
              f"({100 * wait_time / max(1e-9, wall):.0f}%), "
-             + profiling.padded_line("runner", rows_before))
+             + profiling.padded_line("runner", rows_before) + ", "
+             + profiling.ready_line(ready_before))
     return predictions, total_windows
 
 

@@ -12,7 +12,8 @@ Inside the served paths, `span` marks each phase of a call (the runner's
 dispatch and resolve, consensus_predict's batches) while a torch.profiler
 session is active, and nothing otherwise; `spans()` and `gc_spans()`
 export what it recorded.  `count_rows` keeps the rows each bucketing layer
-padded, always."""
+padded, and `count_resolve` the runner's resolves that found their batch
+done, always."""
 
 from __future__ import annotations
 
@@ -317,3 +318,30 @@ def padded_line(layer: str, since: tuple) -> str:
                  in zip(padded_rows()[layer], since))
     return (f"padded rows {pad} of {real + pad} "
             f"({100 * pad / max(1, real + pad):.1f}%)")
+
+
+# --------------------------------------------------- ready resolves
+#
+# InferenceRunner._gather's calls since the process started, always on:
+# [calls whose every block's device work, the copy to the host included,
+# had completed when its wait began, calls].
+
+_RESOLVES = [0, 0]
+
+
+def count_resolve(ready: bool) -> None:
+    _RESOLVES[0] += ready
+    _RESOLVES[1] += 1
+
+
+def resolve_ready() -> tuple:
+    """(ready resolves, resolves) in this process."""
+    return tuple(_RESOLVES)
+
+
+def ready_line(since: tuple) -> str:
+    """The resolves ready since the resolve_ready() reading `since`, for a
+    stage log line."""
+    ready, total = (now - then for now, then in zip(resolve_ready(), since))
+    return (f"resolves ready {ready} of {total} "
+            f"({100 * ready / max(1, total):.1f}%)")

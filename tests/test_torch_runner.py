@@ -16,6 +16,7 @@ from pepper_tpu.ops.pileup_ref import CandidateWindow as JaxWindow
 from pepper_tpu_torch.device import resolve_device
 from pepper_tpu_torch.infer.runner import InferenceRunner
 from pepper_tpu_torch.ops.pileup_ref import CandidateWindow
+from pepper_tpu_torch.utils import profiling
 
 
 def _params(seed=0):
@@ -62,6 +63,74 @@ def test_dispatch_resolve_matches_predict():
         np.testing.assert_array_equal(a.prediction_base, b.prediction_base)
     assert runner.resolve(runner.dispatch([])) == []
     assert runner.predict([]) == []
+
+
+@pytest.mark.parametrize("devices", [None, ["cpu", "cpu"]])
+def test_a_one_deep_loop_resolves_each_batch_as_predict_images(devices):
+    """call_variant's drain: dispatch batch k, then resolve batch k-1.
+    Each batch's probabilities are bitwise predict_images' on it when
+    resolved, and still are after two further dispatches and resolves (no
+    prediction is a view of a block the runner hands out again)."""
+    runner = InferenceRunner(_params(), batch_size=8, device="cpu",
+                             devices=devices)
+    batches = [_windows(n, seed=10 + k)
+               for k, n in enumerate((8, 8, 5, 8, 3, 8, 8))]
+    expected = [runner.predict_images(np.stack([w.image for w in batch]))
+                for batch in batches]
+    resolved, inflight = [], None
+    for batch in batches:
+        handle = runner.dispatch(batch)
+        if inflight is not None:
+            resolved.append(runner.resolve(inflight))
+            k = len(resolved) - 1
+            assert [p.position for p in resolved[k]] == [
+                w.position for w in batches[k]]
+            np.testing.assert_array_equal(
+                np.stack([p.prediction_base for p in resolved[k]]),
+                expected[k])
+        inflight = handle
+    resolved.append(runner.resolve(inflight))
+    for preds, probs in zip(resolved, expected):
+        np.testing.assert_array_equal(
+            np.stack([p.prediction_base for p in preds]), probs)
+
+
+class _Event:
+    """A CUDA event's stand-in: done or not when queried; records the
+    calls made to it."""
+
+    def __init__(self, done, calls):
+        self.done, self.calls = done, calls
+
+    def query(self):
+        self.calls.append("query")
+        return self.done
+
+    def synchronize(self):
+        self.calls.append("synchronize")
+
+
+def test_the_ready_counter_counts_one_resolve_a_call():
+    """One count a resolve, ready where every block was done when its
+    wait began (a CPU block, with no event, always is)."""
+    runner = InferenceRunner(_params(), batch_size=8, device="cpu")
+    before = profiling.resolve_ready()
+    for handle in [runner.dispatch(_windows(n, seed=20 + n))
+                   for n in (8, 3, 8)]:
+        runner.resolve(handle)
+    assert tuple(now - then for now, then in
+                 zip(profiling.resolve_ready(), before)) == (3, 3)
+    block = torch.zeros((2, 3))
+    for done, ready in (((True, True), 1), ((True, False), 0),
+                        ((False, True), 0)):
+        calls, before = [], profiling.resolve_ready()
+        InferenceRunner._gather(
+            [(block, None)] + [(block, _Event(d, calls)) for d in done])
+        assert calls == ["query", "synchronize"] * 2
+        assert tuple(now - then for now, then in
+                     zip(profiling.resolve_ready(), before)) == (ready, 1)
+        assert profiling.ready_line(before) == (
+            f"resolves ready {ready} of 1 ({100.0 * ready:.1f}%)")
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
