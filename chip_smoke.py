@@ -197,7 +197,8 @@ Phases, each printing one JSON line:
                witness that the card's plain arithmetic flips such sites
                too, printed with every flip's margins); on phase 9's scene,
                --model_type no_cnn and transformer (from the checkpoint's
-               metadata) cuda against cpu in float32, launching no kernel,
+               metadata) cuda against cpu in float32, no_cnn launching no
+               kernel and the transformer the attention kernel alone,
                and a reference .pkl of phase 9's weights, whose call set on
                cuda must equal the .npz run's
  18 hp_votes   the legacy HP sliding predictor: 128 image pairs of 1000
@@ -300,6 +301,22 @@ Phases, each printing one JSON line:
                (examples/acceptance_run.run: train 0.2 Mb, call 0.5 Mb,
                uniform errors, 12 epochs) on cuda held to
                ACCEPTANCE_BARS per variant type
+ 23 tfm        the transformer window classifier at its published widths
+               through InferenceRunner at B=4096, bfloat16 and float32, on
+               cuda and over multi_devices(), with the benchmark cell's
+               pyramid scale (the probabilities follow the window): the
+               attention kernel's route (6 launches a block's batch)
+               against the twin route (twin_path), the root mean square of
+               the probabilities' gap within TFM_RMS_BARS and a route with
+               two heads swapped beyond them, windows/s of each; the
+               kernel alone at B=4096 against its twin (float32 1e-5, the
+               bfloat16 output within 2e-2 of the twin's float32 math and of
+               the bfloat16 twin), its time queued beside the bound, the
+               twin's (the eager attention it replaces) and
+               scaled_dot_product_attention's (the library column), which
+               of SDPA's backends take heads of width 13; one bfloat16
+               batch's costliest kernels and one encoder layer's parts
+               timed apart
 
 Then the kernel summary line (rows 1-4 with their HP figures, rows 1-4
 with their float32 figures, row 1 with the training eval's
@@ -702,9 +719,10 @@ def phase_kernel(device, card):
 
 
 def kernel_modules():
-    from pepper_tpu_torch.ops import gru_kernel, lstm_kernel, pileup_kernel
+    from pepper_tpu_torch.ops import (attention_kernel, gru_kernel,
+                                      lstm_kernel, pileup_kernel)
 
-    return (lstm_kernel, gru_kernel, pileup_kernel)
+    return (lstm_kernel, gru_kernel, pileup_kernel, attention_kernel)
 
 
 def kernel_wrappers():
@@ -3635,7 +3653,8 @@ def phase_call_hp(device, workdir, scene, hp_scene, threads=4):
     on the twin path on the card against the same cpu runs; (b) on phase
     9's scene,
     --model_type no_cnn and transformer (from the checkpoint's metadata),
-    cuda against cpu in float32, and a reference .pkl of phase 9's weights
+    cuda against cpu in float32 (the transformer's attention on its
+    kernel), and a reference .pkl of phase 9's weights
     against the .npz of the same weights on cuda.  Returns the HP runs'
     launches by kernel."""
     import torch
@@ -3676,9 +3695,12 @@ def phase_call_hp(device, workdir, scene, hp_scene, threads=4):
     npz = save_model(os.path.join(workdir, "model_lstm.npz"), call_params())
     pkl = write_reference_checkpoint(os.path.join(workdir, "model.pkl"),
                                      call_params())
+    # no_cnn launches no kernel; the transformer's attention runs on the
+    # attention kernel, one launch a layer
+    attention = {"no_cnn": (None, 0), "transformer": ("window_attention", 6)}
     table = [run for name, model in models.items() for run in (
-        (f"{name}_cuda_float32", "cuda", "float32", (), False, None, 0,
-         f"{name}_cpu_float32", model),
+        (f"{name}_cuda_float32", "cuda", "float32", (), False,
+         *attention[name], f"{name}_cpu_float32", model),
         (f"{name}_cpu_float32", "cpu", "float32", (), False, None, 0, None,
          model))]
     table += [
@@ -5604,11 +5626,213 @@ def phase_measure(device, card):
     return result
 
 
+# ---------------------------------------------------------------- phase 23
+
+# the runner's probabilities, kernel route against the twin route: the root
+# mean square of their gap (the kernel rounds its output once where the
+# bfloat16 twin rounds its scores and weights too; two heads swapped read
+# 3.5e-2 to 7.9e-2 in bfloat16 and float32, CPU, 512 windows, three seeds)
+TFM_RMS_BARS = {"float32": 2e-4, "bfloat16": 1e-2}
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                 "CUDNN_ATTENTION", "MATH")
+
+
+def tfm_tree():
+    """The transformer family at its published widths, seeded (torch's
+    Generator), with its norms' gammas and betas and its BatchNorm running
+    statistics moved off their initial 1 and 0, and the pyramid's weights
+    at the benchmark cell's scale, sqrt(6 / fan_in) (at torch's default
+    the probabilities hardly follow the window, and no route's fault
+    would show in them)."""
+    import torch
+    from pepper_tpu_torch.models.registry import make_family
+
+    gen = torch.Generator().manual_seed(23)
+    tree = make_family("transformer").init(gen)
+    for i in range(1, 6):
+        tree[f"linear_{i}"]["w"] = tree[f"linear_{i}"]["w"] * 6 ** 0.5
+
+    def moved(p, base):
+        return base + 0.1 * (2 * torch.rand(p.shape, generator=gen) - 1)
+
+    norms = [tree["bn1"], tree["bn2"]] + [
+        layer[name] for layer in tree["layers"].values()
+        for name in ("norm1", "norm2")]
+    for norm in norms:
+        for leaf, base in (("gamma", 1.0), ("beta", 0.0), ("mean", 0.0),
+                           ("var", 1.0)):
+            if leaf in norm:
+                norm[leaf] = moved(norm[leaf], base)
+    return tree
+
+
+def sdpa_column(qkv):
+    """scaled_dot_product_attention over the same heads (the library
+    column: the port never calls it): the time of its default pick, and for
+    each backend whether it takes heads of width 13 (its time) or why
+    not."""
+    import torch
+    import torch.nn.functional as F
+
+    B = qkv.shape[0]
+    q, k, v = (a.reshape(B, 33, 8, 13).transpose(1, 2)
+               for a in qkv.split(104, dim=-1))
+    out = {"default_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v), queued=True)}
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+    except ImportError as exc:
+        out["backends"] = f"torch.nn.attention unavailable: {exc}"
+        return out
+    backends = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            backends[name] = "not in this torch"
+            continue
+        try:
+            with sdpa_kernel(backend):
+                backends[name] = {"ms": cuda_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v),
+                    queued=True)}
+        except RuntimeError as exc:
+            backends[name] = "refused: " + str(exc).splitlines()[0][:160]
+    out["backends"] = backends
+    return out
+
+
+def tfm_layer_parts(x, layer):
+    """One encoder layer of the bfloat16 forward at B=4096 timed part by
+    part, queued (ms): what B27 works on beside the attention."""
+    import torch
+    from pepper_tpu_torch.models import alternates
+    from pepper_tpu_torch.models.rnn import linear
+    from pepper_tpu_torch.ops import attention_kernel
+
+    qkv = x @ layer["w_qkv"] + layer["b_qkv"]
+    attn = attention_kernel.window_attention(qkv, 8)
+    hidden = torch.relu(linear(x, layer["ffn_1"]))
+    parts = {
+        "qkv": lambda: x @ layer["w_qkv"] + layer["b_qkv"],
+        "attention_kernel": lambda: attention_kernel.window_attention(qkv, 8),
+        "out_proj": lambda: linear(attn, layer["out_proj"]),
+        "norm": lambda: alternates._layernorm(x + attn, layer["norm1"]),
+        "ffn_1_relu": lambda: torch.relu(linear(x, layer["ffn_1"])),
+        "ffn_2": lambda: linear(hidden, layer["ffn_2"]),
+        "layer": lambda: alternates._encoder_layer(x, layer, 8)}
+    with torch.inference_mode():
+        return {name: cuda_ms(fn, queued=True) for name, fn in parts.items()}
+
+
+def heads_swapped(qkv, num_heads):
+    """The kernel route with its first two heads' outputs swapped: a broken
+    route that phase 23's bars must see."""
+    from pepper_tpu_torch.ops import attention_kernel
+
+    out = attention_kernel.window_attention(qkv, num_heads)
+    B, T, D = out.shape
+    out = out.view(B, T, num_heads, D // num_heads).clone()
+    out[:, :, [0, 1]] = out[:, :, [1, 0]]
+    return out.reshape(B, T, D)
+
+
+def phase_tfm(device, card):
+    """Phase 23 (module docstring); returns its result."""
+    import torch
+    from pepper_tpu_torch.infer.runner import InferenceRunner
+    from pepper_tpu_torch.models.params import map_params
+    from pepper_tpu_torch.ops import attention_kernel
+
+    tree = tfm_tree()
+    images = np.random.RandomState(23).randint(
+        -125, 126, (B_SERVE, T, 26)).astype(np.int8)
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        for where, devices in (("cuda", [device]),
+                               ("devices", multi_devices())):
+            runner = InferenceRunner(
+                tree, batch_size=B_SERVE, compute_dtype=dtype,
+                model_type="transformer", device=device,
+                devices=devices if len(devices) > 1 else None)
+            probs, launches = counted(lambda: runner.predict_images(images))
+            check(launches == {"window_attention": 6 * len(devices)},
+                  f"transformer {dtype} on {where}: launches {launches}")
+            with twin_path():
+                twin, twin_launches = counted(
+                    lambda: runner.predict_images(images))
+                twin_s = wall_s(lambda: runner.predict_images(images))
+            check(not twin_launches, f"the twin route launched "
+                  f"{twin_launches}")
+            err = float(np.abs(probs - twin).max())
+            rms = float(np.sqrt(np.square(probs - twin).mean()))
+            check(np.isfinite(probs).all() and rms <= TFM_RMS_BARS[dtype],
+                  f"transformer {dtype} on {where}: root mean square "
+                  f"{rms} from the twin route")
+            with mock.patch.object(attention_kernel, "attention",
+                                   heads_swapped):
+                swapped = runner.predict_images(images)
+            swapped_rms = float(np.sqrt(np.square(swapped - twin).mean()))
+            check(swapped_rms > TFM_RMS_BARS[dtype],
+                  f"transformer {dtype} on {where}: two heads swapped read "
+                  f"{swapped_rms}, within the bar")
+            kernel_s = wall_s(lambda: runner.predict_images(images))
+            runs[f"{dtype}_{where}"] = {
+                "devices": [str(d) for d in devices], "launches": launches,
+                "max_abs_diff_from_twin_route": err,
+                "rms_diff_from_twin_route": rms,
+                "rms_bar": TFM_RMS_BARS[dtype],
+                "heads_swapped_rms": swapped_rms,
+                "argmax_agree": float((probs.argmax(1)
+                                       == twin.argmax(1)).mean()),
+                "kernel_route_windows_per_s": B_SERVE / kernel_s,
+                "twin_route_windows_per_s": B_SERVE / twin_s}
+    kernels = {}
+    gen = torch.Generator(device=device).manual_seed(23)
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOPS),
+                        (torch.float32, PEAK_F32_FLOPS)):
+        qkv = (0.5 * torch.randn((B_SERVE, T, 312), generator=gen,
+                                 device=device)).to(dtype)
+        out = attention_kernel.window_attention(qkv, 8)
+        twin = attention_kernel.window_attention_reference
+        exact = twin(qkv.float(), 8)
+        err = float((out.float() - exact).abs().max())
+        err_twin = float((out.float() - twin(qkv, 8).float()).abs().max())
+        bar = KERNEL_BARS[str(dtype).split(".")[1]]
+        check(err <= bar and err_twin <= KERNEL_BARS["bfloat16"],
+              f"window_attention {dtype}: {err} from the twin's float32 "
+              f"math, {err_twin} from the twin")
+        flops = B_SERVE * 2 * 2 * T * T * 104
+        nbytes = B_SERVE * T * 416 * qkv.element_size()
+        kernels[str(dtype).split(".")[1]] = {
+            "B": B_SERVE, "kernel_ms": cuda_ms(
+                lambda: attention_kernel.window_attention(qkv, 8),
+                queued=True),
+            "bound_ms": bound_ms(flops, nbytes, peak),
+            "bound_by": "bytes" if nbytes / PEAK_BYTES > flops / peak
+            else "operations",
+            "plain_ms": cuda_ms(lambda: twin(qkv, 8), queued=True),
+            "library": sdpa_column(qkv),
+            "max_abs_diff_from_twin_float32_math": err,
+            "max_abs_diff_from_twin": err_twin}
+    bf16 = map_params(lambda p: p.to(device, torch.bfloat16), tree)
+    x = torch.randn((B_SERVE, T, 104), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    layer = tfm_layer_parts(x, bf16["layers"]["0"])
+    runner = InferenceRunner(tree, batch_size=B_SERVE,
+                             compute_dtype="bfloat16",
+                             model_type="transformer", device=device)
+    top = profile_top(lambda: runner.predict_images(images))
+    result = {"runs": runs, "kernel": kernels, "layer_bfloat16_ms": layer,
+              "batch_bfloat16": top}
+    emit({"phase": "tfm", "card": card, **result})
+    return result
+
+
 # ---------------------------------------------------------------- main
 
 
 def run_phases(device, smi, only):
-    """Some of phases 3-22 alone (after phases 1 and 2), for a short run:
+    """Some of phases 3-23 alone (after phases 1 and 2), for a short run:
     no kernel summary and no result line.  Phases 13, 14 and 17 walk phase
     9's scene without running phase 9."""
     simple = {3: phase_kernel, 4: phase_transducer, 5: phase_kernel_static,
@@ -5616,7 +5840,7 @@ def run_phases(device, smi, only):
               8: phase_transducer_quantized, 10: phase_kernel_gru,
               15: phase_kernel_hp, 16: phase_transducer_hp,
               18: phase_hp_votes, 19: phase_multi_device, 20: phase_train,
-              21: phase_polish_train, 22: phase_measure}
+              21: phase_polish_train, 22: phase_measure, 23: phase_tfm}
     for number in sorted(set(simple) & only):
         simple[number](device, smi)
     if only & {9, 13, 14, 17}:
@@ -5642,15 +5866,15 @@ def run_phases(device, smi, only):
 
 
 def parse_phases(argv):
-    """`--phases 6,13`: the phases to run (3-22), or None for all."""
+    """`--phases 6,13`: the phases to run (3-23), or None for all."""
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases N[,N...] | "
                          "--static_float32_times DIR]")
     only = {int(n) for n in argv[1].split(",")}
-    if not only or not only <= set(range(3, 23)):
-        raise SystemExit(f"--phases takes numbers 3-22, got {argv[1]}")
+    if not only or not only <= set(range(3, 24)):
+        raise SystemExit(f"--phases takes numbers 3-23, got {argv[1]}")
     return only
 
 
@@ -5743,6 +5967,7 @@ def main(argv=()) -> int:
     train_eval_launches = timed("train", phase_train, device, smi)
     polish_train = timed("polish_train", phase_polish_train, device, smi)
     measure = timed("measure", phase_measure, device, smi)
+    timed("tfm", phase_tfm, device, smi)
     emit({"phase": "done", "seconds_total": round(time.time() - t0, 3),
           "phase_seconds": seconds})
 

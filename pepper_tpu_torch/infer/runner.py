@@ -107,14 +107,13 @@ class InferenceRunner:
         return quantize.transducer_infer_static(params, padded,
                                                 self.compute_dtype)
 
-    def _upload_dtype(self, images: np.ndarray):
+    @staticmethod
+    def _upload_dtype(images: np.ndarray):
         """int8 window images ship to the device as int8 (a quarter of the
-        float32 bytes) and are cast to the compute dtype on the device; the
-        cast is exact because every int8 value is exact in bfloat16 and
-        float32.  Other inputs ship as float32."""
-        if self.model_type == "lstm" and images.dtype == np.int8:
-            return np.int8
-        return np.float32
+        float32 bytes), for every family, and are cast to the compute dtype
+        on the device; the cast is exact because every int8 value is exact
+        in bfloat16 and float32.  Other inputs ship as float32."""
+        return np.int8 if images.dtype == np.int8 else np.float32
 
     def _bucket(self, n: int) -> int:
         """Pad size for an n-window chunk: the next power of two (floor

@@ -19,7 +19,8 @@ either package.  Parameters are nested dicts of tensors with the JAX
 package's keys and layout.  All run as plain PyTorch ops (the JAX package
 runs no Pallas kernel for them): the recurrences are models/rnn.py's eager
 lstm_scan and gru_scan, attention is written out as the JAX package
-writes it.
+writes it, but for the transformer's attention on a card outside
+training, which runs on the port's kernel (ops/attention_kernel.py).
 `*_params_from_state_dict` converts equivalently-shaped torch checkpoints.
 """
 
@@ -30,6 +31,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..ops import attention_kernel
 from ..options import ImageOptions
 from .rnn import (
     dropout,
@@ -257,25 +259,9 @@ def _layernorm(x, p, eps=1e-5):
 
 def _mha(x, lp, num_heads):
     """Self-attention, torch nn.MultiheadAttention semantics (packed qkv,
-    per-head scaled dot product)."""
-    B, T, D = x.shape
-    hd = D // num_heads
+    per-head scaled dot product: ops/attention_kernel.py's route)."""
     qkv = x @ lp["w_qkv"] + lp["b_qkv"]
-    q, k, v = qkv.split(D, dim=-1)
-
-    def heads(a):
-        return a.reshape(B, T, num_heads, hd).transpose(1, 2)
-
-    q, k, v = heads(q), heads(k), heads(v)
-    attn = torch.einsum("bhqd,bhkd->bhqk", q, k) / torch.sqrt(
-        torch.tensor(hd, dtype=x.dtype))
-    # the softmax in float32 at least (bfloat16 serving); float64 stays
-    attn = torch.softmax(
-        attn.to(torch.promote_types(attn.dtype, torch.float32)),
-        dim=-1).to(x.dtype)
-    out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
-    out = out.transpose(1, 2).reshape(B, T, D)
-    return linear(out, lp["out_proj"])
+    return linear(attention_kernel.attention(qkv, num_heads), lp["out_proj"])
 
 
 def _encoder_layer(x, lp, num_heads, generator=None, dropout_rate=0.1):

@@ -22,6 +22,7 @@ from typing import Callable
 import torch
 
 from ..options import ImageOptions
+from ..utils import profiling
 from .params import map_params
 
 MODEL_TYPES = ("lstm", "no_cnn", "transformer")
@@ -100,11 +101,17 @@ def make_family(name: str,
             return transformer_logits(params, x, config=config, train=train,
                                       generator=generator)
 
+        served = _make_infer(logits)
+
+        # the forward's enqueue is one span
+        def infer(params, x, compute_dtype=torch.float32):
+            with profiling.span("transformer.forward"):
+                return served(params, x, compute_dtype)
+
         return ModelFamily(
             name, lambda generator: init_transformer_params(generator,
                                                             config),
-            logits, _make_infer(logits),
-            calibrate=transformer_calibrate_batchnorm)
+            logits, infer, calibrate=transformer_calibrate_batchnorm)
 
     raise ValueError(
         f"unknown model_type {name!r}; expected one of {MODEL_TYPES}")

@@ -12,9 +12,9 @@ and may export further launchers beside it (ENTRIES).
 
 KERNELS lists every kernel with the headers that go into its build stamp
 and the argument types of its launcher; the wrappers that call them live
-in lstm_kernel.py, gru_kernel.py and pileup_kernel.py, and the dtype
-codes, the H limit and the int8 weight layout both RNN families read are
-here.  A failed build or launch raises: there is no fallback.
+in lstm_kernel.py, gru_kernel.py, pileup_kernel.py and attention_kernel.py,
+and the dtype codes, the H limit and the int8 weight layout both RNN
+families read are here.  A failed build or launch raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -61,6 +61,7 @@ KERNELS = {
          _I, _I, _I, _P]),
     "gru_recurrence": (_GRU_CORE, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "pileup_histogram": ((), [_P, _P, _P, _L, _P, _I, _I, _P]),
+    "window_attention": ((), [_I, _P, _P, _I, _P]),
 }
 # further launchers a kernel's library exports, <entry>_launch: entry ->
 # (the kernel, argument types)

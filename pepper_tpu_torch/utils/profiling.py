@@ -11,12 +11,15 @@ caller whose stage ends on device work ends the block with a host fetch
 Inside the served paths, `span` marks each phase of a call (the runner's
 dispatch and resolve, consensus_predict's batches) while a torch.profiler
 session is active, and nothing otherwise; `spans()` and `gc_spans()`
-export what it recorded.  `count_rows` keeps the rows each bucketing layer
-padded, and `count_resolve` the runner's resolves that found their batch
-done, always."""
+export what it recorded; `device_span` times a launch on the device
+between two CUDA events in the same sessions, and `device_spans` exports
+those times.  `count_rows` keeps the rows each bucketing layer padded, and
+`count_resolve` the runner's resolves that found their batch done,
+always."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import itertools
@@ -76,7 +79,7 @@ class StageTimer:
 PORT_KERNELS = ("core_kernel", "core_smem_kernel", "core_stream_kernel",
                 "f32_core_kernel", "pileup_histogram_kernel",
                 "projection_f32_kernel", "projection_kernel",
-                "projection_narrow_kernel")
+                "projection_narrow_kernel", "window_attention_kernel")
 
 
 def port_kernel_events(names) -> int:
@@ -134,10 +137,11 @@ def kernel_launches() -> dict:
     wrapper name, the kernels never launched left out (each wrapper adds
     one where it launches its kernel; the CPU's plain versions count
     nothing)."""
-    from ..ops import gru_kernel, lstm_kernel, pileup_kernel
+    from ..ops import attention_kernel, gru_kernel, lstm_kernel, pileup_kernel
 
     counts = {name: getattr(module, name).launches
-              for module in (lstm_kernel, gru_kernel, pileup_kernel)
+              for module in (lstm_kernel, gru_kernel, pileup_kernel,
+                             attention_kernel)
               for name in module.KERNELS}
     return {name: count for name, count in counts.items() if count}
 
@@ -248,9 +252,12 @@ def new_batch():
 
 
 def clear_spans() -> None:
-    """Forgets every recorded span (trace() does it when it starts)."""
+    """Forgets every recorded span, the device spans too (trace() does it
+    when it starts)."""
     global _store
     _store = array("q")
+    _device_pending.clear()
+    _device_store.clear()
 
 
 def records() -> list:
@@ -289,6 +296,80 @@ def gc_spans() -> dict:
             out.setdefault(_names[_store[r[3] * _FIELDS]], []).append(
                 (r[1] * 1e-9, r[2] * 1e-9))
     return out
+
+
+# ------------------------------------------------------ device spans
+#
+# A device span is a pair of CUDA events recorded on the current stream
+# around a launch, only while a torch.profiler session is active.  A pair
+# waits in _device_pending, which holds only the pairs still in flight,
+# until the next device span or device_spans() finds its end completed;
+# its duration then goes into one flat array of seconds a name, which the
+# collector does not walk, and its events back to _free_events for reuse.
+
+_device_pending: collections.deque = collections.deque()
+_device_store: dict = {}    # name id -> array("d") of seconds
+_free_events: list = []
+
+
+def _timing_event():
+    if _free_events:
+        return _free_events.pop()
+    import torch
+
+    return torch.cuda.Event(enable_timing=True)
+
+
+def _resolve_device(block: bool) -> None:
+    """Moves the pending pairs whose end has completed (all of them, waiting
+    for each, with block) into _device_store, oldest first."""
+    while _device_pending:
+        name, start, end = _device_pending[0]
+        if block:
+            end.synchronize()
+        elif not end.query():
+            return
+        _device_pending.popleft()
+        _device_store.setdefault(name, array("d")).append(
+            start.elapsed_time(end) * 1e-3)
+        _free_events.extend((start, end))
+
+
+class _DeviceSpan:
+    __slots__ = ("name", "start")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        _resolve_device(block=False)
+        self.start = _timing_event()
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        end = _timing_event()
+        end.record()
+        _device_pending.append((_name_id(self.name), self.start, end))
+        return False
+
+
+def device_span(name: str):
+    """with device_span("transformer.attention"): launch(...) times the
+    block's work on the current CUDA stream between two events, while a
+    profiler session is active; otherwise it costs one check.  It records
+    no host span."""
+    if not _torch_profiler._is_profiler_enabled:
+        return _OFF
+    return _DeviceSpan(name)
+
+
+def device_spans() -> dict:
+    """Every device span's duration as {name: [seconds, ...]}, in the order
+    they were recorded; waits for the ones still in flight."""
+    _resolve_device(block=True)
+    return {_names[name]: list(seconds)
+            for name, seconds in _device_store.items()}
 
 
 # ------------------------------------------------------ padded rows

@@ -16,7 +16,13 @@ the static / static_rec and dynamic int8 modes.  The GRU kernels of polish
 take the same kernel bars (the static kernel's float32 hT 1e-5, 2e-2 with
 a bfloat16 W_hh); the consensus on the card is held to its CPU path at
 votes 1e-4 (float) and 5e-3 (static int8), with equal labels wherever the
-CPU's top-two vote margin exceeds 0.05.
+CPU's top-two vote margin exceeds 0.05.  The transformer's attention
+kernel is held to its twin's math in float32 over the same inputs (float32
+1e-5; bfloat16 2e-2, the output's rounding) and to the bfloat16 twin at
+2e-2 (the twin rounds its scores and weights to bfloat16 as it goes); the
+transformer runner, with the benchmark cell's weights, by the root mean
+square of its probabilities' gap from the twin route's and the CPU's
+(float32 2e-4, bfloat16 1e-2), which two heads swapped exceed.
 """
 
 import numpy as np
@@ -25,7 +31,7 @@ import torch
 
 from pepper_tpu_torch.infer.runner import InferenceRunner
 from pepper_tpu_torch.models import transducer
-from pepper_tpu_torch.ops import lstm_kernel
+from pepper_tpu_torch.ops import attention_kernel, lstm_kernel
 from pepper_tpu_torch.ops.int8_matmul import int8_matmul
 from pepper_tpu_torch.ops.pileup_ref import CandidateWindow
 
@@ -1711,3 +1717,118 @@ def test_trace_keeps_every_kernel_event_across_sessions(device, tmp_path):
             names = [e.get("name", "") for e in events
                      if e.get("cat") == "kernel"]
             assert profiling.port_kernel_events(names) == 6
+
+
+# buckets from the runner's smallest to its serving batch, and odd counts
+# that leave the last CTA's second window empty
+ATTENTION_BATCHES = [256, 257, 1001, 4096]
+
+
+def _qkv(device, dtype, B, padding):
+    """(B, 33, 312) packed qkv; its last `padding` rows zero, as a zero
+    window's attention input has no data (its output is zero too)."""
+    gen = torch.Generator(device=device).manual_seed(B)
+    qkv = 0.5 * torch.randn((B, 33, 312), generator=gen, device=device)
+    qkv[B - padding:] = 0
+    return qkv.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", ATTENTION_BATCHES)
+def test_window_attention_kernel_matches_twin(device, dtype, B):
+    padding = B // 8
+    qkv = _qkv(device, dtype, B, padding)
+    before = attention_kernel.window_attention.launches
+    out = attention_kernel.window_attention(qkv, 8)
+    assert attention_kernel.window_attention.launches == before + 1
+    twin = attention_kernel.window_attention_reference
+    ref = twin(qkv.float(), 8)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (B, 33, 104)
+    torch.testing.assert_close(out.float(), ref, atol=BARS[dtype], rtol=0)
+    torch.testing.assert_close(out.float(), twin(qkv, 8).float(),
+                               atol=BARS[torch.bfloat16], rtol=0)
+    assert not out[B - padding:].any()
+
+
+def test_window_attention_kernel_refuses_other_shapes(device):
+    with pytest.raises(ValueError, match="window_attention takes"):
+        attention_kernel.window_attention(
+            torch.zeros((4, 21, 576), device=device), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention_kernel.window_attention(
+            torch.zeros((312, 33, 4), device=device).transpose(0, 2), 8)
+
+
+def _heads_swapped(qkv, num_heads):
+    """The kernel route with its first two heads' outputs swapped."""
+    out = attention_kernel.window_attention(qkv, num_heads)
+    B, T, D = out.shape
+    out = out.view(B, T, num_heads, D // num_heads).clone()
+    out[:, :, [0, 1]] = out[:, :, [1, 0]]
+    return out.reshape(B, T, D)
+
+
+def _rms(a, b):
+    return float(np.sqrt(np.square(a - b).mean()))
+
+
+@pytest.mark.parametrize("compute_dtype,bar", [("float32", 2e-4),
+                                               ("bfloat16", 1e-2)])
+def test_transformer_runner_on_the_card_matches_the_cpu(device,
+                                                        compute_dtype, bar):
+    """The transformer family through InferenceRunner with the
+    tfm.stream.bf16 cell's weights and windows (its pyramid at the scale
+    where the probabilities follow the window): its six attention launches
+    a batch on the kernel, device-timed inside a profiler session; the
+    root mean square of the probabilities' gap from the twin route's on the
+    card and from the CPU's within `bar`, and a route with two heads
+    swapped beyond it (3.5e-2 to 7.9e-2 on the CPU)."""
+    from unittest import mock
+
+    from benchmark import spec
+    from pepper_tpu_torch.utils import profiling
+
+    cell = spec.load_cell("tfm.stream.bf16")
+    cell.traffic.update(rows_per_device=300, pool=1)
+    entry = spec.load_module("entries", cell.config["entry"]).Entry(
+        cell, 8, [torch.device("cpu")])
+    entry.inputs()
+    tree, images = entry._weights(), entry.images[0]
+    cpu = InferenceRunner(tree, batch_size=512, compute_dtype=compute_dtype,
+                          model_type="transformer", device="cpu")
+    card = InferenceRunner(tree, batch_size=512, compute_dtype=compute_dtype,
+                           model_type="transformer", device=device)
+    before = attention_kernel.window_attention.launches
+    profiling.clear_spans()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        probs = card.predict_images(images)
+    assert attention_kernel.window_attention.launches - before == 6
+    times = profiling.device_spans()["transformer.attention"]
+    assert len(times) == 6 and all(t > 0 for t in times)
+    assert len(profiling.spans()["transformer.forward"]) == 1
+    profiling.clear_spans()
+    with mock.patch.object(attention_kernel, "window_attention",
+                           attention_kernel.window_attention_reference):
+        twin = card.predict_images(images)
+    assert attention_kernel.window_attention.launches - before == 6
+    with mock.patch.object(attention_kernel, "attention", _heads_swapped):
+        swapped = card.predict_images(images)
+    assert _rms(probs, twin) <= bar
+    assert _rms(probs, cpu.predict_images(images)) <= bar
+    assert _rms(swapped, twin) > bar
+
+
+def test_attention_route_takes_the_twin_where_a_gradient_flows(device):
+    """Training differentiates the twin: a qkv that requires grad takes it
+    on the card while grad mode is on, and the kernel is not launched;
+    under no_grad the same qkv takes the kernel."""
+    qkv = _qkv(device, torch.float32, 256, 0).requires_grad_()
+    before = attention_kernel.window_attention.launches
+    out = attention_kernel.attention(qkv, 8)
+    assert attention_kernel.window_attention.launches == before
+    assert out.grad_fn is not None
+    with torch.no_grad():
+        attention_kernel.attention(qkv, 8)
+    assert attention_kernel.window_attention.launches == before + 1

@@ -267,10 +267,12 @@ def test_kernel_stamp_covers_every_header_it_includes(name):
 
 
 def test_every_kernel_has_a_wrapper_with_a_twin_and_a_count():
-    from pepper_tpu_torch.ops import gru_kernel, pileup_kernel
+    from pepper_tpu_torch.ops import (attention_kernel, gru_kernel,
+                                      pileup_kernel)
 
     modules = {name: module
-               for module in (lstm_kernel, gru_kernel, pileup_kernel)
+               for module in (lstm_kernel, gru_kernel, pileup_kernel,
+                              attention_kernel)
                for name in module.KERNELS}
     # each wrapper launches the library of its name, or the one its module
     # names for it
